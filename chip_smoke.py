@@ -1,0 +1,483 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch/CUDA port of BANG on one NVIDIA GPU (H100), end to end.
+
+    python3 chip_smoke.py
+
+Phases, each timed; any failure exits non-zero:
+
+  1. the card: name and power limit (nvidia-smi), TF32 off;
+  2. the build: every kernel under src/repro_torch/csrc, compiled with nvcc;
+  3. kernel vs plain: each CUDA kernel and its plain PyTorch version on the
+     same tensors on the card, at the main path's shapes (B=1024, R=64,
+     t=64, m=32, n=10**6, d=128, C=104), with times, bounds and a library
+     yardstick;
+  4. the main path: the in-memory BANG search (fused kernels, exact
+     re-rank) on a synthetic corpus with the shape of SIFT1M (n = 10**6,
+     d = 128, the ANN_SIFT1M set of the BIGANN/texmex corpus; clusters of
+     intrinsic dimension 16, queries held out from the same draw), 10,000
+     queries in batches of 1,024, with launch counts, recall@10 and QPS;
+     plus a small corpus searched on the card and on the CPU, ids equal.
+
+Kernel times are taken cold: the timed calls cycle through copies of the
+large inputs that together exceed the H100's 50 MB L2, as on the main path,
+where every hop brings new tables and code rows. Bounds count the bytes the
+function needs for this run's data (the 32-byte sectors of the tables that
+the codes look up, not whole tables).
+
+The graph is a harness graph built here on the card (per point the R/2
+exact nearest neighbours and R/2 seeded random ids): the port's Vamana build
+is a later slice. The last two lines of output are the card's name and power
+limit, then {"ok": true, "device": {...}}.
+"""
+from __future__ import annotations
+
+import itertools
+import json
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import numpy as np
+
+ROOT = Path(__file__).resolve().parent
+
+N, D, M, R, T, K = 1_000_000, 128, 32, 64, 64, 10
+N_QUERIES, BATCH, SEED = 10_000, 1024, 0
+INTRINSIC_DIM = 16             # per-cluster subspace of the synthetic corpus
+COPIES = 4                     # input copies cycled by timed calls (> L2 together)
+SECTOR = 32                    # bytes: the unit in which the card reads memory
+HBM_BYTES_PER_S = 3.35e12      # H100 SXM data sheet
+FP32_OPS_PER_S = 67e12         # H100 SXM float32 outside the tensor cores
+
+
+def log(msg: str) -> None:
+    print(msg, flush=True)
+
+
+def card_line() -> str:
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        check=True, capture_output=True, text=True, timeout=60,
+    ).stdout.strip().splitlines()[0]
+
+
+def time_ms(fn, arg_sets: list[tuple], reps: int = 20) -> float:
+    """Device ms of one call of `fn`: CUDA events around `reps` calls, after
+    a warm-up. Call i takes the arguments `arg_sets[i % len(arg_sets)]`, so
+    copies of the inputs that together exceed L2 make every call read them
+    from memory. A spin kernel holds the device while the host queues the
+    calls, so the events time the device's work and not the host's Python
+    between launches."""
+    import torch
+
+    args = itertools.cycle(arg_sets)
+    fn(*next(args))
+    torch.cuda.synchronize()
+    a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(200_000_000)     # about 0.1 s of spinning at the H100's clocks
+    a.record()
+    for _ in range(reps):
+        fn(*next(args))
+    b.record()
+    b.synchronize()
+    return a.elapsed_time(b) / reps
+
+
+def copies(*xs) -> list[tuple]:
+    """`COPIES` argument sets: the tensors themselves, then clones."""
+    return [xs] + [tuple(x.clone() for x in xs) for _ in range(COPIES - 1)]
+
+
+def table_sectors(codes, mask) -> int:
+    """32-byte sectors of the (B, m, 256) f32 tables that ADC of `codes`
+    (B, R, m) reads where `mask` (B, R) holds: the least table traffic."""
+    import torch
+
+    B, _, m = codes.shape
+    rows = torch.arange(B * m, device=codes.device).reshape(B, 1, m) * (256 * 4 // SECTOR)
+    keys = (rows + codes.long() * 4 // SECTOR)[mask]
+    hit = torch.zeros(B * m * 256 * 4 // SECTOR, dtype=torch.bool, device=codes.device)
+    hit[keys.flatten()] = True
+    return int(hit.sum())
+
+
+def bound_ms(nbytes: float, ops: float) -> tuple[float, str]:
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / FP32_OPS_PER_S
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def exact(a, b) -> None:
+    import torch
+
+    if not torch.equal(a, b):
+        raise AssertionError(f"kernel and plain version differ: {a.flatten()[:8]} vs {b.flatten()[:8]}")
+
+
+# --------------------------------------------------------------- phase 3
+def check_kernels(dev) -> list[dict]:
+    import torch
+
+    from repro_torch.core.worklist import Worklist
+    from repro_torch.kernels import common
+    from repro_torch.kernels.pq_adc import ops as adc_ops
+    from repro_torch.kernels.rerank_l2 import ops as rr_ops
+    from repro_torch.kernels.search_step import ops as step_ops
+
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    B, C = BATCH, int(1.5 * T) + 8
+    rows = []
+
+    # K1: one fused hop at the main path's state sizes.
+    codes = torch.randint(0, 256, (N, M), generator=g, device=dev, dtype=torch.uint8)
+    nbrs = torch.randint(0, N, (B, R), generator=g, device=dev, dtype=torch.int32)
+    fresh = torch.rand((B, R), generator=g, device=dev) > 0.3
+    wd = torch.sort(torch.rand((B, T), generator=g, device=dev) * 5000, dim=-1).values
+    wi = torch.randperm(B * T, generator=g, device=dev).to(torch.int32).reshape(B, T) + N
+    wv = torch.rand((B, T), generator=g, device=dev) > 0.5
+    active = torch.rand((B,), generator=g, device=dev) > 0.2
+    wl = Worklist(wd, wi, wv)
+    err = 0.0
+    for integer in (True, False):
+        if integer:
+            table = torch.randint(0, 1000, (B, M, 256), generator=g, device=dev).float()
+        else:
+            table = torch.rand((B, M, 256), generator=g, device=dev) ** 2 * 4
+        for eager in (True, False):
+            kern = step_ops.fused_step(table, codes, wl, nbrs, fresh, active, eager=eager)
+            plain = step_ops.step_ref(table, codes, nbrs, fresh, wd, wi, wv, active, eager=eager)
+            for a, b in zip((kern[0].dists, kern[0].ids, kern[0].visited, kern[1], kern[2]), plain):
+                exact(a, b)
+            err = max(err, float((kern[0].dists - plain[0]).nan_to_num().abs().max()))
+    torch.cuda.synchronize()
+    sets = copies(table, codes)
+    ms = time_ms(lambda tb, cd: step_ops.fused_step(tb, cd, wl, nbrs, fresh, active), sets)
+    plain_ms = time_ms(lambda tb, cd: step_ops.step_ref(tb, cd, nbrs, fresh, wd, wi, wv, active),
+                       sets, reps=5)
+    # One block per SM: the latency of one block's hop, whatever the batch.
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count if dev.type == "cuda" else 8
+    one = [x[:sms] for x in (nbrs, fresh, wd, wi, wv, active)]
+    one_wave_ms = time_ms(lambda tb, cd: step_ops.fused_step(tb[:sms], cd, Worklist(*one[2:5]), one[0],
+                                                             one[1], one[5]), sets)
+    rp = common.next_pow2(R)
+    p = common.next_pow2(T + rp)
+    n_fresh = int(fresh.sum())
+    # Inputs: the table sectors the fresh codes look up, the fresh code rows,
+    # neighbours, fresh flags, worklists and active flags; outputs: worklists,
+    # u_next and active.
+    sectors = table_sectors(codes[nbrs.long()], fresh)
+    nbytes = (sectors * SECTOR + n_fresh * M + B * R * 5 + B * T * 9 + B
+              + B * T * 9 + B * 5)
+    cmp_sort = rp // 2 * (rp.bit_length() - 1) * rp.bit_length() // 2
+    cmp_merge = p // 2 * (p.bit_length() - 1)
+    ops = n_fresh * M + B * 2 * (cmp_sort + cmp_merge)
+    b_ms, b_by = bound_ms(nbytes, ops)
+    rows.append(dict(name="search_step", route="cuda", source="src/repro_torch/csrc/search_step.cu",
+                     replaces="src/repro/kernels/search_step/search_step.py:311",
+                     max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                     library_ms=None, library_call=None, ms_one_block_per_sm=one_wave_ms))
+    log(f"[kernels] search_step (fused hop, eager+lazy, integer and float tables): bit-equal to "
+        f"plain (tolerance 0); {ms:.4f} ms vs plain {plain_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}: "
+        f"{n_fresh} fresh lanes, {sectors} table sectors = "
+        f"{100 * sectors * SECTOR / (table.numel() * 4):.1f}% of the tables); "
+        f"B={sms} (one block per SM) {one_wave_ms:.4f} ms")
+
+    # K2: the medoid seed, R = 1 candidate per query.
+    table = torch.rand((B, M, 256), generator=g, device=dev) ** 2 * 4
+    seed_codes = codes[torch.randint(0, N, (B, 1), generator=g, device=dev)].to(torch.int32)
+    valid = torch.ones((B, 1), dtype=torch.bool, device=dev)
+    out = adc_ops.adc(table, seed_codes, valid)
+    ref = adc_ops.adc_ref(table, seed_codes, valid)
+    exact(out, ref)
+    sets = copies(table)
+    ms = time_ms(lambda tb: adc_ops.adc(tb, seed_codes, valid), sets)
+    plain_ms = time_ms(lambda tb: adc_ops.adc_ref(tb, seed_codes, valid), sets)
+    # Yardstick: one embedding_bag "sum" over the flattened table (indices
+    # prepared outside the timed call; no +inf masking).
+    offs = (torch.arange(B, device=dev)[:, None, None] * M * 256
+            + torch.arange(M, device=dev)[None, None, :] * 256 + seed_codes).reshape(-1, M)
+    bag = torch.nn.functional.embedding_bag
+    lib = bag(offs, table.reshape(-1, 1), mode="sum").reshape(B, 1)
+    if not torch.allclose(lib, ref, rtol=1e-5, atol=1e-5):
+        raise AssertionError("embedding_bag yardstick disagrees with the ADC")
+    lib_ms = time_ms(lambda tb: bag(offs, tb.reshape(-1, 1), mode="sum"), sets)
+    # Inputs: the m looked-up table sectors per query, the codes and valid
+    # flags; output: one distance per query.
+    sectors = table_sectors(seed_codes, valid)
+    b_ms, b_by = bound_ms(sectors * SECTOR + seed_codes.numel() * 4 + B + B * 4, B * M)
+    rows.append(dict(name="pq_adc", route="cuda", source="src/repro_torch/csrc/pq_adc.cu",
+                     replaces="src/repro/kernels/pq_adc/pq_adc.py:98",
+                     max_abs_err=float((out - ref).abs().max()), ms=ms, plain_ms=plain_ms,
+                     bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms,
+                     library_call="torch.nn.functional.embedding_bag(mode='sum')"))
+    log(f"[kernels] pq_adc (B={B}, R=1, m={M}): bit-equal to plain; {ms:.4f} ms vs plain "
+        f"{plain_ms:.4f} ms, embedding_bag {lib_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
+
+    # K3: exact re-rank distances of C = iters() candidates per query.
+    q = torch.randn((B, D), generator=g, device=dev)
+    v = torch.randn((B, C, D), generator=g, device=dev) + q[:, None, :]
+    out = rr_ops.exact_sq_dists(q, v)
+    ref = rr_ops.exact_sq_dists_ref(q, v)
+    exact(out, ref)
+    sets = copies(v)
+    ms = time_ms(lambda vv: rr_ops.exact_sq_dists(q, vv), sets)
+    plain_ms = time_ms(lambda vv: rr_ops.exact_sq_dists_ref(q, vv), sets, reps=5)
+    # Yardstick: one baddbmm computing ||q||^2+||v||^2-2<v,q> from the norms
+    # (norms prepared outside the timed call).
+    norms = ((q * q).sum(-1)[:, None] + (v * v).sum(-1))[:, :, None]
+    lib = torch.baddbmm(norms, v, q[:, :, None], alpha=-2.0)[..., 0]
+    if not torch.allclose(lib, ref, rtol=1e-4, atol=1e-3):
+        raise AssertionError("baddbmm yardstick disagrees with the re-rank distances")
+    lib_ms = time_ms(lambda vv: torch.baddbmm(norms, vv, q[:, :, None], alpha=-2.0), sets)
+    b_ms, b_by = bound_ms(v.numel() * 4 + q.numel() * 4 + B * C * 4, B * C * D * 6)
+    rows.append(dict(name="rerank_l2", route="cuda", source="src/repro_torch/csrc/rerank_l2.cu",
+                     replaces="src/repro/kernels/rerank_l2/rerank_l2.py:54",
+                     max_abs_err=float((out - ref).abs().max()), ms=ms, plain_ms=plain_ms,
+                     bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms,
+                     library_call="torch.baddbmm (norms precomputed)"))
+    log(f"[kernels] rerank_l2 (B={B}, C={C}, d={D}): bit-equal to plain; {ms:.4f} ms vs plain "
+        f"{plain_ms:.4f} ms, baddbmm {lib_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
+    return rows
+
+
+# --------------------------------------------------------------- phase 4
+def harness_graph(x, r: int, seed: int, chunk: int = 1024):
+    """Per point: the r/2 exact nearest neighbours (self excluded) and r/2
+    seeded random ids. A stand-in for the Vamana graph; medoid = the point
+    nearest the mean."""
+    import torch
+
+    n = x.shape[0]
+    xn = (x * x).sum(-1)
+    adj = torch.empty((n, r), dtype=torch.int32, device=x.device)
+    for s in range(0, n, chunk):
+        xc = x[s : s + chunk]
+        d2 = xn[s : s + chunk, None] + xn[None, :] - 2.0 * torch.matmul(xc, x.T)
+        rows = torch.arange(xc.shape[0], device=x.device)
+        d2[rows, rows + s] = float("inf")
+        adj[s : s + chunk, : r // 2] = torch.topk(d2, r // 2, dim=-1, largest=False).indices.to(torch.int32)
+    g = torch.Generator(device=x.device).manual_seed(seed)
+    adj[:, r // 2 :] = torch.randint(0, n, (n, r - r // 2), generator=g, device=x.device, dtype=torch.int32)
+    medoid = int(torch.argmin(((x - x.mean(0)) ** 2).sum(-1)))
+    return adj, medoid
+
+
+def main_path(dev, card: str) -> dict:
+    import torch
+
+    from repro_torch import BangIndex, SearchConfig, brute_force_knn, recall_at_k
+    from repro_torch.core import pq
+    from repro_torch.data import gaussian_mixture
+    from repro_torch.kernels.pq_adc import ops as adc_ops
+    from repro_torch.kernels.rerank_l2 import ops as rr_ops
+    from repro_torch.kernels.search_step import ops as step_ops
+
+    t0 = time.perf_counter()
+    # Base and query points from one draw, as SIFT1M's query set is disjoint
+    # from its base set but drawn from the same distribution.
+    both = gaussian_mixture(N + N_QUERIES, D, seed=SEED, intrinsic_dim=INTRINSIC_DIM)
+    data, queries = both[:N], both[N:]
+    x = torch.from_numpy(data).to(dev)
+    log(f"[main] corpus n={N} d={D} (SIFT1M shape, gaussian_mixture seed {SEED}, intrinsic_dim "
+        f"{INTRINSIC_DIM}), {N_QUERIES} held-out queries: {time.perf_counter() - t0:.1f} s")
+
+    t0 = time.perf_counter()
+    codec = pq.train_pq(x, M)
+    codes = pq.pq_encode(codec, x)
+    torch.cuda.synchronize()
+    log(f"[main] train_pq m={M} + pq_encode: {time.perf_counter() - t0:.1f} s "
+        f"(n*m = {N * M / 2**20:.1f} MiB of codes)")
+
+    t0 = time.perf_counter()
+    adj, medoid = harness_graph(x, R, SEED)
+    torch.cuda.synchronize()
+    log(f"[main] harness graph (not Vamana: {R // 2} exact NN + {R - R // 2} random ids per point, "
+        f"medoid {medoid}): {time.perf_counter() - t0:.1f} s")
+
+    t0 = time.perf_counter()
+    gt100 = brute_force_knn(x, queries, 100, device=dev)
+    gt = gt100[:, :K]
+    # How far the 10th and the 100th true neighbours stand apart: near 1, the
+    # neighbours are almost equidistant and PQ distances cannot rank them.
+    qx = torch.from_numpy(queries).to(dev)
+    d2 = [((x[torch.from_numpy(gt100[:, j]).to(dev)] - qx) ** 2).sum(-1) for j in (K - 1, 99)]
+    contrast = float((d2[1] / d2[0]).mean())
+    log(f"[main] brute-force ground truth: {time.perf_counter() - t0:.1f} s; mean "
+        f"d^2(100th NN) / d^2(10th NN) = {contrast:.4f}")
+
+    index = BangIndex.from_arrays(codec.codebooks, codes, adj, medoid, x, device=dev)
+    cfg = SearchConfig()
+    # Warm-up batch (first-use allocations), not counted.
+    index.search(queries[:BATCH], K, cfg=cfg, kernel_mode="fused")
+    torch.cuda.synchronize()
+
+    step_ops.fused_step.launches = 0
+    adc_ops.adc.launches = 0
+    rr_ops.exact_sq_dists.launches = 0
+    ids_all, walls, iters, hops = [], [], [], []
+    t_all = time.perf_counter()
+    for s in range(0, N_QUERIES, BATCH):
+        ids, dists, st = index.search(queries[s : s + BATCH], K, cfg=cfg, kernel_mode="fused",
+                                      return_stats=True)
+        ids_all.append(ids.cpu().numpy())
+        walls.append(st.wall_s)
+        iters.append(st.n_iters)
+        hops.append(st.mean_hops)
+        if s == 0:
+            first = (ids, dists)
+    total_s = time.perf_counter() - t_all
+    launches = {"search_step": step_ops.fused_step.launches, "pq_adc": adc_ops.adc.launches,
+                "rerank_l2": rr_ops.exact_sq_dists.launches}
+    for name, cnt in launches.items():
+        if cnt <= 0:
+            raise AssertionError(f"the main path launched no {name} kernel")
+    n_batches = len(walls)
+
+    ids = np.concatenate(ids_all)
+    if ids.shape != (N_QUERIES, K) or (ids < 0).any() or (ids >= N).any():
+        raise AssertionError(f"bad ids: shape {ids.shape}")
+    rec = recall_at_k(ids, gt)
+
+    # Checks: the plain-torch path gives the same ids on the first batch, and
+    # the reported distances are the exact squared L2 of the returned ids.
+    ref_ids, _ = index.search(queries[:BATCH], K, cfg=cfg, kernel_mode="reference")
+    if not torch.equal(ref_ids, first[0]):
+        raise AssertionError("fused and reference kernel modes returned different ids")
+    qd = torch.from_numpy(queries[:BATCH]).to(dev).double()
+    true_d = ((x[first[0].long()].double() - qd[:, None, :]) ** 2).sum(-1)
+    if not (torch.isfinite(first[1]).all() and torch.allclose(first[1].double(), true_d, rtol=1e-5, atol=2e-3)):
+        raise AssertionError("re-ranked distances are not the exact squared L2 of the ids")
+
+    res = dict(recall_at_10=rec, qps=N_QUERIES / total_s, mean_n_iters=float(np.mean(iters)),
+               mean_hops=float(np.mean(hops)), nn_contrast=contrast,
+               batch_wall_ms=[w * 1e3 for w in walls], launches=launches,
+               launches_per_batch={k: v / n_batches for k, v in launches.items()})
+    log(f"[main] inmem fused search, SearchConfig() (t={cfg.t}, bloom_z={cfg.bloom_z}, eager), "
+        f"k={K}, {N_QUERIES} queries / {n_batches} batches on {card}: recall@10 {rec:.4f}, "
+        f"QPS {res['qps']:.1f}, mean n_iters {res['mean_n_iters']:.1f} (cap {cfg.iters() - 1}), "
+        f"mean hops per query {res['mean_hops']:.2f}, "
+        f"batch wall ms {[round(w * 1e3, 2) for w in walls]}")
+    log(f"[main] launches in the main-path run: {launches}; first batch ids equal to "
+        f"kernel_mode='reference'; distances exact L2 of the ids")
+    res["device_busy_ms_per_batch"] = profile_batch(index, queries[:BATCH], cfg,
+                                                    float(np.mean(res["batch_wall_ms"])))
+    return res
+
+
+def profile_batch(index, queries, cfg, batch_wall_ms: float) -> float | None:
+    """Device time by kernel over one batch (torch.profiler). Returns the
+    device's busy ms, or None where the profiler saw no device time.
+
+    Only device-side events are summed (an aten op's own entry repeats its
+    kernels' time). The profiler slows the host many times over, so the busy
+    time is set against `batch_wall_ms`, the mean wall of unprofiled batches.
+    """
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        index.search(queries, K, cfg=cfg, kernel_mode="fused")
+        torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    def self_us(e) -> float:   # the name differs across torch versions
+        return getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
+
+    events = sorted((e for e in prof.key_averages()
+                     if e.device_type == DeviceType.CUDA and self_us(e) > 0), key=lambda e: -self_us(e))
+    if not events:
+        log("[profile] the profiler recorded no device time: not measured")
+        return None
+    busy_ms = sum(self_us(e) for e in events) / 1e3
+    log(f"[profile] one batch of {queries.shape[0]}: device busy {busy_ms:.2f} ms in "
+        f"{sum(e.count for e in events)} device events = {100 * busy_ms / batch_wall_ms:.1f}% of "
+        f"the unprofiled mean batch wall {batch_wall_ms:.2f} ms (profiled wall {wall_ms:.0f} ms)")
+    for e in events[:12]:
+        log(f"[profile]   {self_us(e) / 1e3:9.3f} ms  x{e.count:<6d} {e.key[:90]}")
+    return busy_ms
+
+
+def small_vs_cpu(dev) -> float:
+    """A small corpus searched on the card (kernels) and on the CPU (plain
+    versions): the ids and distances must agree. Returns the recall@10."""
+    import torch
+
+    from repro_torch import BangIndex, SearchConfig, brute_force_knn, recall_at_k
+    from repro_torch.core import pq
+    from repro_torch.data import gaussian_mixture, uniform_queries
+
+    data = gaussian_mixture(4000, D, n_clusters=16, seed=SEED + 2)
+    queries = uniform_queries(data, 40, seed=SEED + 3)
+    x = torch.from_numpy(data)
+    codec = pq.train_pq(x, M, iters=4)
+    codes = pq.pq_encode(codec, x)
+    adj, medoid = harness_graph(x, 32, SEED)
+    cfg = SearchConfig(t=32, bloom_z=4096)
+    out = {}
+    for d in (dev, "cpu"):
+        idx = BangIndex.from_arrays(codec.codebooks, codes, adj, medoid, x, device=d)
+        ids, dists = idx.search(queries, K, cfg=cfg, kernel_mode="fused")
+        out[str(d)] = (ids.cpu(), dists.cpu())
+    (gi, gd), (ci, cd) = out[str(dev)], out["cpu"]
+    if not torch.equal(gi, ci):
+        raise AssertionError("card and CPU searches returned different ids")
+    if not torch.allclose(gd, cd, rtol=1e-6, atol=1e-5):
+        raise AssertionError("card and CPU re-ranked distances differ")
+    rec = recall_at_k(gi.numpy(), brute_force_knn(x, queries, K, device=dev))
+    log(f"[small] n=4000 corpus, 40 queries: card (kernels) and CPU (plain) ids equal, "
+        f"max |dist diff| {float((gd - cd).abs().max()):.3g}, recall@10 {rec:.4f}")
+    return rec
+
+
+def main() -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device is available", file=sys.stderr)
+        return 1
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.kernels import common
+
+    t_start = time.perf_counter()
+    dev = torch.device("cuda")
+    card = card_line()
+    log(f"[card] {card}; torch {torch.__version__}, CUDA {torch.version.cuda}, "
+        f"{torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+    t0 = time.perf_counter()
+    lib = common.build_library(verbose=True)
+    log(f"[build] {lib.relative_to(ROOT)} built in {time.perf_counter() - t0:.1f} s")
+
+    t0 = time.perf_counter()
+    rows = check_kernels(dev)
+    log(f"[kernels] phase: {time.perf_counter() - t0:.1f} s")
+
+    t0 = time.perf_counter()
+    res = main_path(dev, card)
+    for row in rows:
+        row["launches"] = res["launches"][row["name"]]
+        row["launches_per_batch"] = res["launches_per_batch"][row["name"]]
+    log(f"[main] phase: {time.perf_counter() - t0:.1f} s")
+
+    t0 = time.perf_counter()
+    res["small_recall_at_10"] = small_vs_cpu(dev)
+    log(f"[small] phase: {time.perf_counter() - t0:.1f} s")
+
+    log(f"[total] {time.perf_counter() - t_start:.1f} s")
+    print(json.dumps({"kernels": rows,
+                      "main_path": {k: res[k] for k in ("recall_at_10", "qps", "mean_n_iters", "mean_hops",
+                                                        "batch_wall_ms", "device_busy_ms_per_batch",
+                                                        "nn_contrast", "small_recall_at_10")},
+                      "card": card}))
+    print(card_line())
+    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
+                                             "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

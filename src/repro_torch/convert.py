@@ -1,0 +1,36 @@
+"""State carried across from the reference package.
+
+`index_from_reference` takes an index built by the JAX package, handed over
+as numpy arrays, and returns the port's `BangIndex` over the same state::
+
+    arrays = {
+        "codebooks": np.asarray(idx.codec.codebooks),  # (m, 256, dsub) f32
+        "codes": np.asarray(idx.codes),                # (n, m) uint8
+        "adjacency": idx.graph.adjacency,              # (n, R) int32, -1 padded
+        "medoid": idx.graph.medoid,                    # int
+        "data": idx.data_np,                           # (n, d) f32
+    }
+    index = index_from_reference(arrays, device="cuda")
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from .core.bang import BangIndex
+
+KEYS = ("codebooks", "codes", "adjacency", "medoid", "data")
+
+
+def index_from_reference(arrays: dict[str, np.ndarray], *, device: str | torch.device = "cuda") -> BangIndex:
+    missing = [k for k in KEYS if k not in arrays]
+    if missing:
+        raise KeyError(f"reference arrays lack {missing}")
+    return BangIndex.from_arrays(
+        np.asarray(arrays["codebooks"], np.float32),
+        np.asarray(arrays["codes"], np.uint8),
+        np.asarray(arrays["adjacency"], np.int32),
+        int(arrays["medoid"]),
+        np.asarray(arrays["data"], np.float32),
+        device=device,
+    )

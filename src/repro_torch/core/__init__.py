@@ -1,0 +1,9 @@
+# BANG core, ported to PyTorch:
+#   kmeans / pq        -- PQ codec + PQDistTable (stage 1)
+#   bloom              -- visited-set bloom filter (§4.4)
+#   vamana             -- the graph container the search reads
+#   worklist / search  -- Algorithm 2 batched greedy search (stage 2)
+#   rerank             -- exact-distance re-ranking (stage 3, §4.9)
+#   bang               -- BangIndex public API (three-stage pipeline)
+from .bang import BangIndex, SearchStats, brute_force_knn, recall_at_k  # noqa: F401
+from .search import KERNEL_MODES, SearchConfig  # noqa: F401

@@ -1,0 +1,157 @@
+"""BangIndex: the paper's three-stage pipeline behind one public API.
+
+    Stage 1  Distance-table construction   (§4.2, plain torch.matmul)
+    Stage 2  ANN search                    (§4.1-4.8, repro_torch.core.search)
+    Stage 3  Re-ranking                    (§4.9, repro_torch.core.rerank)
+
+This slice of the port serves the "inmem" variant (graph, codes and full
+vectors on the device) in two kernel modes: "fused" runs the three CUDA
+kernels (ADC seed, fused hop, exact re-rank distances), "reference" the
+plain PyTorch versions; both return identical ids. Every tensor of an index
+lives on one device, CUDA unless the caller asks for the CPU.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any
+
+import numpy as np
+import torch
+
+from . import pq as pqlib
+from .search import SearchConfig
+from .vamana import VamanaGraph
+from ..kernels.common import resolve_device
+
+
+def _tensor(x, dtype: torch.dtype, device) -> torch.Tensor:
+    """A contiguous tensor of `dtype` on `device` from an array or tensor."""
+    if not isinstance(x, torch.Tensor):
+        x = torch.from_numpy(np.array(x))          # a writable host copy
+    return x.to(device, dtype).contiguous()
+
+
+@dataclasses.dataclass
+class SearchStats:
+    n_iters: int
+    mean_hops: float
+    p95_hops: float
+    wall_s: float        # dispatch -> results ready
+    qps: float           # batch / wall_s (excludes pipeline set-up)
+    compile_s: float = 0.0  # pipeline set-up paid by this call (0 on cache hit)
+    batch: int = 0       # true batch size
+    bucket: int = 0      # padded shape bucket the pipeline was built for
+
+
+@dataclasses.dataclass
+class BangIndex:
+    """An immutable ANNS index over a dataset (codec + codes + graph + data)."""
+
+    codec: pqlib.PQCodec         # codebooks on `device`
+    codes: torch.Tensor          # (n, m) uint8 on `device`
+    graph: VamanaGraph           # (n, R) int32 adjacency on `device` + medoid
+    data: torch.Tensor           # (n, d) float32 on `device`
+    device: torch.device
+    _executors: dict[str, Any] = dataclasses.field(
+        default_factory=dict, repr=False, compare=False,
+    )
+
+    @classmethod
+    def from_arrays(
+        cls,
+        codebooks: np.ndarray | torch.Tensor,
+        codes: np.ndarray | torch.Tensor,
+        adjacency: np.ndarray | torch.Tensor,
+        medoid: int,
+        data: np.ndarray | torch.Tensor,
+        *,
+        device: str | torch.device = "cuda",
+    ) -> "BangIndex":
+        """Index from trained codebooks (m, 256, dsub), codes (n, m) uint8,
+        adjacency (n, R) int32 (-1 padded), the medoid id and the full
+        vectors (n, d). Raises when `device` is CUDA and no card exists."""
+        dev = resolve_device(device)
+        codebooks = _tensor(codebooks, torch.float32, dev)
+        codes = _tensor(codes, torch.uint8, dev)
+        adj = _tensor(adjacency, torch.int32, "cpu")
+        data = _tensor(data, torch.float32, dev)
+        n = codes.shape[0]
+        if codebooks.ndim != 3 or codebooks.shape[1] != pqlib.N_CLUSTERS:
+            raise ValueError(f"codebooks must be (m, 256, dsub), got {tuple(codebooks.shape)}")
+        if codes.shape != (n, codebooks.shape[0]):
+            raise ValueError(f"codes must be (n, m={codebooks.shape[0]}), got {tuple(codes.shape)}")
+        if adj.ndim != 2 or adj.shape[0] != n or data.shape[0] != n:
+            raise ValueError("codes, adjacency and data must have one row per point")
+        if not 0 <= int(medoid) < n:
+            raise ValueError(f"medoid {medoid} out of range [0, {n})")
+        if int(adj.max()) >= n or int(adj.min()) < -1:
+            raise ValueError("adjacency ids must lie in [-1, n)")
+        graph = VamanaGraph(adjacency=adj.to(dev), medoid=int(medoid))
+        return cls(codec=pqlib.PQCodec(codebooks), codes=codes, graph=graph, data=data, device=dev)
+
+    @property
+    def n(self) -> int:
+        return self.codes.shape[0]
+
+    def executor(self, variant: str = "inmem"):
+        """The cached executor serving this index for `variant`."""
+        ex = self._executors.get(variant)
+        if ex is None:
+            from repro_torch.runtime.executor import SearchExecutor
+
+            ex = SearchExecutor.from_index(self, variant=variant)
+            self._executors[variant] = ex
+        return ex
+
+    def search(
+        self,
+        queries: np.ndarray | torch.Tensor,
+        k: int = 10,
+        *,
+        t: int = 64,
+        variant: str = "inmem",
+        rerank: bool = True,
+        cfg: SearchConfig | None = None,
+        return_stats: bool = False,
+        kernel_mode: str | None = None,
+    ):
+        """Batched k-NN search. Returns (ids (B, k), dists (B, k)) on the
+        index's device, plus `SearchStats` with `return_stats=True`."""
+        return self.executor(variant).search(
+            queries, k, t=t, cfg=cfg, rerank=rerank,
+            return_stats=return_stats, kernel_mode=kernel_mode,
+        )
+
+
+def brute_force_knn(
+    data: np.ndarray | torch.Tensor,
+    queries: np.ndarray | torch.Tensor,
+    k: int,
+    *,
+    device: str | torch.device = "cuda",
+    chunk: int = 256,
+) -> np.ndarray:
+    """Ground truth for recall: exact k nearest ids (B, k) by squared L2.
+
+    Chunked over queries: one `torch.matmul` per chunk, then a stable sort,
+    so ties resolve to the lowest id as the reference's `lax.top_k` does.
+    """
+    dev = resolve_device(device)
+    x = _tensor(data, torch.float32, dev)
+    q = _tensor(queries, torch.float32, dev)
+    xn = (x * x).sum(-1)[None, :]
+    out = []
+    for s in range(0, q.shape[0], chunk):
+        qc = q[s : s + chunk]
+        d2 = (qc * qc).sum(-1)[:, None] + xn - 2.0 * torch.matmul(qc, x.T)
+        out.append(torch.sort(d2, dim=-1, stable=True).indices[:, :k].cpu())
+    return torch.cat(out).numpy()
+
+
+def recall_at_k(found_ids: np.ndarray, true_ids: np.ndarray) -> float:
+    """k-recall@k (paper §6.3): |found ∩ true| / k averaged over queries."""
+    k = true_ids.shape[1]
+    hits = 0
+    for f, t in zip(np.asarray(found_ids), true_ids):
+        hits += len(set(f.tolist()) & set(t.tolist()))
+    return hits / (true_ids.shape[0] * k)

@@ -1,0 +1,159 @@
+// K1: one whole Algorithm-2 hop per query (BANG §4.5-§4.8) in one kernel.
+//
+// Replaces the TPU kernels search_step.fused_step_pallas
+// (src/repro/kernels/search_step/search_step.py:293, _fused_step_kernel and
+// _traverse_math) and its beyond-VMEM twin fused_step_dma_pallas
+// (search_step.py:365, _dma_tiled_adc). The TPU needed the twin because the
+// codes block had to fit VMEM or be streamed through it; on the GPU the code
+// rows are gathered straight from global memory, so one kernel serves both.
+//
+// Per query (one thread block, the paper's mapping):
+//   1. the (m, 256) PQ distance table and the t-worklist go to shared memory;
+//   2. ADC: each fresh candidate's m code bytes are gathered from global
+//      memory and summed from the table in MC-subspace chunks;
+//   3. the next_pow2(R) candidates are sorted by (dist, id) with a bitonic
+//      network in shared memory, padded with (+inf, INVALID);
+//   4. eager selection (§4.6) reads the pre-merge worklist;
+//   5. worklist ++ reversed candidates is bitonic, so only the final merge
+//      phase runs (P = next_pow2(t + Rp)); INVALID slots are forced visited;
+//   6. lazy selection reads the merged worklist; the chosen id is marked
+//      visited.
+//
+// What bounds it on the H100: bytes. Per hop the function needs, per query,
+// the table sectors (32 bytes each) that the fresh candidates' codes look
+// up, the fresh code rows (m bytes each) and the worklist in and out. With
+// F fresh candidates a subspace's 32 sectors are each touched with
+// probability 1 - (31/32)^F, about 76% of the 32 KB table at F = 45 (m = 32),
+// so the table still dominates: about 25 MB per hop at B = 1024, about 8 us
+// at 3.35 TB/s, against about 1.5 MB of code rows. Operations are few (R*m
+// adds, O(P log^2 P) compare-exchanges). This kernel copies the whole table
+// to shared memory and keeps every intermediate (distances, the sorted
+// tile, the merge buffer) there, so per hop only the inputs are read and
+// the new worklist written. Re-reading the table every hop is the cost a
+// later persistent kernel (table kept in shared memory across hops) would
+// remove.
+#include "common.cuh"
+
+namespace {
+
+__global__ void search_step_kernel(
+    const float* __restrict__ table, const uint8_t* __restrict__ codes,
+    const int* __restrict__ nbrs, const bool* __restrict__ fresh,
+    const float* __restrict__ wld, const int* __restrict__ wli,
+    const bool* __restrict__ wlv, const bool* __restrict__ active,
+    float* __restrict__ owd, int* __restrict__ owi, bool* __restrict__ owv,
+    int* __restrict__ ou, bool* __restrict__ oact,
+    int n, int m, int R, int t, int Rp, int P, int eager) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  float* tbl = reinterpret_cast<float*>(smem);  // m * 256
+  float* cd = tbl + m * 256;                     // Rp
+  int* ci = reinterpret_cast<int*>(cd + Rp);     // Rp
+  float* md = reinterpret_cast<float*>(ci + Rp); // P
+  int* mi = reinterpret_cast<int*>(md + P);      // P
+  int* mv = mi + P;                              // P
+  __shared__ int s_u, s_found;
+
+  const int b = blockIdx.x;
+  const float* tb = table + (size_t)b * m * 256;
+  for (int i = threadIdx.x; i < m * 256; i += blockDim.x) tbl[i] = tb[i];
+  for (int i = threadIdx.x; i < t; i += blockDim.x) {
+    md[i] = wld[(size_t)b * t + i];
+    mi[i] = wli[(size_t)b * t + i];
+    mv[i] = wlv[(size_t)b * t + i] ? 1 : 0;
+  }
+  __syncthreads();
+
+  // §4.5 ADC with the code gather inside the kernel.
+  for (int r = threadIdx.x; r < Rp; r += blockDim.x) {
+    float d = CUDART_INF_F;
+    int id = REPRO_INVALID;
+    if (r < R && fresh[(size_t)b * R + r]) {
+      id = nbrs[(size_t)b * R + r];
+      // Clamped like the reference's XLA gather; ids out of [0, n) do not
+      // occur on the search path.
+      const int row = min(max(id, 0), n - 1);
+      d = adc_sum(tbl, codes + (size_t)row * m, m);
+    }
+    cd[r] = d;
+    ci[r] = id;
+  }
+  __syncthreads();
+
+  // §4.7 sort of the candidate tile.
+  bitonic_network(cd, ci, nullptr, Rp, true);
+
+  // §4.6 eager selection on the pre-merge worklist, while the other threads
+  // append the reversed, padded candidates behind the worklist.
+  if (eager && threadIdx.x == 0) {
+    int pos = -1;
+    float wl_d = CUDART_INF_F;
+    for (int i = 0; i < t; ++i) {
+      if (!mv[i]) {
+        if (pos < 0) pos = i;
+        if (md[i] < wl_d) wl_d = md[i];
+      }
+    }
+    const bool wl_found = pos >= 0;
+    const int wl_u = wl_found ? mi[pos] : REPRO_INVALID;
+    if (!wl_found) wl_d = CUDART_INF_F;
+    s_u = cd[0] < wl_d ? ci[0] : wl_u;
+    s_found = wl_found || ci[0] != REPRO_INVALID;
+  }
+  for (int q = threadIdx.x; q < P - t; q += blockDim.x) {
+    const int s = P - t - 1 - q;
+    md[t + q] = s < Rp ? cd[s] : CUDART_INF_F;
+    mi[t + q] = s < Rp ? ci[s] : REPRO_INVALID;
+    mv[t + q] = 0;
+  }
+  __syncthreads();
+
+  // §4.8 merge: final bitonic merge phase only.
+  bitonic_network(md, mi, mv, P, false);
+
+  for (int i = threadIdx.x; i < t; i += blockDim.x)
+    if (mi[i] == REPRO_INVALID) mv[i] = 1;
+  __syncthreads();
+
+  if (threadIdx.x == 0) {
+    if (!eager) {
+      int pos = -1;
+      for (int i = 0; i < t && pos < 0; ++i)
+        if (!mv[i]) pos = i;
+      s_found = pos >= 0;
+      s_u = pos >= 0 ? mi[pos] : REPRO_INVALID;
+    }
+    const bool act = active[b] && s_found;
+    s_u = act ? s_u : REPRO_INVALID;
+    ou[b] = s_u;
+    oact[b] = act;
+  }
+  __syncthreads();
+
+  const int u = s_u;
+  for (int i = threadIdx.x; i < t; i += blockDim.x) {
+    owd[(size_t)b * t + i] = md[i];
+    owi[(size_t)b * t + i] = mi[i];
+    owv[(size_t)b * t + i] = mv[i] || mi[i] == u;
+  }
+}
+
+}  // namespace
+
+extern "C" int repro_search_step(
+    const void* table, const void* codes, const void* nbrs, const void* fresh,
+    const void* wld, const void* wli, const void* wlv, const void* active,
+    void* owd, void* owi, void* owv, void* ou, void* oact,
+    int B, int n, int m, int R, int t, int Rp, int P, int eager, int threads,
+    void* stream) {
+  // The table, the sorted candidate tile (dist, id) and the merge buffer
+  // (dist, id, visited).
+  const size_t smem = (size_t)m * 256 * 4 + (size_t)Rp * 8 + (size_t)P * 12;
+  cudaError_t err = allow_smem(search_step_kernel, smem);
+  if (err != cudaSuccess) return (int)err;
+  search_step_kernel<<<B, threads, smem, (cudaStream_t)stream>>>(
+      (const float*)table, (const uint8_t*)codes, (const int*)nbrs, (const bool*)fresh,
+      (const float*)wld, (const int*)wli, (const bool*)wlv, (const bool*)active,
+      (float*)owd, (int*)owi, (bool*)owv, (int*)ou, (bool*)oact,
+      n, m, R, t, Rp, P, eager);
+  return (int)cudaGetLastError();
+}

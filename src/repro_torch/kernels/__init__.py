@@ -1,0 +1,4 @@
+# Hand-written Hopper kernels (csrc/*.cu) with their plain PyTorch versions:
+#   pq_adc       -- ADC of R candidates per query (medoid seed)
+#   search_step  -- one whole Algorithm-2 hop per query
+#   rerank_l2    -- exact squared L2 for the re-rank

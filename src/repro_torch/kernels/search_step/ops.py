@@ -1,0 +1,93 @@
+"""One fused Algorithm-2 hop: the CUDA kernel on the card, its plain version
+on the CPU.
+
+`fused_step` takes the place of both reference entry points,
+`fused_step_pallas` and the beyond-VMEM `fused_step_dma_pallas`: the TPU had
+to stream a codes block larger than VMEM through it in tiles, while the GPU
+kernel gathers code rows straight from global memory at any n. `tile_rows`
+is accepted and validated so configurations carry over, and changes no bit
+of the result.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.core.worklist import Worklist
+from repro_torch.kernels import common
+
+from .ref import step_ref
+
+THREADS = 128
+
+
+def _launch(table, codes, nbrs, fresh, wl: Worklist, active, eager: bool):
+    B, m, _ = table.shape
+    n = codes.shape[0]
+    R = nbrs.shape[1]
+    t = wl.t
+    for name, x, dtype, shape in (
+        ("table", table, torch.float32, (B, m, 256)),
+        ("codes", codes, torch.uint8, (n, m)),
+        ("nbrs", nbrs, torch.int32, (B, R)),
+        ("fresh", fresh, torch.bool, (B, R)),
+        ("wl.dists", wl.dists, torch.float32, (B, t)),
+        ("wl.ids", wl.ids, torch.int32, (B, t)),
+        ("wl.visited", wl.visited, torch.bool, (B, t)),
+        ("active", active, torch.bool, (B,)),
+    ):
+        common.check(x, name, dtype, shape)
+    if R < 1 or t < 1 or n < 1:
+        raise ValueError(f"need R, t, n >= 1, got R={R}, t={t}, n={n}")
+    Rp = common.next_pow2(R)
+    P = common.next_pow2(t + Rp)
+    dev = table.device
+    owd = torch.empty((B, t), dtype=torch.float32, device=dev)
+    owi = torch.empty((B, t), dtype=torch.int32, device=dev)
+    owv = torch.empty((B, t), dtype=torch.bool, device=dev)
+    ou = torch.empty((B,), dtype=torch.int32, device=dev)
+    oact = torch.empty((B,), dtype=torch.bool, device=dev)
+    if B:
+        fn = common.kernel_fn("repro_search_step", [common.PTR] * 13 + [common.INT] * 9 + [common.PTR])
+        with torch.cuda.device(dev):
+            rc = fn(
+                table.data_ptr(), codes.data_ptr(), nbrs.data_ptr(), fresh.data_ptr(),
+                wl.dists.data_ptr(), wl.ids.data_ptr(), wl.visited.data_ptr(), active.data_ptr(),
+                owd.data_ptr(), owi.data_ptr(), owv.data_ptr(), ou.data_ptr(), oact.data_ptr(),
+                B, n, m, R, t, Rp, P, int(eager), THREADS, common.stream_of(table),
+            )
+        common.check_launch(rc, f"search_step (m={m}, R={R}, t={t})")
+        fused_step.launches += 1
+    return owd, owi, owv, ou, oact
+
+
+def fused_step(
+    table: torch.Tensor,
+    codes: torch.Tensor,
+    wl: Worklist,
+    nbrs: torch.Tensor,
+    fresh: torch.Tensor,
+    active: torch.Tensor,
+    *,
+    eager: bool = True,
+    tile_rows: int = 0,
+) -> tuple[Worklist, torch.Tensor, torch.Tensor]:
+    """One fused iteration: returns (worklist', u_next (B,), active' (B,)).
+
+    table (B, m, 256) f32; codes (n, m) uint8; nbrs (B, R) int32 (ids of
+    fresh lanes in [0, n)); fresh (B, R) bool; wl (B, t); active (B,) bool.
+    """
+    if int(tile_rows) != tile_rows or tile_rows < 0:
+        raise ValueError(f"tile_rows must be an integer >= 0, got {tile_rows}")
+    tensors = (table, codes, nbrs, fresh, wl.dists, wl.ids, wl.visited, active)
+    if common.on_cuda(*tensors):
+        d, i, v, u, a = _launch(table, codes, nbrs, fresh, wl, active, eager)
+    else:
+        d, i, v, u, a = step_ref(
+            table, codes, nbrs, fresh, wl.dists, wl.ids, wl.visited, active, eager=eager
+        )
+    return Worklist(d, i, v), u, a
+
+
+fused_step.launches = 0
+
+__all__ = ["fused_step", "step_ref"]

@@ -1,0 +1,234 @@
+"""Search executor: the three-stage pipeline as a resident service.
+
+`SearchExecutor` keeps the index state on its device and serves batches
+through `dispatch` / `finish`:
+
+  * **Shape buckets.** Batches are padded up to power-of-two buckets
+    (`bucket_size`) by replicating the last query, and the pipeline for
+    each `(bucket, d, k, rerank, SearchConfig)` is built once and cached;
+    `trace_counts` counts the builds per key, so tests can assert "built
+    exactly once". PyTorch runs eagerly, so a build binds the configuration
+    and the index state; capturing the pipeline as a CUDA graph comes in a
+    later change.
+  * **Dispatch and finish.** `dispatch` uploads the queries and runs the
+    pipeline; on the card it returns once the work is launched on the
+    current stream, with a CUDA event recorded behind it, and `finish` waits
+    on that event. The search loop reads the convergence flag each hop, so
+    on the card `dispatch` returns after the traversal with the re-rank
+    still in flight.
+
+This slice serves `variant="inmem"`; the other variants raise
+NotImplementedError until their slices land.
+"""
+from __future__ import annotations
+
+import dataclasses
+import time
+from typing import Any
+
+import numpy as np
+import torch
+
+from repro_torch.core import pq as pqlib
+from repro_torch.core import rerank as rr
+from repro_torch.core import search as searchlib
+from repro_torch.core.bang import SearchStats
+from repro_torch.core.search import SearchConfig
+
+VARIANTS = ("inmem", "base", "exact")
+PORTED_VARIANTS = ("inmem",)
+
+
+def bucket_size(batch: int, *, min_bucket: int = 8) -> int:
+    """Next power-of-two shape bucket holding `batch` queries."""
+    if min_bucket < 1 or (min_bucket & (min_bucket - 1)):
+        raise ValueError(f"min_bucket must be a positive power of two, got {min_bucket}")
+    if batch <= 0:
+        raise ValueError(f"batch must be positive, got {batch}")
+    return max(min_bucket, 1 << (batch - 1).bit_length())
+
+
+def pad_batch(queries: np.ndarray, bucket: int) -> np.ndarray:
+    """Pad (B, d) queries up to (bucket, d) by replicating the last row.
+
+    Query lanes are independent, so padding lanes cannot perturb real lanes.
+    Callers slice the first B rows of every output.
+    """
+    B = queries.shape[0]
+    if B > bucket:
+        raise ValueError(f"batch {B} exceeds bucket {bucket}")
+    if B == bucket:
+        return queries
+    return np.concatenate([queries, np.repeat(queries[-1:], bucket - B, 0)], 0)
+
+
+@dataclasses.dataclass
+class SearchHandle:
+    """An in-flight search batch."""
+
+    ids: torch.Tensor        # (bucket, k)
+    dists: torch.Tensor      # (bucket, k)
+    n_hops: torch.Tensor     # (bucket,)
+    n_iters: int
+    batch: int               # true batch size (<= bucket)
+    bucket: int
+    dispatch_t: float        # perf_counter at dispatch (after set-up)
+    compile_s: float         # pipeline set-up this dispatch paid (0 on cache hit)
+    done: torch.cuda.Event | None  # recorded after the batch's work (CUDA only)
+
+
+class SearchExecutor:
+    """Device-resident three-stage BANG search pipeline."""
+
+    def __init__(
+        self,
+        codec: pqlib.PQCodec,
+        codes: torch.Tensor,
+        adjacency: torch.Tensor,
+        medoid: int,
+        data: torch.Tensor,
+        *,
+        variant: str = "inmem",
+    ) -> None:
+        if variant not in VARIANTS:
+            raise ValueError(f"unknown variant {variant!r}, expected one of {VARIANTS}")
+        if variant not in PORTED_VARIANTS:
+            raise NotImplementedError(f"variant {variant!r} is not ported yet")
+        self.variant = variant
+        self.device = codes.device
+        self._codec = codec
+        self._codes = codes
+        self._adjacency = adjacency
+        self._medoid = int(medoid)
+        self._data = data
+        self._cache: dict[Any, Any] = {}
+        self.trace_counts: dict[Any, int] = {}
+
+    @classmethod
+    def from_index(cls, index, variant: str = "inmem") -> "SearchExecutor":
+        return cls(
+            index.codec, index.codes, index.graph.adjacency, index.graph.medoid, index.data,
+            variant=variant,
+        )
+
+    @property
+    def n_traces(self) -> int:
+        return sum(self.trace_counts.values())
+
+    @property
+    def cache_size(self) -> int:
+        return len(self._cache)
+
+    @property
+    def query_dim(self) -> int:
+        return int(self._data.shape[1])
+
+    # -------------------------------------------------------------- building
+    def _pipeline(self, bucket: int, d: int, k: int, rerank: bool, cfg: SearchConfig):
+        """Cached pipeline for the key, and the seconds its set-up took."""
+        key = (bucket, d, k, rerank, cfg)
+        fn = self._cache.get(key)
+        if fn is not None:
+            return fn, 0.0
+        t0 = time.perf_counter()
+        if cfg.resolved_kernel_mode() == "staged":
+            raise NotImplementedError('kernel_mode="staged" is not ported yet')
+        use_kernels = cfg.uses_kernels()
+
+        def pipeline(queries: torch.Tensor):
+            table = pqlib.build_dist_table(self._codec, queries)
+            res = searchlib.search_inmem(
+                queries, table, self._codes, self._adjacency, self._medoid, cfg,
+            )
+            if rerank:
+                ids, dists = rr.rerank(
+                    queries, res.history_ids, k, data=self._data, use_kernels=use_kernels,
+                )
+            else:
+                ids, dists = res.worklist.ids[:, :k], res.worklist.dists[:, :k]
+            return ids, dists, res.n_hops, res.n_iters
+
+        self._cache[key] = pipeline
+        self.trace_counts[key] = self.trace_counts.get(key, 0) + 1
+        return pipeline, time.perf_counter() - t0
+
+    # -------------------------------------------------------------- serving
+    def dispatch(
+        self,
+        queries: np.ndarray | torch.Tensor,
+        k: int = 10,
+        *,
+        t: int = 64,
+        cfg: SearchConfig | None = None,
+        rerank: bool = True,
+        kernel_mode: str | None = None,
+    ) -> SearchHandle:
+        """Pad, look up or build the pipeline, and launch one batch."""
+        if isinstance(queries, torch.Tensor):
+            queries = queries.detach().cpu().numpy()
+        q = np.asarray(queries, np.float32)
+        if q.ndim != 2:
+            raise ValueError(f"queries must be (B, d), got shape {q.shape}")
+        if q.shape[1] != self.query_dim:
+            raise ValueError(f"queries must have d={self.query_dim}, got {q.shape[1]}")
+        B, d = q.shape
+        cfg = cfg or SearchConfig(t=max(t, k))
+        if kernel_mode is not None:
+            if kernel_mode not in searchlib.KERNEL_MODES:
+                raise ValueError(
+                    f"unknown kernel_mode {kernel_mode!r}, expected one of "
+                    f"{searchlib.KERNEL_MODES}"
+                )
+            cfg = dataclasses.replace(cfg, kernel_mode=kernel_mode)
+        bucket = bucket_size(B)
+        pipeline, compile_s = self._pipeline(bucket, d, k, rerank, cfg)
+        q_dev = torch.from_numpy(pad_batch(q, bucket)).to(self.device)
+        t0 = time.perf_counter()
+        ids, dists, n_hops, n_iters = pipeline(q_dev)
+        done = None
+        if self.device.type == "cuda":
+            done = torch.cuda.Event()
+            done.record(torch.cuda.current_stream(self.device))
+        return SearchHandle(
+            ids=ids, dists=dists, n_hops=n_hops, n_iters=n_iters, batch=B,
+            bucket=bucket, dispatch_t=t0, compile_s=compile_s, done=done,
+        )
+
+    def finish(self, handle: SearchHandle, *, return_stats: bool = False):
+        """Wait until the batch is done; slice padding off; report stats."""
+        if handle.done is not None:
+            handle.done.synchronize()
+        wall = time.perf_counter() - handle.dispatch_t
+        ids = handle.ids[: handle.batch]
+        dists = handle.dists[: handle.batch]
+        if not return_stats:
+            return ids, dists
+        hops = handle.n_hops[: handle.batch].cpu().numpy()
+        stats = SearchStats(
+            n_iters=int(handle.n_iters),
+            mean_hops=float(hops.mean()),
+            p95_hops=float(np.percentile(hops, 95)),
+            wall_s=wall,
+            qps=handle.batch / wall,
+            compile_s=handle.compile_s,
+            batch=handle.batch,
+            bucket=handle.bucket,
+        )
+        return ids, dists, stats
+
+    def search(
+        self,
+        queries: np.ndarray | torch.Tensor,
+        k: int = 10,
+        *,
+        t: int = 64,
+        cfg: SearchConfig | None = None,
+        rerank: bool = True,
+        return_stats: bool = False,
+        kernel_mode: str | None = None,
+    ):
+        """Synchronous batched k-NN search: dispatch + finish."""
+        handle = self.dispatch(
+            queries, k, t=t, cfg=cfg, rerank=rerank, kernel_mode=kernel_mode,
+        )
+        return self.finish(handle, return_stats=return_stats)

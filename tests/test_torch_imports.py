@@ -1,0 +1,63 @@
+"""The port stands alone: every module of `repro_torch` imports with JAX and
+the reference package blocked, and entry points default to the card."""
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+SRC = Path(__file__).resolve().parents[1] / "src"
+
+BLOCKED_IMPORT = r'''
+import importlib, pkgutil, sys
+
+class Block:
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] in ("jax", "jaxlib", "repro"):
+            raise ImportError(f"blocked import of {name}")
+        return None
+
+sys.meta_path.insert(0, Block())
+import repro_torch
+names = [m.name for m in pkgutil.walk_packages(repro_torch.__path__, "repro_torch.")]
+for name in names:
+    importlib.import_module(name)
+leaked = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "repro"))
+assert not leaked, leaked
+print(len(names))
+'''
+
+
+def test_every_module_imports_without_jax_or_reference():
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    res = subprocess.run(
+        [sys.executable, "-c", BLOCKED_IMPORT], env=env, capture_output=True, text=True,
+        timeout=120,
+    )
+    assert res.returncode == 0, res.stderr
+    assert int(res.stdout.split()[-1]) >= 20      # every module of the slice was walked
+
+
+def test_from_arrays_defaults_to_cuda():
+    import numpy as np
+    from repro_torch import BangIndex
+
+    rng = np.random.default_rng(0)
+    args = (
+        rng.standard_normal((2, 256, 2)).astype(np.float32),       # codebooks
+        rng.integers(0, 256, (10, 2)).astype(np.uint8),            # codes
+        rng.integers(-1, 10, (10, 3)).astype(np.int32),            # adjacency
+        0,                                                         # medoid
+        rng.standard_normal((10, 4)).astype(np.float32),           # data
+    )
+    if torch.cuda.is_available():
+        assert BangIndex.from_arrays(*args).device.type == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match="CUDA"):
+            BangIndex.from_arrays(*args)
+    idx = BangIndex.from_arrays(*args, device="cpu")
+    assert idx.codes.device.type == "cpu" and idx.graph.medoid == 0
+    with pytest.raises(ValueError, match="medoid"):
+        BangIndex.from_arrays(*args[:3], 10, args[4], device="cpu")

@@ -1,0 +1,236 @@
+"""Port kernels vs the reference's Pallas kernels (interpret mode) and ref.py.
+
+On the CPU every `ops.py` wrapper runs its plain PyTorch version, so the
+parity cases below hold `repro_torch.kernels.<name>.ref` against the JAX
+package on the same numpy inputs. Integer-valued tables and vectors keep
+every sum exact in float32, so those comparisons are bitwise whatever the
+order of summation; float inputs are compared within rtol 1e-6, atol 1e-5.
+
+The cases marked `cuda` launch the CUDA kernels and hold them against their
+plain versions on the card. They need an NVIDIA GPU and skip elsewhere; the
+JAX package is imported lazily so that this file also runs where JAX is not
+installed: `python -m pytest -q -m cuda tests/test_torch_kernels.py`.
+"""
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.core.worklist import INVALID_ID, Worklist
+from repro_torch.kernels.pq_adc import ops as adc_ops
+from repro_torch.kernels.rerank_l2 import ops as rr_ops
+from repro_torch.kernels.search_step import ops as step_ops
+
+RTOL, ATOL = 1e-6, 1e-5
+STEP_SHAPES = [
+    (1, 1, 4, 1, 16),          # degenerate single-candidate step
+    (3, 17, 24, 9, 120),       # non-pow2 R and t, odd m
+    (8, 32, 32, 8, 256),       # pow2 everywhere
+    (2, 24, 33, 6, 90),        # t just past a pow2 boundary
+]
+ADC_SHAPES = [(1, 4, 4), (3, 17, 9), (8, 64, 74), (5, 31, 16), (4, 1, 32)]
+RERANK_SHAPES = [(1, 1, 8), (5, 19, 37), (4, 200, 128), (2, 7, 129)]
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def _step_inputs(rng, B, R, t, m, n, integer_table=True):
+    """Random hop state as numpy arrays (the shapes and draws of the
+    reference's tests/test_kernels.py:_random_step_inputs)."""
+    if integer_table:
+        table = rng.integers(0, 1000, (B, m, 256)).astype(np.float32)
+    else:
+        table = (rng.standard_normal((B, m, 256)) ** 2).astype(np.float32)
+    codes = rng.integers(0, 256, (n, m)).astype(np.uint8)
+    nbrs = rng.integers(0, n, (B, R)).astype(np.int32)
+    fresh = rng.random((B, R)) > 0.3
+    wd = np.sort(rng.integers(0, 5000, (B, t)).astype(np.float32), axis=-1)
+    wi = rng.permutation(np.arange(n, n + t * B)).reshape(B, t).astype(np.int32)
+    order = np.lexsort((wi, wd), axis=-1)
+    wd, wi = np.take_along_axis(wd, order, -1), np.take_along_axis(wi, order, -1)
+    wv = rng.random((B, t)) > 0.5
+    active = rng.random((B,)) > 0.2
+    return table, codes, nbrs, fresh, wd, wi, wv, active
+
+
+def _port_step(inputs, eager, tile_rows=0, device="cpu"):
+    table, codes, nbrs, fresh, wd, wi, wv, active = [
+        torch.from_numpy(np.ascontiguousarray(a)).to(device) for a in inputs
+    ]
+    wl, u, a = step_ops.fused_step(
+        table, codes, Worklist(wd, wi, wv), nbrs, fresh, active,
+        eager=eager, tile_rows=tile_rows,
+    )
+    return [x.cpu().numpy() for x in (wl.dists, wl.ids, wl.visited, u, a)]
+
+
+def _assert_same(outs, refs):
+    for o, r in zip(outs, refs):
+        np.testing.assert_array_equal(o, np.asarray(r))
+
+
+# --------------------------------------------------------------- K1 (CPU)
+@pytest.mark.parametrize("B,R,t,m,n", STEP_SHAPES)
+@pytest.mark.parametrize("eager", [True, False])
+def test_search_step_ref_matches_pallas_and_reference_oracle(B, R, t, m, n, eager):
+    import jax
+    import jax.numpy as jnp
+    from repro.kernels.common import interpret_mode
+    from repro.kernels.search_step import ref as jref
+    from repro.kernels.search_step.search_step import fused_step_pallas
+
+    inputs = _step_inputs(np.random.default_rng(B * 1000 + R), B, R, t, m, n)
+    j = [jnp.asarray(a) for a in inputs]
+    outs = _port_step(inputs, eager)
+    assert interpret_mode()
+    _assert_same(outs, fused_step_pallas(*j, eager=eager, interpret=True))
+    _assert_same(outs, jax.jit(jref.step_ref, static_argnames="eager")(*j, eager=eager))
+
+
+@pytest.mark.parametrize("tile_rows", [8, 64])
+def test_search_step_tile_rows_bit_identical(tile_rows):
+    inputs = _step_inputs(np.random.default_rng(41), 3, 17, 24, 9, 120)
+    base = _port_step(inputs, True, 0)
+    _assert_same(_port_step(inputs, True, tile_rows), base)
+    with pytest.raises(ValueError, match="tile_rows"):
+        _port_step(inputs, True, -1)
+
+
+# --------------------------------------------------------------- K2 (CPU)
+@pytest.mark.parametrize("B,R,m", ADC_SHAPES)
+@pytest.mark.parametrize("variant", ["onehot", "gather"])
+def test_pq_adc_ref_matches_pallas_and_reference_oracle(B, R, m, variant):
+    import jax.numpy as jnp
+    from repro.kernels.pq_adc.pq_adc import adc_pallas
+    from repro.kernels.pq_adc.ref import adc_ref as jadc_ref
+
+    rng = np.random.default_rng(B * 100 + m)
+    itable = rng.integers(0, 1000, (B, m, 256)).astype(np.float32)
+    ftable = (rng.standard_normal((B, m, 256)) ** 2).astype(np.float32)
+    codes = rng.integers(0, 256, (B, R, m)).astype(np.int32)
+    valid = rng.random((B, R)) > 0.25
+    for table, exact in ((itable, True), (ftable, False)):
+        out = adc_ops.adc(torch.from_numpy(table), torch.from_numpy(codes),
+                          torch.from_numpy(valid), variant=variant).numpy()
+        for ref in (
+            adc_pallas(jnp.asarray(table), jnp.asarray(codes), jnp.asarray(valid),
+                       variant=variant, interpret=True),
+            jadc_ref(jnp.asarray(table), jnp.asarray(codes), jnp.asarray(valid)),
+        ):
+            ref = np.asarray(ref)
+            if exact:
+                np.testing.assert_array_equal(out, ref)
+            else:
+                np.testing.assert_allclose(out, ref, rtol=RTOL, atol=ATOL)
+    with pytest.raises(ValueError, match="variant"):
+        adc_ops.adc(torch.from_numpy(itable), torch.from_numpy(codes),
+                    torch.from_numpy(valid), variant="mxu")
+
+
+# --------------------------------------------------------------- K3 (CPU)
+@pytest.mark.parametrize("B,C,d", RERANK_SHAPES)
+def test_rerank_l2_ref_matches_pallas_and_reference_oracle(B, C, d):
+    import jax.numpy as jnp
+    from repro.kernels.rerank_l2.ref import exact_sq_dists_ref as jrr_ref
+    from repro.kernels.rerank_l2.rerank_l2 import exact_sq_dists_pallas
+
+    rng = np.random.default_rng(C * 10 + d)
+    for exact in (True, False):
+        if exact:
+            q = rng.integers(-20, 20, (B, d)).astype(np.float32)
+            v = rng.integers(-20, 20, (B, C, d)).astype(np.float32)
+        else:
+            q = rng.standard_normal((B, d)).astype(np.float32)
+            v = rng.standard_normal((B, C, d)).astype(np.float32)
+        out = rr_ops.exact_sq_dists(torch.from_numpy(q), torch.from_numpy(v)).numpy()
+        for ref in (exact_sq_dists_pallas(jnp.asarray(q), jnp.asarray(v), interpret=True),
+                    jrr_ref(jnp.asarray(q), jnp.asarray(v))):
+            ref = np.asarray(ref)
+            if exact:
+                np.testing.assert_array_equal(out, ref)
+            else:
+                np.testing.assert_allclose(out, ref, rtol=RTOL, atol=ATOL)
+
+
+def test_wrappers_reject_mixed_devices_and_bad_dtypes():
+    q = torch.zeros(2, 8)
+    with pytest.raises(ValueError, match="devices"):
+        rr_ops.exact_sq_dists(q, torch.zeros(2, 3, 8, device="meta"))
+    from repro_torch.kernels import common
+
+    with pytest.raises(TypeError, match="float32"):
+        common.check(torch.zeros(2, dtype=torch.float64), "x", torch.float32, (2,))
+    with pytest.raises(ValueError, match="contiguous"):
+        common.check(torch.zeros(4, 4).T, "x", torch.float32, (4, 4))
+
+
+# ------------------------------------------------------ CUDA kernels (card)
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,R,t,m,n", STEP_SHAPES + [(64, 64, 64, 32, 5000)])
+@pytest.mark.parametrize("eager", [True, False])
+@pytest.mark.parametrize("integer_table", [True, False])
+def test_search_step_kernel_matches_plain(cuda, B, R, t, m, n, eager, integer_table):
+    """Same order of summation, so bit-equal on float tables too."""
+    inputs = _step_inputs(np.random.default_rng(B + R + t), B, R, t, m, n, integer_table)
+    before = step_ops.fused_step.launches
+    outs = _port_step(inputs, eager, device=cuda)
+    assert step_ops.fused_step.launches == before + 1
+    _assert_same(outs, _port_step(inputs, eager, device="cpu"))
+    for tile_rows in (8, 64):
+        _assert_same(_port_step(inputs, eager, tile_rows, device=cuda), outs)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,R,m", ADC_SHAPES)
+def test_pq_adc_kernel_matches_plain(cuda, B, R, m):
+    rng = np.random.default_rng(B + R + m)
+    table = torch.from_numpy((rng.standard_normal((B, m, 256)) ** 2).astype(np.float32))
+    codes = torch.from_numpy(rng.integers(0, 256, (B, R, m)).astype(np.int32))
+    valid = torch.from_numpy(rng.random((B, R)) > 0.25)
+    before = adc_ops.adc.launches
+    out = adc_ops.adc(table.to(cuda), codes.to(cuda), valid.to(cuda))
+    assert adc_ops.adc.launches == before + 1
+    np.testing.assert_array_equal(out.cpu().numpy(), adc_ops.adc_ref(table, codes, valid).numpy())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,C,d", RERANK_SHAPES)
+def test_rerank_l2_kernel_matches_plain(cuda, B, C, d):
+    rng = np.random.default_rng(B + C + d)
+    q = torch.from_numpy(rng.standard_normal((B, d)).astype(np.float32))
+    v = torch.from_numpy(rng.standard_normal((B, C, d)).astype(np.float32))
+    before = rr_ops.exact_sq_dists.launches
+    out = rr_ops.exact_sq_dists(q.to(cuda), v.to(cuda))
+    assert rr_ops.exact_sq_dists.launches == before + 1
+    np.testing.assert_array_equal(out.cpu().numpy(), rr_ops.exact_sq_dists_ref(q, v).numpy())
+
+
+@pytest.mark.cuda
+def test_wrappers_raise_on_bad_cuda_inputs(cuda):
+    q = torch.zeros(2, 8, device=cuda, dtype=torch.float64)
+    with pytest.raises(TypeError, match="float32"):
+        rr_ops.exact_sq_dists(q, torch.zeros(2, 3, 8, device=cuda, dtype=torch.float64))
+    with pytest.raises(ValueError, match="devices"):
+        rr_ops.exact_sq_dists(torch.zeros(2, 8), torch.zeros(2, 3, 8, device=cuda))
+
+
+@pytest.mark.cuda
+def test_kernels_raise_beyond_shared_memory(cuda):
+    # m = 256: a 256 KB table per block, beyond the H100's 227 KB.
+    B, R, t, m = 2, 4, 4, 256
+    table = torch.zeros((B, m, 256), device=cuda)
+    codes = torch.zeros((B, R, m), dtype=torch.int32, device=cuda)
+    valid = torch.ones((B, R), dtype=torch.bool, device=cuda)
+    with pytest.raises(RuntimeError, match="pq_adc"):
+        adc_ops.adc(table, codes, valid)
+    wl = Worklist(torch.zeros((B, t), device=cuda), torch.zeros((B, t), dtype=torch.int32, device=cuda),
+                  torch.zeros((B, t), dtype=torch.bool, device=cuda))
+    with pytest.raises(RuntimeError, match="search_step"):
+        step_ops.fused_step(table, torch.zeros((8, m), dtype=torch.uint8, device=cuda), wl,
+                            torch.zeros((B, R), dtype=torch.int32, device=cuda), valid,
+                            torch.ones((B,), dtype=torch.bool, device=cuda))
