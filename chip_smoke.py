@@ -6,23 +6,34 @@
 Phases, each timed; any failure exits non-zero:
 
   1. the card: name and power limit (nvidia-smi), TF32 off;
-  2. the build: every kernel under src/repro_torch/csrc, compiled with nvcc;
+  2. the build: every kernel under src/repro_torch/csrc, compiled with nvcc
+     (one process per source, all at once);
   3. kernel vs plain: each CUDA kernel and its plain PyTorch version on the
      same tensors on the card, at the main path's shapes (B=1024, R=64,
-     t=64, m=32, n=10**6, d=128, C=104), with times, bounds and a library
-     yardstick;
-  4. the main path: the in-memory BANG search (fused kernels, exact
-     re-rank) on a synthetic corpus with the shape of SIFT1M (n = 10**6,
-     d = 128, the ANN_SIFT1M set of the BIGANN/texmex corpus; clusters of
-     intrinsic dimension 16, queries held out from the same draw), 10,000
-     queries in batches of 1,024, with launch counts, recall@10 and QPS;
-     plus a small corpus searched on the card and on the CPU, ids equal.
+     t=64, m=32, n=10**6, d=128, C=104), held bit-equal, with times, bounds
+     and a library yardstick where one PyTorch call computes the function:
+     K1 fused hop, K2 ADC (R=1, the seed, and R=64, the staged distances),
+     K3 re-rank distances, K4 bitonic sort, K5 bitonic merge, K6 fused
+     traverse;
+  4. the main paths on a synthetic corpus with the shape of SIFT1M (n =
+     10**6, d = 128, the ANN_SIFT1M set of the BIGANN/texmex corpus;
+     clusters of intrinsic dimension 16, queries held out from the same
+     draw), one graph and one index for all of them, batches of 1,024:
+     "inmem" (fused), "base" (fused; adjacency and vectors in pinned host
+     memory, only codes and codebooks on the card), "exact" (fused
+     traverse, no re-rank) and the staged kernel mode on one batch. Each
+     path runs with every launch count set to 0 just before it and read just
+     after; each reports recall@10, QPS, n_iters, hops, batch walls and the
+     device's idle share. Checks: base ids equal inmem ids, staged ids equal
+     fused ids, exact fused ids equal exact reference-mode ids, fused ids
+     equal reference-mode ids, and `index.search(q)` with no kernel_mode
+     launches K1;
+  5. a small corpus searched on the card and on the CPU, ids equal.
 
 Kernel times are taken cold: the timed calls cycle through copies of the
-large inputs that together exceed the H100's 50 MB L2, as on the main path,
-where every hop brings new tables and code rows. Bounds count the bytes the
-function needs for this run's data (the 32-byte sectors of the tables that
-the codes look up, not whole tables).
+inputs that together exceed twice the H100's 50 MB L2. Bounds count the bytes the function needs for this run's
+data (the 32-byte sectors of the tables that the codes look up, not whole
+tables).
 
 The graph is a harness graph built here on the card (per point the R/2
 exact nearest neighbours and R/2 seeded random ids): the port's Vamana build
@@ -44,8 +55,10 @@ ROOT = Path(__file__).resolve().parent
 
 N, D, M, R, T, K = 1_000_000, 128, 32, 64, 64, 10
 N_QUERIES, BATCH, SEED = 10_000, 1024, 0
+PATH_BATCHES = {"inmem": 10, "base": 10, "exact": 10}   # batches each variant's path runs
 INTRINSIC_DIM = 16             # per-cluster subspace of the synthetic corpus
-COPIES = 4                     # input copies cycled by timed calls (> L2 together)
+COPIES = 4                     # input copies cycled by timed calls, at least
+L2_BYTES = 50 * 2**20          # H100 L2; the copies together exceed twice this
 SECTOR = 32                    # bytes: the unit in which the card reads memory
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM data sheet
 FP32_OPS_PER_S = 67e12         # H100 SXM float32 outside the tensor cores
@@ -85,8 +98,12 @@ def time_ms(fn, arg_sets: list[tuple], reps: int = 20) -> float:
 
 
 def copies(*xs) -> list[tuple]:
-    """`COPIES` argument sets: the tensors themselves, then clones."""
-    return [xs] + [tuple(x.clone() for x in xs) for _ in range(COPIES - 1)]
+    """Argument sets: the tensors themselves, then clones; at least `COPIES`,
+    and enough that together they exceed twice the L2, so every timed call
+    reads inputs that the calls before it have not brought into L2."""
+    size = sum(x.numel() * x.element_size() for x in xs)
+    n = max(COPIES, -(-2 * L2_BYTES // size))
+    return [xs] + [tuple(x.clone() for x in xs) for _ in range(n - 1)]
 
 
 def table_sectors(codes, mask) -> int:
@@ -107,6 +124,13 @@ def bound_ms(nbytes: float, ops: float) -> tuple[float, str]:
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
+def exchanges(n: int, full_sort: bool) -> int:
+    """Compare-exchanges of a bitonic network over n (a power of two): the
+    whole sort, or its final merge phase only."""
+    lg = n.bit_length() - 1
+    return n // 2 * (lg * (lg + 1) // 2 if full_sort else lg)
+
+
 def exact(a, b) -> None:
     import torch
 
@@ -118,8 +142,9 @@ def exact(a, b) -> None:
 def check_kernels(dev) -> list[dict]:
     import torch
 
-    from repro_torch.core.worklist import Worklist
+    from repro_torch.core.worklist import INVALID_ID, Worklist
     from repro_torch.kernels import common
+    from repro_torch.kernels.bitonic import ops as bitonic_ops
     from repro_torch.kernels.pq_adc import ops as adc_ops
     from repro_torch.kernels.rerank_l2 import ops as rr_ops
     from repro_torch.kernels.search_step import ops as step_ops
@@ -162,14 +187,13 @@ def check_kernels(dev) -> list[dict]:
     rp = common.next_pow2(R)
     p = common.next_pow2(T + rp)
     n_fresh = int(fresh.sum())
+    cmp_sort, cmp_merge = exchanges(rp, True), exchanges(p, False)
     # Inputs: the table sectors the fresh codes look up, the fresh code rows,
     # neighbours, fresh flags, worklists and active flags; outputs: worklists,
     # u_next and active.
     sectors = table_sectors(codes[nbrs.long()], fresh)
     nbytes = (sectors * SECTOR + n_fresh * M + B * R * 5 + B * T * 9 + B
               + B * T * 9 + B * 5)
-    cmp_sort = rp // 2 * (rp.bit_length() - 1) * rp.bit_length() // 2
-    cmp_merge = p // 2 * (p.bit_length() - 1)
     ops = n_fresh * M + B * 2 * (cmp_sort + cmp_merge)
     b_ms, b_by = bound_ms(nbytes, ops)
     rows.append(dict(name="search_step", route="cuda", source="src/repro_torch/csrc/search_step.cu",
@@ -213,6 +237,29 @@ def check_kernels(dev) -> list[dict]:
     log(f"[kernels] pq_adc (B={B}, R=1, m={M}): bit-equal to plain; {ms:.4f} ms vs plain "
         f"{plain_ms:.4f} ms, embedding_bag {lib_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
 
+    # K2 at R = 64: the staged mode's distances of the gathered (B, R, m)
+    # codes, fresh lanes only.
+    cand_codes = codes[nbrs.long()]
+    out = adc_ops.adc(table, cand_codes, fresh)
+    ref = adc_ops.adc_ref(table, cand_codes, fresh)
+    exact(out, ref)
+    sets = copies(table, cand_codes)
+    ms = time_ms(lambda tb, cc: adc_ops.adc(tb, cc, fresh), sets)
+    plain_ms = time_ms(lambda tb, cc: adc_ops.adc_ref(tb, cc, fresh), sets, reps=5)
+    offs = (torch.arange(B, device=dev)[:, None, None] * M * 256
+            + torch.arange(M, device=dev)[None, None, :] * 256 + cand_codes.long()).reshape(-1, M)
+    lib = bag(offs, table.reshape(-1, 1), mode="sum").reshape(B, R)
+    if not torch.allclose(lib[fresh], ref[fresh], rtol=1e-5, atol=1e-5):
+        raise AssertionError("embedding_bag yardstick disagrees with the ADC at R=64")
+    lib_ms = time_ms(lambda tb, cc: bag(offs, tb.reshape(-1, 1), mode="sum"), sets)
+    sectors = table_sectors(cand_codes, fresh)
+    b_ms, b_by = bound_ms(sectors * SECTOR + cand_codes.numel() + B * R + B * R * 4, n_fresh * M)
+    rows[-1]["at_r64"] = dict(max_abs_err=float((out - ref).nan_to_num().abs().max()), ms=ms,
+                              plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms)
+    log(f"[kernels] pq_adc (B={B}, R={R}, m={M}, staged distances): bit-equal to plain; {ms:.4f} ms "
+        f"vs plain {plain_ms:.4f} ms, embedding_bag {lib_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}: "
+        f"{sectors} table sectors)")
+
     # K3: exact re-rank distances of C = iters() candidates per query.
     q = torch.randn((B, D), generator=g, device=dev)
     v = torch.randn((B, C, D), generator=g, device=dev) + q[:, None, :]
@@ -237,6 +284,75 @@ def check_kernels(dev) -> list[dict]:
                      library_call="torch.baddbmm (norms precomputed)"))
     log(f"[kernels] rerank_l2 (B={B}, C={C}, d={D}): bit-equal to plain; {ms:.4f} ms vs plain "
         f"{plain_ms:.4f} ms, baddbmm {lib_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
+
+    # Candidate tiles as the staged and exact paths give them: distances of
+    # the fresh lanes (distinct values), (+inf, INVALID) elsewhere.
+    cand_d = torch.where(fresh, torch.rand((B, R), generator=g, device=dev) * 5000,
+                         torch.full((B, R), float("inf"), device=dev))
+    cand_i = torch.where(fresh, nbrs, torch.full_like(nbrs, INVALID_ID))
+
+    # K4: the staged mode's candidate sort, (B, R) by (dist, id).
+    out = bitonic_ops.sort_kv(cand_d, cand_i)
+    ref = bitonic_ops.sort_kv_ref(cand_d, cand_i)
+    for a, b in zip(out, ref):
+        exact(a, b)
+    sets = copies(cand_d, cand_i)
+    ms = time_ms(bitonic_ops.sort_kv, sets)
+    plain_ms = time_ms(bitonic_ops.sort_kv_ref, sets, reps=5)
+    # Yardstick: one stable torch.sort of the distances (the ids' gather by
+    # its indices left out); the fresh distances are distinct and the pads
+    # identical, so it gives the same order.
+    lib = torch.sort(cand_d, dim=-1, stable=True)
+    if not (torch.equal(lib.values, ref[0]) and torch.equal(torch.gather(cand_i, -1, lib.indices), ref[1])):
+        raise AssertionError("torch.sort yardstick disagrees with the bitonic sort")
+    lib_ms = time_ms(lambda d, i: torch.sort(d, dim=-1, stable=True), sets)
+    b_ms, b_by = bound_ms(2 * B * R * 8, B * 2 * exchanges(rp, True))
+    rows.append(dict(name="bitonic_sort", route="cuda", source="src/repro_torch/csrc/bitonic.cu",
+                     replaces="src/repro/kernels/bitonic/bitonic.py:147",
+                     max_abs_err=float((out[0] - ref[0]).nan_to_num().abs().max()), ms=ms,
+                     plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms,
+                     library_call="torch.sort(stable=True) of the distances"))
+    log(f"[kernels] bitonic_sort (B={B}, n={R}): bit-equal to plain; {ms:.4f} ms vs plain "
+        f"{plain_ms:.4f} ms, torch.sort {lib_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
+
+    # K5: the staged mode's merge of the sorted candidates into the worklist.
+    sd, si = out
+    out = bitonic_ops.merge_worklist(wl, sd, si)
+    ref = bitonic_ops.merge_ref(wd, wi, wv, sd, si)
+    for a, b in zip(out, ref):
+        exact(a, b)
+    sets = copies(wd, wi, wv, sd, si)
+    ms = time_ms(lambda a, b, c, d, i: bitonic_ops.merge_worklist(Worklist(a, b, c), d, i), sets)
+    plain_ms = time_ms(bitonic_ops.merge_ref, sets, reps=5)
+    b_ms, b_by = bound_ms(B * T * 9 + B * R * 8 + B * T * 9, B * 2 * exchanges(p, False))
+    rows.append(dict(name="bitonic_merge", route="cuda", source="src/repro_torch/csrc/bitonic.cu",
+                     replaces="src/repro/kernels/bitonic/bitonic.py:192",
+                     max_abs_err=float((out[0] - ref[0]).nan_to_num().abs().max()), ms=ms,
+                     plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=None,
+                     library_call=None))
+    log(f"[kernels] bitonic_merge (B={B}, t={T}, R={R}): bit-equal to plain (visited flags "
+        f"included); {ms:.4f} ms vs plain {plain_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}); no "
+        f"single PyTorch call merges with a payload (a sort of the concatenation is not one call)")
+
+    # K6: the exact variant's hop on precomputed distances.
+    for eager in (True, False):
+        kern = step_ops.fused_traverse(wl, cand_d, cand_i, active, eager=eager)
+        plain = step_ops.traverse_ref(cand_d, cand_i, wd, wi, wv, active, eager=eager)
+        for a, b in zip((kern[0].dists, kern[0].ids, kern[0].visited, kern[1], kern[2]), plain):
+            exact(a, b)
+    sets = copies(cand_d, cand_i, wd, wi, wv)
+    ms = time_ms(lambda d, i, a, b, c: step_ops.fused_traverse(Worklist(a, b, c), d, i, active), sets)
+    plain_ms = time_ms(lambda d, i, a, b, c: step_ops.traverse_ref(d, i, a, b, c, active), sets, reps=5)
+    b_ms, b_by = bound_ms(B * R * 8 + B * T * 9 + B + B * T * 9 + B * 5,
+                          B * 2 * (cmp_sort + cmp_merge))
+    rows.append(dict(name="fused_traverse", route="cuda", source="src/repro_torch/csrc/search_step.cu",
+                     replaces="src/repro/kernels/search_step/search_step.py:458",
+                     max_abs_err=float((kern[0].dists - plain[0]).nan_to_num().abs().max()), ms=ms,
+                     plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=None,
+                     library_call=None))
+    log(f"[kernels] fused_traverse (B={B}, R={R}, t={T}, eager+lazy): bit-equal to plain; "
+        f"{ms:.4f} ms vs plain {plain_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}); no single "
+        f"PyTorch call does sort, select and merge")
     return rows
 
 
@@ -262,15 +378,93 @@ def harness_graph(x, r: int, seed: int, chunk: int = 1024):
     return adj, medoid
 
 
-def main_path(dev, card: str) -> dict:
-    import torch
-
-    from repro_torch import BangIndex, SearchConfig, brute_force_knn, recall_at_k
-    from repro_torch.core import pq
-    from repro_torch.data import gaussian_mixture
+def kernel_counters() -> dict:
+    """The launch-counted kernel wrappers, by kernel name."""
+    from repro_torch.kernels.bitonic import ops as bitonic_ops
     from repro_torch.kernels.pq_adc import ops as adc_ops
     from repro_torch.kernels.rerank_l2 import ops as rr_ops
     from repro_torch.kernels.search_step import ops as step_ops
+
+    return {"search_step": (step_ops, "fused_step"), "pq_adc": (adc_ops, "adc"),
+            "rerank_l2": (rr_ops, "exact_sq_dists"), "bitonic_sort": (bitonic_ops, "sort_kv"),
+            "bitonic_merge": (bitonic_ops, "merge_worklist"),
+            "fused_traverse": (step_ops, "fused_traverse")}
+
+
+def reset_launches() -> None:
+    for mod, attr in kernel_counters().values():
+        getattr(mod, attr).launches = 0
+
+
+def read_launches() -> dict:
+    return {name: getattr(mod, attr).launches for name, (mod, attr) in kernel_counters().items()}
+
+
+# The kernels each path must launch.
+PATH_KERNELS = {
+    "inmem": ("search_step", "pq_adc", "rerank_l2"),
+    "base": ("search_step", "pq_adc", "rerank_l2"),
+    "exact": ("fused_traverse",),
+    "staged": ("pq_adc", "bitonic_sort", "bitonic_merge", "rerank_l2"),
+}
+
+
+def run_path(name: str, index, queries, gt, cfg, variant: str, kernel_mode: str, n_batches: int,
+             card: str) -> dict:
+    """Drive one path through `BangIndex.search`, with every launch count set
+    to 0 just before and read just after. Returns its measurements, the ids
+    and distances of every batch, and the launches."""
+    import torch
+
+    from repro_torch import recall_at_k
+
+    reset_launches()
+    ids_all, dists_all, walls, iters, hops = [], [], [], [], []
+    t_all = time.perf_counter()
+    for b in range(n_batches):
+        ids, dists, st = index.search(queries[b * BATCH : (b + 1) * BATCH], K, cfg=cfg, variant=variant,
+                                      kernel_mode=kernel_mode, return_stats=True)
+        ids_all.append(ids)
+        dists_all.append(dists)
+        walls.append(st.wall_s)
+        iters.append(st.n_iters)
+        hops.append(st.mean_hops)
+    total_s = time.perf_counter() - t_all
+    launches = read_launches()
+    for kname in PATH_KERNELS[name]:
+        if launches[kname] <= 0:
+            raise AssertionError(f"the {name} path launched no {kname} kernel")
+    ids = torch.cat(ids_all).cpu().numpy()
+    nq = min(n_batches * BATCH, len(queries))
+    if ids.shape != (nq, K) or (ids < 0).any() or (ids >= index.n).any():
+        raise AssertionError(f"{name}: bad ids, shape {ids.shape}")
+    rec = recall_at_k(ids, gt[:nq])
+    res = dict(recall_at_10=rec, qps=nq / total_s, n_batches=n_batches,
+               mean_n_iters=float(np.mean(iters)), n_iters=iters, mean_hops=float(np.mean(hops)),
+               batch_wall_ms=[w * 1e3 for w in walls], launches=launches,
+               launches_per_batch={k: v / n_batches for k, v in launches.items()},
+               ids=ids_all, dists=dists_all, total_s=total_s)
+    log(f"[{name}] {variant} {kernel_mode}, SearchConfig(t={cfg.t}, bloom_z={cfg.bloom_z}, "
+        f"eager={cfg.eager}), k={K}, {nq} queries / {n_batches} batches on {card}: recall@10 "
+        f"{rec:.5f}, QPS {res['qps']:.1f}, n_iters {iters} (cap {cfg.iters() - 1}), mean hops per "
+        f"query {res['mean_hops']:.2f}, batch wall ms {[round(w * 1e3, 2) for w in walls]}")
+    log(f"[{name}] launches in the path's run: {launches}")
+    return res
+
+
+def check_same(name: str, a, b) -> None:
+    import torch
+
+    if not all(torch.equal(x, y) for x, y in zip(a, b)):
+        raise AssertionError(f"{name}: results differ")
+
+
+def main_path(dev, card: str) -> dict:
+    import torch
+
+    from repro_torch import BangIndex, SearchConfig, brute_force_knn
+    from repro_torch.core import pq
+    from repro_torch.data import gaussian_mixture
 
     t0 = time.perf_counter()
     # Base and query points from one draw, as SIFT1M's query set is disjoint
@@ -305,66 +499,94 @@ def main_path(dev, card: str) -> dict:
     log(f"[main] brute-force ground truth: {time.perf_counter() - t0:.1f} s; mean "
         f"d^2(100th NN) / d^2(10th NN) = {contrast:.4f}")
 
+    # One index for every variant: codes and codebooks on the card; the
+    # adjacency and the vectors in pinned host memory, the vectors also on
+    # the card (inmem, exact), the adjacency uploaded for inmem and exact.
+    t0 = time.perf_counter()
     index = BangIndex.from_arrays(codec.codebooks, codes, adj, medoid, x, device=dev)
+    del adj
+    log(f"[main] index: adjacency and vectors pinned in host memory "
+        f"({(index.graph.adjacency.numel() * 4 + index.data_host.numel() * 4) / 2**20:.0f} MiB): "
+        f"{time.perf_counter() - t0:.1f} s")
     cfg = SearchConfig()
-    # Warm-up batch (first-use allocations), not counted.
-    index.search(queries[:BATCH], K, cfg=cfg, kernel_mode="fused")
+    q0 = queries[:BATCH]
+    for variant in ("inmem", "base", "exact"):
+        # Warm-up batch (first-use allocations), not counted.
+        index.search(q0, K, cfg=cfg, variant=variant, kernel_mode="fused")
     torch.cuda.synchronize()
 
-    step_ops.fused_step.launches = 0
-    adc_ops.adc.launches = 0
-    rr_ops.exact_sq_dists.launches = 0
-    ids_all, walls, iters, hops = [], [], [], []
-    t_all = time.perf_counter()
-    for s in range(0, N_QUERIES, BATCH):
-        ids, dists, st = index.search(queries[s : s + BATCH], K, cfg=cfg, kernel_mode="fused",
-                                      return_stats=True)
-        ids_all.append(ids.cpu().numpy())
-        walls.append(st.wall_s)
-        iters.append(st.n_iters)
-        hops.append(st.mean_hops)
-        if s == 0:
-            first = (ids, dists)
-    total_s = time.perf_counter() - t_all
-    launches = {"search_step": step_ops.fused_step.launches, "pq_adc": adc_ops.adc.launches,
-                "rerank_l2": rr_ops.exact_sq_dists.launches}
-    for name, cnt in launches.items():
-        if cnt <= 0:
-            raise AssertionError(f"the main path launched no {name} kernel")
-    n_batches = len(walls)
+    paths = {}
+    for variant in ("inmem", "base", "exact"):
+        if variant == "base":
+            # The base executor's host sources count the bytes they send and
+            # the host seconds their gathers take.
+            nbr, vec = index.executor("base").neighbors, index.executor("base").host_data
+            before = (nbr.frontier_bytes, nbr.rows.bytes_sent, nbr.rows.seconds, vec.bytes_sent,
+                      vec.seconds)
+        res = run_path(variant, index, queries, gt, cfg, variant, "fused", PATH_BATCHES[variant], card)
+        if variant == "base":
+            down, up, adj_s, vec_bytes, vec_s = (
+                a - b for a, b in zip((nbr.frontier_bytes, nbr.rows.bytes_sent, nbr.rows.seconds,
+                                       vec.bytes_sent, vec.seconds), before))
+            nb = res["n_batches"]
+            res["link_bytes_per_hop"] = (down + up) / sum(res["n_iters"])
+            res["rerank_bytes_per_batch"] = vec_bytes / nb
+            res["host_gather_ms_per_batch"] = {"adjacency": adj_s * 1e3 / nb, "vectors": vec_s * 1e3 / nb}
+            res["host_gather_share"] = (adj_s + vec_s) / res["total_s"]
+            log(f"[base] host link per hop: {res['link_bytes_per_hop']:.0f} bytes ((B + B*R)*4 = "
+                f"{(BATCH + BATCH * R) * 4}); re-rank vectors per batch "
+                f"{res['rerank_bytes_per_batch'] / 2**20:.1f} MiB; host gathers per batch: adjacency "
+                f"rows {adj_s * 1e3 / nb:.2f} ms, re-rank vectors {vec_s * 1e3 / nb:.2f} ms, "
+                f"{100 * res['host_gather_share']:.1f}% of the batch wall")
+        res["device_busy_ms_per_batch"] = profile_batch(index, q0, cfg, variant, "fused",
+                                                        float(np.mean(res["batch_wall_ms"])))
+        paths[variant] = res
 
-    ids = np.concatenate(ids_all)
-    if ids.shape != (N_QUERIES, K) or (ids < 0).any() or (ids >= N).any():
-        raise AssertionError(f"bad ids: shape {ids.shape}")
-    rec = recall_at_k(ids, gt)
-
-    # Checks: the plain-torch path gives the same ids on the first batch, and
-    # the reported distances are the exact squared L2 of the returned ids.
-    ref_ids, _ = index.search(queries[:BATCH], K, cfg=cfg, kernel_mode="reference")
-    if not torch.equal(ref_ids, first[0]):
-        raise AssertionError("fused and reference kernel modes returned different ids")
-    qd = torch.from_numpy(queries[:BATCH]).to(dev).double()
-    true_d = ((x[first[0].long()].double() - qd[:, None, :]) ** 2).sum(-1)
-    if not (torch.isfinite(first[1]).all() and torch.allclose(first[1].double(), true_d, rtol=1e-5, atol=2e-3)):
+    # Checks on the paths' results.
+    inmem, base, exact_p = paths["inmem"], paths["base"], paths["exact"]
+    nb = min(inmem["n_batches"], base["n_batches"])
+    check_same("base vs inmem ids", base["ids"][:nb], inmem["ids"][:nb])
+    check_same("base vs inmem distances", base["dists"][:nb], inmem["dists"][:nb])
+    log(f"[check] base ids and distances equal inmem's on {nb} batches")
+    ref_ids, _ = index.search(q0, K, cfg=cfg, kernel_mode="reference")
+    check_same("inmem fused vs reference ids", [ref_ids], inmem["ids"][:1])
+    first_ids, first_d = inmem["ids"][0], inmem["dists"][0]
+    qd = torch.from_numpy(q0).to(dev).double()
+    true_d = ((x[first_ids.long()].double() - qd[:, None, :]) ** 2).sum(-1)
+    if not (torch.isfinite(first_d).all() and torch.allclose(first_d.double(), true_d, rtol=1e-5, atol=2e-3)):
         raise AssertionError("re-ranked distances are not the exact squared L2 of the ids")
+    ex_ref = index.search(q0, K, cfg=cfg, variant="exact", kernel_mode="reference")
+    check_same("exact fused vs reference", ex_ref, (exact_p["ids"][0], exact_p["dists"][0]))
+    true_d = ((x[exact_p["ids"][0].long()].double() - qd[:, None, :]) ** 2).sum(-1)
+    if not torch.allclose(exact_p["dists"][0].double(), true_d, rtol=1e-5, atol=2e-3):
+        raise AssertionError("exact-variant distances are not the squared L2 of the ids")
+    log("[check] inmem fused ids equal kernel_mode='reference'; re-ranked distances are the exact "
+        "L2 of the ids; exact fused ids and distances equal its reference mode's")
 
-    res = dict(recall_at_10=rec, qps=N_QUERIES / total_s, mean_n_iters=float(np.mean(iters)),
-               mean_hops=float(np.mean(hops)), nn_contrast=contrast,
-               batch_wall_ms=[w * 1e3 for w in walls], launches=launches,
-               launches_per_batch={k: v / n_batches for k, v in launches.items()})
-    log(f"[main] inmem fused search, SearchConfig() (t={cfg.t}, bloom_z={cfg.bloom_z}, eager), "
-        f"k={K}, {N_QUERIES} queries / {n_batches} batches on {card}: recall@10 {rec:.4f}, "
-        f"QPS {res['qps']:.1f}, mean n_iters {res['mean_n_iters']:.1f} (cap {cfg.iters() - 1}), "
-        f"mean hops per query {res['mean_hops']:.2f}, "
-        f"batch wall ms {[round(w * 1e3, 2) for w in walls]}")
-    log(f"[main] launches in the main-path run: {launches}; first batch ids equal to "
-        f"kernel_mode='reference'; distances exact L2 of the ids")
-    res["device_busy_ms_per_batch"] = profile_batch(index, queries[:BATCH], cfg,
-                                                    float(np.mean(res["batch_wall_ms"])))
-    return res
+    # The staged kernel mode on one batch: ADC, bitonic sort and bitonic
+    # merge, one launch each per hop.
+    paths["staged"] = run_path("staged", index, queries, gt, cfg, "inmem", "staged", 1, card)
+    paths["staged"]["device_busy_ms_per_batch"] = profile_batch(
+        index, q0, cfg, "inmem", "staged", paths["staged"]["batch_wall_ms"][0])
+    check_same("staged vs fused ids", paths["staged"]["ids"], inmem["ids"][:1])
+    log("[check] staged ids equal fused ids on the first batch")
+
+    # With no kernel_mode, the index on the card runs the fused kernels.
+    reset_launches()
+    ids, _ = index.search(q0, K, cfg=cfg)
+    k1 = read_launches()["search_step"]
+    if (k1 > 0) != (dev.type == "cuda") or not torch.equal(ids, first_ids):
+        raise AssertionError(f"index.search(q) with no kernel_mode: {k1} search_step launches")
+    log(f"[check] index.search(q) with no kernel_mode launched search_step {k1} times and "
+        f"returned the fused path's ids")
+
+    for res in paths.values():
+        del res["ids"], res["dists"]
+    return dict(paths=paths, nn_contrast=contrast)
 
 
-def profile_batch(index, queries, cfg, batch_wall_ms: float) -> float | None:
+def profile_batch(index, queries, cfg, variant: str, kernel_mode: str,
+                  batch_wall_ms: float) -> float | None:
     """Device time by kernel over one batch (torch.profiler). Returns the
     device's busy ms, or None where the profiler saw no device time.
 
@@ -379,7 +601,7 @@ def profile_batch(index, queries, cfg, batch_wall_ms: float) -> float | None:
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        index.search(queries, K, cfg=cfg, kernel_mode="fused")
+        index.search(queries, K, cfg=cfg, variant=variant, kernel_mode=kernel_mode)
         torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t0) * 1e3
     def self_us(e) -> float:   # the name differs across torch versions
@@ -388,10 +610,10 @@ def profile_batch(index, queries, cfg, batch_wall_ms: float) -> float | None:
     events = sorted((e for e in prof.key_averages()
                      if e.device_type == DeviceType.CUDA and self_us(e) > 0), key=lambda e: -self_us(e))
     if not events:
-        log("[profile] the profiler recorded no device time: not measured")
+        log(f"[profile] {variant}: the profiler recorded no device time: not measured")
         return None
     busy_ms = sum(self_us(e) for e in events) / 1e3
-    log(f"[profile] one batch of {queries.shape[0]}: device busy {busy_ms:.2f} ms in "
+    log(f"[profile] {variant}, one batch of {queries.shape[0]}: device busy {busy_ms:.2f} ms in "
         f"{sum(e.count for e in events)} device events = {100 * busy_ms / batch_wall_ms:.1f}% of "
         f"the unprofiled mean batch wall {batch_wall_ms:.2f} ms (profiled wall {wall_ms:.0f} ms)")
     for e in events[:12]:
@@ -458,21 +680,30 @@ def main() -> int:
 
     t0 = time.perf_counter()
     res = main_path(dev, card)
+    paths = res["paths"]
     for row in rows:
-        row["launches"] = res["launches"][row["name"]]
-        row["launches_per_batch"] = res["launches_per_batch"][row["name"]]
+        # A kernel's launches are those of the path that runs it; the counts
+        # of every path stand beside them.
+        primary = next(p for p in ("inmem", "exact", "staged") if row["name"] in PATH_KERNELS[p])
+        row["launches"] = paths[primary]["launches"][row["name"]]
+        row["launches_per_batch"] = paths[primary]["launches_per_batch"][row["name"]]
+        row["launches_by_path"] = {p: r["launches"][row["name"]] for p, r in paths.items()}
     log(f"[main] phase: {time.perf_counter() - t0:.1f} s")
 
     t0 = time.perf_counter()
-    res["small_recall_at_10"] = small_vs_cpu(dev)
+    small = small_vs_cpu(dev)
     log(f"[small] phase: {time.perf_counter() - t0:.1f} s")
 
+    keys = ("recall_at_10", "qps", "n_batches", "mean_n_iters", "mean_hops", "batch_wall_ms",
+            "device_busy_ms_per_batch", "link_bytes_per_hop", "rerank_bytes_per_batch",
+            "host_gather_ms_per_batch", "host_gather_share")
+    summary = {p: {k: r[k] for k in keys if k in r} for p, r in paths.items()}
+    for r in summary.values():
+        busy = r["device_busy_ms_per_batch"]
+        r["idle_share"] = None if busy is None else 1.0 - busy / float(np.mean(r["batch_wall_ms"]))
     log(f"[total] {time.perf_counter() - t_start:.1f} s")
-    print(json.dumps({"kernels": rows,
-                      "main_path": {k: res[k] for k in ("recall_at_10", "qps", "mean_n_iters", "mean_hops",
-                                                        "batch_wall_ms", "device_busy_ms_per_batch",
-                                                        "nn_contrast", "small_recall_at_10")},
-                      "card": card}))
+    print(json.dumps({"kernels": rows, "main_path": summary, "nn_contrast": res["nn_contrast"],
+                      "small_recall_at_10": small, "card": card}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

@@ -4,11 +4,19 @@
     Stage 2  ANN search                    (§4.1-4.8, repro_torch.core.search)
     Stage 3  Re-ranking                    (§4.9, repro_torch.core.rerank)
 
-This slice of the port serves the "inmem" variant (graph, codes and full
-vectors on the device) in two kernel modes: "fused" runs the three CUDA
-kernels (ADC seed, fused hop, exact re-rank distances), "reference" the
-plain PyTorch versions; both return identical ids. Every tensor of an index
-lives on one device, CUDA unless the caller asks for the CPU.
+Three variants (paper §5): "base" (BANG proper: graph and full vectors in
+host RAM, only the PQ codes and codebooks on the device), "inmem" (graph,
+codes and vectors on the device) and "exact" (graph and vectors on the
+device, exact distances, no re-rank). Three kernel modes: "fused" (the hop
+in one kernel), "staged" (one kernel per stage) and "reference" (the plain
+PyTorch versions); all return identical ids. With no `kernel_mode` a search
+on a CUDA index runs "fused", one on a CPU index "reference".
+
+An index serves one device, CUDA unless the caller asks for the CPU. The
+adjacency and the full vectors are kept in host memory (pinned for a CUDA
+index) as BANG Base reads them; the vectors also on the device unless
+`keep_device_data=False`, and the adjacency goes to the device the first
+time an "inmem" or "exact" executor needs it.
 """
 from __future__ import annotations
 
@@ -49,9 +57,11 @@ class BangIndex:
 
     codec: pqlib.PQCodec         # codebooks on `device`
     codes: torch.Tensor          # (n, m) uint8 on `device`
-    graph: VamanaGraph           # (n, R) int32 adjacency on `device` + medoid
-    data: torch.Tensor           # (n, d) float32 on `device`
+    graph: VamanaGraph           # (n, R) int32 host adjacency + medoid
+    data_host: torch.Tensor      # (n, d) float32 in host memory (base re-rank source)
     device: torch.device
+    data_dev: torch.Tensor | None = None   # (n, d) float32 on `device` (inmem, exact)
+    _adjacency_dev: torch.Tensor | None = dataclasses.field(default=None, repr=False, compare=False)
     _executors: dict[str, Any] = dataclasses.field(
         default_factory=dict, repr=False, compare=False,
     )
@@ -66,28 +76,42 @@ class BangIndex:
         data: np.ndarray | torch.Tensor,
         *,
         device: str | torch.device = "cuda",
+        keep_device_data: bool = True,
     ) -> "BangIndex":
         """Index from trained codebooks (m, 256, dsub), codes (n, m) uint8,
         adjacency (n, R) int32 (-1 padded), the medoid id and the full
-        vectors (n, d). Raises when `device` is CUDA and no card exists."""
+        vectors (n, d). Raises when `device` is CUDA and no card exists.
+        With `keep_device_data=False` the vectors stay in host memory only,
+        as BANG Base needs; the "exact" variant then cannot be served."""
         dev = resolve_device(device)
         codebooks = _tensor(codebooks, torch.float32, dev)
         codes = _tensor(codes, torch.uint8, dev)
         adj = _tensor(adjacency, torch.int32, "cpu")
-        data = _tensor(data, torch.float32, dev)
+        data_host = _tensor(data, torch.float32, "cpu")
         n = codes.shape[0]
         if codebooks.ndim != 3 or codebooks.shape[1] != pqlib.N_CLUSTERS:
             raise ValueError(f"codebooks must be (m, 256, dsub), got {tuple(codebooks.shape)}")
         if codes.shape != (n, codebooks.shape[0]):
             raise ValueError(f"codes must be (n, m={codebooks.shape[0]}), got {tuple(codes.shape)}")
-        if adj.ndim != 2 or adj.shape[0] != n or data.shape[0] != n:
+        if adj.ndim != 2 or adj.shape[0] != n or data_host.shape[0] != n:
             raise ValueError("codes, adjacency and data must have one row per point")
         if not 0 <= int(medoid) < n:
             raise ValueError(f"medoid {medoid} out of range [0, {n})")
         if int(adj.max()) >= n or int(adj.min()) < -1:
             raise ValueError("adjacency ids must lie in [-1, n)")
-        graph = VamanaGraph(adjacency=adj.to(dev), medoid=int(medoid))
-        return cls(codec=pqlib.PQCodec(codebooks), codes=codes, graph=graph, data=data, device=dev)
+        data_dev = data_host.to(dev) if keep_device_data else None
+        if dev.type == "cuda":
+            adj, data_host = adj.pin_memory(), data_host.pin_memory()
+        return cls(codec=pqlib.PQCodec(codebooks), codes=codes,
+                   graph=VamanaGraph(adjacency=adj, medoid=int(medoid)),
+                   data_host=data_host, device=dev, data_dev=data_dev)
+
+    def adjacency_dev(self) -> torch.Tensor:
+        """The adjacency on the device, uploaded once and shared by the
+        "inmem" and "exact" executors ("base" never uploads it)."""
+        if self._adjacency_dev is None:
+            self._adjacency_dev = self.graph.adjacency.to(self.device)
+        return self._adjacency_dev
 
     @property
     def n(self) -> int:

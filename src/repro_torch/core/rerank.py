@@ -2,15 +2,25 @@
 
 PQ distances steer the traversal; the final answer comes from exact L2
 distances between each query and every candidate it expanded, then the true
-top-k. In the in-memory variant the full vectors are gathered from device
-memory; the exact-L2 distances have a CUDA kernel
+top-k. The in-memory variant gathers the full vectors from device memory.
+BANG Base keeps them in host RAM: the expanded ids go to the host, their
+rows are gathered from the pinned vectors into a pinned buffer, and one
+non-blocking copy sends them to the device ("only full vectors of selected
+nodes are sent to GPU"). The exact-L2 distances have a CUDA kernel
 (`repro_torch.kernels.rerank_l2`).
+
+The reference gathers host vectors in chunks of at most 64 KB
+(`gather_host_vectors`) only to keep each host callback under the size at
+which XLA:CPU hands its consumer to a thread pool that the callback may be
+holding; nothing here runs inside such a callback, so the gather is one
+`index_select`.
 """
 from __future__ import annotations
 
 import torch
 
 from ..kernels.rerank_l2 import ops as rr_ops
+from .hostrows import HostRows
 from .worklist import INVALID_ID
 
 
@@ -42,10 +52,20 @@ def rerank(
     history_ids: torch.Tensor,
     k: int,
     *,
-    data: torch.Tensor,
+    data: torch.Tensor | None = None,
+    host_data: HostRows | None = None,
     use_kernels: bool = False,
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Full re-rank stage: gather candidate vectors on the device, exact top-k."""
-    pad = history_ids == INVALID_ID
-    vecs = data[torch.where(pad, torch.zeros_like(history_ids), history_ids).long()]
+    """Full re-rank stage: gather the candidates' vectors, exact top-k.
+
+    Exactly one source is given: `data`, the (n, d) vectors on the device,
+    or `host_data`, the vectors in host RAM.
+    """
+    if (data is None) == (host_data is None):
+        raise ValueError("rerank needs exactly one of data= and host_data=")
+    if data is not None:
+        pad = history_ids == INVALID_ID
+        vecs = data[torch.where(pad, torch.zeros_like(history_ids), history_ids).long()]
+    else:
+        vecs = host_data.gather(history_ids.cpu().reshape(-1)).reshape(*history_ids.shape, -1)
     return exact_topk(queries, vecs, history_ids, k, use_kernels=use_kernels)

@@ -1,13 +1,12 @@
 """BANG batched greedy search -- Algorithm 2 of the paper, on PyTorch.
 
-One query per CUDA thread block (the paper's mapping) inside the fused step
-kernel; the batch advances in lock-step hops of a host loop, with a
-convergence mask standing in for per-block exit. Each hop performs the
-paper's stages:
+One query per CUDA thread block (the paper's mapping) inside the kernels;
+the batch advances in lock-step hops of a host loop, with a convergence mask
+standing in for per-block exit. Each hop performs the paper's stages:
 
-    fetch neighbours of u*        (device gather in-memory)
+    fetch neighbours of u*        (host RAM in BANG Base; device gather in-memory)
     bloom-filter visited           (§4.4)
-    PQ asymmetric distances        (§4.5)
+    PQ asymmetric distances        (§4.5; exact L2 in the Exact-distance variant)
     sort neighbours                (§4.7)
     merge into worklist 𝓛          (§4.8)
     select next candidate u*       (§4.6 eager or lazy)
@@ -16,12 +15,18 @@ The distance/sort/select/merge stages sit behind one pluggable StepFn
 (`SearchConfig.kernel_mode`):
 
     "reference"  plain PyTorch: gather ADC + stable sorts
-    "staged"     separate kernels per stage -- raises NotImplementedError
-                 until the bitonic sort and merge kernels are ported
-    "fused"      the search_step kernel: the whole hop in one launch
+    "staged"     one kernel per stage: ADC, bitonic sort, bitonic merge
+    "fused"      the search_step kernel: the whole hop in one launch (the
+                 traverse-only kernel where distances come from full vectors)
 
-"reference" and "fused" give identical neighbour ids. This slice ports the
-"inmem" variant (graph and codes on the device).
+All three give identical neighbour ids. `kernel_mode=None` resolves by
+device: "fused" on a CUDA device, "reference" on the CPU.
+
+Variants (paper §5):
+    base    graph + full vectors in pinned host RAM; per hop the frontier
+            goes to the host and its adjacency rows come back
+    inmem   graph on the device, PQ distances (BANG In-memory)
+    exact   graph + vectors on the device, exact L2, no re-rank
 """
 from __future__ import annotations
 
@@ -30,10 +35,13 @@ from typing import Callable, NamedTuple
 
 import torch
 
+from ..kernels.bitonic import ops as bitonic_ops
+from ..kernels.common import pad_axis
 from ..kernels.pq_adc import ops as adc_ops
 from ..kernels.search_step import ops as step_ops
 from . import bloom as bloomlib
 from . import pq as pqlib
+from .hostrows import HostRows
 from .worklist import (
     INVALID_ID,
     Worklist,
@@ -53,8 +61,7 @@ class SearchConfig:
     max_iters: int = 0           # 0 -> ceil(1.5*t)+8 (Fig 10 headroom)
     bloom_z: int = 399887        # paper §6.3 default
     eager: bool = True           # §4.6 eager candidate selection
-    use_kernels: bool = False    # legacy alias for kernel_mode="staged"
-    kernel_mode: str | None = None  # "reference" | "staged" | "fused"
+    kernel_mode: str | None = None  # "reference" | "staged" | "fused"; None: by device
     # Codes tile rows of the reference's beyond-VMEM kernel. The GPU kernel
     # gathers code rows from global memory at any n, so every value gives the
     # same result; it is validated and keys cached pipelines as in the
@@ -70,8 +77,9 @@ class SearchConfig:
     def iters(self) -> int:
         return self.max_iters if self.max_iters > 0 else int(1.5 * self.t) + 8
 
-    def resolved_kernel_mode(self) -> str:
-        """Explicit kernel_mode wins; else the legacy use_kernels flag."""
+    def resolved_kernel_mode(self, device: torch.device | str) -> str:
+        """An explicit kernel_mode wins; None means "fused" for a search on a
+        CUDA device and "reference" on the CPU."""
         if self.kernel_mode is not None:
             if self.kernel_mode not in KERNEL_MODES:
                 raise ValueError(
@@ -79,11 +87,7 @@ class SearchConfig:
                     f"of {KERNEL_MODES}"
                 )
             return self.kernel_mode
-        return "staged" if self.use_kernels else "reference"
-
-    def uses_kernels(self) -> bool:
-        """Whether the kernels (re-rank included) are used."""
-        return self.resolved_kernel_mode() != "reference"
+        return "fused" if torch.device(device).type == "cuda" else "reference"
 
 
 class SearchResult(NamedTuple):
@@ -94,7 +98,7 @@ class SearchResult(NamedTuple):
     n_hops: torch.Tensor         # (B,) per-query expansions (== history_len)
 
 
-NeighborFn = Callable[[torch.Tensor], torch.Tensor]           # (B,) -> (B, R)
+NeighborFn = Callable[[torch.Tensor], torch.Tensor]           # (B,) -> (B, R), on the device
 DistanceFn = Callable[[torch.Tensor, torch.Tensor], torch.Tensor]
 
 
@@ -117,7 +121,59 @@ class StepFn:
 
 
 class ReferenceStep(StepFn):
-    """Plain PyTorch body: gather ADC (via distance_fn) + stable sorts."""
+    """Plain PyTorch body: distances from `distance_fn` + stable sorts."""
+
+    def __init__(self, distance_fn: DistanceFn, eager: bool = True) -> None:
+        self.distance_fn = distance_fn
+        self.eager = eager
+
+    def init_dists(self, ids: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
+        return self.distance_fn(ids, valid)
+
+    def _sort(self, d: torch.Tensor, i: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+        return sort_candidates(d, i)
+
+    def _merge(self, wl: Worklist, sd: torch.Tensor, si: torch.Tensor) -> Worklist:
+        return merge_worklist(wl, sd, si)
+
+    def step(self, wl: Worklist, nbrs: torch.Tensor, fresh: torch.Tensor, active: torch.Tensor):
+        d = self.distance_fn(nbrs, fresh)
+        cand_ids = torch.where(fresh, nbrs, torch.full_like(nbrs, INVALID_ID))
+        sd, si = self._sort(d, cand_ids)
+        if self.eager:
+            # §4.6: best of {first unvisited of the pre-merge worklist,
+            # nearest fresh neighbour} -- known before the merge.
+            wl_u, wl_found = first_unvisited(wl)
+            inf = torch.full_like(wl.dists, float("inf"))
+            wl_d = torch.where(wl.visited, inf, wl.dists).min(dim=-1).values
+            wl_d = torch.where(wl_found, wl_d, inf[:, 0])
+            u_next = torch.where(sd[:, 0] < wl_d, si[:, 0], wl_u)
+            found = wl_found | (si[:, 0] != INVALID_ID)
+            wl = self._merge(wl, sd, si)
+        else:
+            wl = self._merge(wl, sd, si)
+            u_next, found = first_unvisited(wl)
+        active = active & found
+        u_next = torch.where(active, u_next, torch.full_like(u_next, INVALID_ID))
+        return mark_visited(wl, u_next), u_next, active
+
+
+class StagedStep(ReferenceStep):
+    """One kernel per stage: distances (the ADC kernel where `distance_fn`
+    is PQ), then the bitonic sort kernel, then the bitonic merge kernel;
+    the (B, R) candidate tile goes through device memory between them."""
+
+    def _sort(self, d: torch.Tensor, i: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+        return bitonic_ops.sort_kv(d, i)
+
+    def _merge(self, wl: Worklist, sd: torch.Tensor, si: torch.Tensor) -> Worklist:
+        return bitonic_ops.merge_worklist(wl, sd, si)
+
+
+class FusedTraverseStep(StepFn):
+    """Distances from `distance_fn`, then sort + select + merge in one
+    traverse kernel launch: for distances that cannot be taken inside the
+    hop kernel, as the exact variant's full-vector L2."""
 
     def __init__(self, distance_fn: DistanceFn, eager: bool = True) -> None:
         self.distance_fn = distance_fn
@@ -129,23 +185,7 @@ class ReferenceStep(StepFn):
     def step(self, wl: Worklist, nbrs: torch.Tensor, fresh: torch.Tensor, active: torch.Tensor):
         d = self.distance_fn(nbrs, fresh)
         cand_ids = torch.where(fresh, nbrs, torch.full_like(nbrs, INVALID_ID))
-        sd, si = sort_candidates(d, cand_ids)
-        if self.eager:
-            # §4.6: best of {first unvisited of the pre-merge worklist,
-            # nearest fresh neighbour} -- known before the merge.
-            wl_u, wl_found = first_unvisited(wl)
-            inf = torch.full_like(wl.dists, float("inf"))
-            wl_d = torch.where(wl.visited, inf, wl.dists).min(dim=-1).values
-            wl_d = torch.where(wl_found, wl_d, inf[:, 0])
-            u_next = torch.where(sd[:, 0] < wl_d, si[:, 0], wl_u)
-            found = wl_found | (si[:, 0] != INVALID_ID)
-            wl = merge_worklist(wl, sd, si)
-        else:
-            wl = merge_worklist(wl, sd, si)
-            u_next, found = first_unvisited(wl)
-        active = active & found
-        u_next = torch.where(active, u_next, torch.full_like(u_next, INVALID_ID))
-        return mark_visited(wl, u_next), u_next, active
+        return step_ops.fused_traverse(wl, d, cand_ids, active, eager=self.eager)
 
 
 class FusedStep(StepFn):
@@ -172,27 +212,97 @@ class FusedStep(StepFn):
         )
 
 
-def _adc_distance_fn(table: torch.Tensor, codes: torch.Tensor) -> DistanceFn:
-    """PQ asymmetric distances for candidate ids (paper §4.5)."""
+def make_step_fn(cfg: SearchConfig, distance_fn: DistanceFn, device: torch.device | str) -> StepFn:
+    """StepFn for a pluggable distance source (the exact path), for a
+    search on `device`."""
+    mode = cfg.resolved_kernel_mode(device)
+    if mode == "fused":
+        return FusedTraverseStep(distance_fn, cfg.eager)
+    if mode == "staged":
+        return StagedStep(distance_fn, cfg.eager)
+    return ReferenceStep(distance_fn, cfg.eager)
+
+
+def _adc_step_fn(table: torch.Tensor, codes: torch.Tensor, cfg: SearchConfig) -> StepFn:
+    """StepFn for the PQ variants: "fused" runs the whole hop in one kernel
+    (code gather inside it); "staged" and "reference" gather the codes in
+    the distance function."""
+    mode = cfg.resolved_kernel_mode(table.device)
+    if mode == "fused":
+        return FusedStep(table, codes, cfg.eager, cfg.codes_tile_rows)
+    return make_step_fn(cfg, _adc_distance_fn(table, codes, mode == "staged"), table.device)
+
+
+def _adc_distance_fn(table: torch.Tensor, codes: torch.Tensor, use_kernels: bool) -> DistanceFn:
+    """PQ asymmetric distances for candidate ids (paper §4.5): the (B, R, m)
+    codes are gathered, then summed by the ADC kernel or its plain
+    counterpart."""
 
     def fn(ids: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
         safe = torch.where(valid, ids, torch.zeros_like(ids)).long()
-        d = pqlib.adc_distance(table, codes[safe])
+        gathered = codes[safe]
+        if use_kernels:
+            return adc_ops.adc(table, gathered, valid)
+        d = pqlib.adc_distance(table, gathered)
         return torch.where(valid, d, torch.full_like(d, float("inf")))
 
     return fn
 
 
-def _adc_step_fn(table: torch.Tensor, codes: torch.Tensor, cfg: SearchConfig) -> StepFn:
-    mode = cfg.resolved_kernel_mode()
-    if mode == "fused":
-        return FusedStep(table, codes, cfg.eager, cfg.codes_tile_rows)
-    if mode == "staged":
-        raise NotImplementedError(
-            'kernel_mode="staged" needs the bitonic sort and merge kernels, '
-            "which are not ported yet"
-        )
-    return ReferenceStep(_adc_distance_fn(table, codes), cfg.eager)
+def _fma(acc: torch.Tensor, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """acc + a*b rounded once to float32: the float32 product is exact in
+    float64."""
+    return (acc.double() + a.double() * b.double()).float()
+
+
+def _xla_cpu_sq_norm(x: torch.Tensor) -> torch.Tensor:
+    """sum(x*x, -1) in XLA:CPU's order: sequential fused multiply-adds."""
+    acc = torch.zeros(x.shape[:-1], dtype=torch.float32, device=x.device)
+    for j in range(x.shape[-1]):
+        acc = _fma(acc, x[..., j], x[..., j])
+    return acc
+
+
+def _xla_cpu_dot(v: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
+    """einsum("brd,bd->br") in XLA:CPU's order: 8 strided fused-multiply-add
+    partials, folded by neighbours ((0+1), (2+3), ...)."""
+    lanes = 8
+    q = pad_axis(q[:, None, :].expand_as(v), -1, lanes, 0.0)
+    v = pad_axis(v, -1, lanes, 0.0)
+    v, q = (x.reshape(*x.shape[:-1], -1, lanes) for x in (v, q))
+    acc = torch.zeros(v.shape[:-2] + (lanes,), dtype=torch.float32, device=v.device)
+    for j in range(v.shape[-2]):
+        acc = _fma(acc, v[..., j, :], q[..., j, :])
+    while acc.shape[-1] > 1:
+        acc = acc[..., 0::2] + acc[..., 1::2]
+    return acc[..., 0]
+
+
+def _exact_distance_fn(data: torch.Tensor, queries: torch.Tensor) -> DistanceFn:
+    """Exact squared-L2 distances (BANG Exact-distance variant, §5.2),
+    ||q||^2 + ||v||^2 - 2<v,q> as in the reference.
+
+    The formula cancels, so on near-ties the order of summation decides the
+    ids. On the CPU the sums follow XLA:CPU's order (probed at d = 32 on
+    (B >= 8, R > 1) tiles; the (B, 1) medoid seed can differ from it in the
+    last bit), so the parity tests follow the reference's traversal. On the
+    card one batched matrix product (TF32 off) takes the dot products.
+    """
+    q = queries.to(torch.float32)
+    on_cpu = q.device.type == "cpu"
+    qn = _xla_cpu_sq_norm(q) if on_cpu else (q * q).sum(-1)
+
+    def fn(ids: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
+        safe = torch.where(valid, ids, torch.zeros_like(ids)).long()
+        vecs = data[safe].to(torch.float32)                       # (B, R, d)
+        if on_cpu:
+            vn, dot = _xla_cpu_sq_norm(vecs), _xla_cpu_dot(vecs, q)
+        else:
+            vn, dot = (vecs * vecs).sum(-1), torch.bmm(vecs, q[:, :, None])[..., 0]
+        d = qn[:, None] + vn - 2.0 * dot
+        return torch.where(valid, d, torch.full_like(d, float("inf")))
+
+    return fn
 
 
 def device_neighbor_fn(adjacency: torch.Tensor) -> NeighborFn:
@@ -204,6 +314,39 @@ def device_neighbor_fn(adjacency: torch.Tensor) -> NeighborFn:
         return torch.where(pad[:, None], torch.full_like(nbrs, -1), nbrs)
 
     return fn
+
+
+class HostNeighborFn:
+    """BANG Base: the adjacency stays in (pinned) host RAM and each hop
+    crosses the link -- the frontier ids go to the host, the host gathers
+    their rows and sends (B, R) ids back (Algorithm 2 lines 5-6), INVALID
+    lanes as -1 rows.
+
+    `bang_search` calls `fetch(u, active)`, which takes the hop's one
+    device-to-host copy: the frontier with the inactive lanes marked, from
+    which the host reads both the ids and the stop test.
+    """
+
+    INACTIVE = -2     # never an id: ids lie in [0, n) or are INVALID
+
+    def __init__(self, rows: HostRows) -> None:
+        self.rows = rows
+        self.frontier_bytes = 0      # frontier ids copied to the host
+
+    def fetch(self, u: torch.Tensor, active: torch.Tensor) -> torch.Tensor | None:
+        """Adjacency rows of the frontier, or None once no lane is active."""
+        lanes = torch.where(active, u, torch.full_like(u, self.INACTIVE)).cpu()
+        self.frontier_bytes += lanes.numel() * lanes.element_size()
+        live = lanes != self.INACTIVE
+        if not bool(live.any()):
+            return None
+        return self.rows.gather(torch.where(live, lanes, torch.full_like(lanes, INVALID_ID)), fill=-1)
+
+
+def host_neighbor_fn(adjacency: torch.Tensor, device: torch.device | str) -> HostNeighborFn:
+    """Neighbour source over an (n, R) int32 host adjacency (pinned for a
+    CUDA device) serving searches on `device`."""
+    return HostNeighborFn(HostRows(adjacency, device))
 
 
 def bang_search(
@@ -220,7 +363,8 @@ def bang_search(
 
     A host loop with the reference's stop test, `any(active) & it < C-1`, so
     `n_iters` and `n_hops` match the reference. Reading `any(active)` each
-    hop synchronises the host with the device once per hop.
+    hop synchronises the host with the device once per hop; with a host
+    neighbour source that one copy also brings the frontier to the host.
 
     `prefetch_fn` (the host-I/O double-buffered exchange) and `tombstone_fn`
     (streaming deletes) keep their places in the signature; they come with
@@ -247,11 +391,19 @@ def bang_search(
     u = med
     active = torch.ones((B,), dtype=torch.bool, device=dev)
     rows = torch.arange(B, device=dev)
+    on_host = isinstance(neighbor_fn, HostNeighborFn)
 
     it = 0
-    while it < C - 1 and bool(active.any()):
+    while it < C - 1:
         # 1. Fetch neighbours of the pending candidate.
-        nbrs = neighbor_fn(u)                                   # (B, R)
+        if on_host:
+            nbrs = neighbor_fn.fetch(u, active)                 # (B, R)
+            if nbrs is None:
+                break
+        else:
+            if not bool(active.any()):
+                break
+            nbrs = neighbor_fn(u)                               # (B, R)
         valid = (nbrs >= 0) & active[:, None]
         # 2. Bloom filter: drop already-seen neighbours, insert fresh ones.
         fresh, filt = bloomlib.bloom_query_and_set(filt, nbrs, valid)
@@ -281,6 +433,45 @@ def search_inmem(
         queries,
         neighbor_fn=device_neighbor_fn(adjacency),
         step_fn=_adc_step_fn(table, codes, cfg),
+        medoid=medoid,
+        cfg=cfg,
+    )
+
+
+def search_base(
+    queries: torch.Tensor,
+    table: torch.Tensor,
+    codes: torch.Tensor,
+    neighbor_fn: HostNeighborFn,
+    medoid: int,
+    cfg: SearchConfig,
+) -> SearchResult:
+    """BANG Base: PQ codes on the device, the graph in host RAM behind
+    `neighbor_fn` (`host_neighbor_fn`)."""
+    return bang_search(
+        queries,
+        neighbor_fn=neighbor_fn,
+        step_fn=_adc_step_fn(table, codes, cfg),
+        medoid=medoid,
+        cfg=cfg,
+    )
+
+
+def search_exact(
+    queries: torch.Tensor,
+    data: torch.Tensor,
+    adjacency: torch.Tensor,
+    medoid: int,
+    cfg: SearchConfig,
+) -> SearchResult:
+    """BANG Exact-distance: graph and full vectors on the device; distances
+    come from full vectors, so even "fused" keeps the distance stage outside
+    the kernel (FusedTraverseStep)."""
+    dist = _exact_distance_fn(data, queries)
+    return bang_search(
+        queries,
+        neighbor_fn=device_neighbor_fn(adjacency),
+        step_fn=make_step_fn(cfg, dist, queries.device),
         medoid=medoid,
         cfg=cfg,
     )

@@ -15,8 +15,8 @@ import torch
 
 @dataclasses.dataclass
 class VamanaGraph:
-    """Fixed-degree adjacency: (n, R) int32, -1 padded, on the index's
-    device. medoid = search entry."""
+    """Fixed-degree adjacency: (n, R) int32, -1 padded, in host memory
+    (pinned for an index on a CUDA device). medoid = search entry."""
 
     adjacency: torch.Tensor
     medoid: int

@@ -66,9 +66,14 @@ __device__ __forceinline__ void bitonic_network(float* d, int* id, int* v, int n
 
 // Opt a kernel into more than 48 KB of dynamic shared memory when it needs it.
 // Beyond the device's limit (227 KB on the H100) this returns
-// cudaErrorInvalidValue, which the Python wrapper raises.
+// cudaErrorInvalidValue, which the Python wrapper raises. The refusal also
+// sets the runtime's last error, which is cleared here: left set, the next
+// launch of any kernel would read it back as its own.
 template <typename Kernel>
 __host__ inline cudaError_t allow_smem(Kernel kernel, size_t bytes) {
   if (bytes <= 48 * 1024) return cudaSuccess;
-  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  const cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  if (err != cudaSuccess) cudaGetLastError();
+  return err;
 }

@@ -1,4 +1,5 @@
-// K1: one whole Algorithm-2 hop per query (BANG §4.5-§4.8) in one kernel.
+// K1: one whole Algorithm-2 hop per query (BANG §4.5-§4.8) in one kernel,
+// and K6, the same hop on distances computed outside the kernel.
 //
 // Replaces the TPU kernels search_step.fused_step_pallas
 // (src/repro/kernels/search_step/search_step.py:293, _fused_step_kernel and
@@ -32,52 +33,28 @@
 // the new worklist written. Re-reading the table every hop is the cost a
 // later persistent kernel (table kept in shared memory across hops) would
 // remove.
+//
+// K6 replaces search_step.fused_traverse_pallas (search_step.py:433,
+// _traverse_kernel): steps 3-6 above on precomputed (B, R) distances, for the
+// exact variant, whose distances come from full vectors. It shares K1's
+// code after the ADC (traverse_tail). What bounds it: bytes, the candidates
+// (B, R) and the worklist in and out, about 1.7 MB at B = 1024, R = t = 64
+// (0.5 us at 3.35 TB/s); its 28 barrier-separated network stages on one
+// block per query keep it far above that, as for K1.
 #include "common.cuh"
 
 namespace {
 
-__global__ void search_step_kernel(
-    const float* __restrict__ table, const uint8_t* __restrict__ codes,
-    const int* __restrict__ nbrs, const bool* __restrict__ fresh,
-    const float* __restrict__ wld, const int* __restrict__ wli,
-    const bool* __restrict__ wlv, const bool* __restrict__ active,
-    float* __restrict__ owd, int* __restrict__ owi, bool* __restrict__ owv,
-    int* __restrict__ ou, bool* __restrict__ oact,
-    int n, int m, int R, int t, int Rp, int P, int eager) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  float* tbl = reinterpret_cast<float*>(smem);  // m * 256
-  float* cd = tbl + m * 256;                     // Rp
-  int* ci = reinterpret_cast<int*>(cd + Rp);     // Rp
-  float* md = reinterpret_cast<float*>(ci + Rp); // P
-  int* mi = reinterpret_cast<int*>(md + P);      // P
-  int* mv = mi + P;                              // P
+// The hop after the candidates' distances are known (_traverse_math of the
+// reference): §4.7 sort of the Rp-candidate tile cd/ci, §4.6 selection, §4.8
+// merge into the worklist md/mi/mv (held in [0, t) of the P-slot buffers),
+// INVALID slots forced visited, and the outputs of query b. cd/ci and the
+// worklist must be visible to the whole block.
+__device__ __forceinline__ void traverse_tail(
+    float* cd, int* ci, float* md, int* mi, int* mv, int b, int t, int Rp, int P, int eager,
+    const bool* __restrict__ active, float* __restrict__ owd, int* __restrict__ owi,
+    bool* __restrict__ owv, int* __restrict__ ou, bool* __restrict__ oact) {
   __shared__ int s_u, s_found;
-
-  const int b = blockIdx.x;
-  const float* tb = table + (size_t)b * m * 256;
-  for (int i = threadIdx.x; i < m * 256; i += blockDim.x) tbl[i] = tb[i];
-  for (int i = threadIdx.x; i < t; i += blockDim.x) {
-    md[i] = wld[(size_t)b * t + i];
-    mi[i] = wli[(size_t)b * t + i];
-    mv[i] = wlv[(size_t)b * t + i] ? 1 : 0;
-  }
-  __syncthreads();
-
-  // §4.5 ADC with the code gather inside the kernel.
-  for (int r = threadIdx.x; r < Rp; r += blockDim.x) {
-    float d = CUDART_INF_F;
-    int id = REPRO_INVALID;
-    if (r < R && fresh[(size_t)b * R + r]) {
-      id = nbrs[(size_t)b * R + r];
-      // Clamped like the reference's XLA gather; ids out of [0, n) do not
-      // occur on the search path.
-      const int row = min(max(id, 0), n - 1);
-      d = adc_sum(tbl, codes + (size_t)row * m, m);
-    }
-    cd[r] = d;
-    ci[r] = id;
-  }
-  __syncthreads();
 
   // §4.7 sort of the candidate tile.
   bitonic_network(cd, ci, nullptr, Rp, true);
@@ -137,6 +114,81 @@ __global__ void search_step_kernel(
   }
 }
 
+__global__ void search_step_kernel(
+    const float* __restrict__ table, const uint8_t* __restrict__ codes,
+    const int* __restrict__ nbrs, const bool* __restrict__ fresh,
+    const float* __restrict__ wld, const int* __restrict__ wli,
+    const bool* __restrict__ wlv, const bool* __restrict__ active,
+    float* __restrict__ owd, int* __restrict__ owi, bool* __restrict__ owv,
+    int* __restrict__ ou, bool* __restrict__ oact,
+    int n, int m, int R, int t, int Rp, int P, int eager) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  float* tbl = reinterpret_cast<float*>(smem);  // m * 256
+  float* cd = tbl + m * 256;                     // Rp
+  int* ci = reinterpret_cast<int*>(cd + Rp);     // Rp
+  float* md = reinterpret_cast<float*>(ci + Rp); // P
+  int* mi = reinterpret_cast<int*>(md + P);      // P
+  int* mv = mi + P;                              // P
+
+  const int b = blockIdx.x;
+  const float* tb = table + (size_t)b * m * 256;
+  for (int i = threadIdx.x; i < m * 256; i += blockDim.x) tbl[i] = tb[i];
+  for (int i = threadIdx.x; i < t; i += blockDim.x) {
+    md[i] = wld[(size_t)b * t + i];
+    mi[i] = wli[(size_t)b * t + i];
+    mv[i] = wlv[(size_t)b * t + i] ? 1 : 0;
+  }
+  __syncthreads();
+
+  // §4.5 ADC with the code gather inside the kernel.
+  for (int r = threadIdx.x; r < Rp; r += blockDim.x) {
+    float d = CUDART_INF_F;
+    int id = REPRO_INVALID;
+    if (r < R && fresh[(size_t)b * R + r]) {
+      id = nbrs[(size_t)b * R + r];
+      // Clamped like the reference's XLA gather; ids out of [0, n) do not
+      // occur on the search path.
+      const int row = min(max(id, 0), n - 1);
+      d = adc_sum(tbl, codes + (size_t)row * m, m);
+    }
+    cd[r] = d;
+    ci[r] = id;
+  }
+  __syncthreads();
+
+  traverse_tail(cd, ci, md, mi, mv, b, t, Rp, P, eager, active, owd, owi, owv, ou, oact);
+}
+
+// K6: the hop on precomputed distances (B, R), padded to Rp with
+// (+inf, INVALID); everything else is K1's.
+__global__ void fused_traverse_kernel(
+    const float* __restrict__ cand_d, const int* __restrict__ cand_i,
+    const float* __restrict__ wld, const int* __restrict__ wli,
+    const bool* __restrict__ wlv, const bool* __restrict__ active,
+    float* __restrict__ owd, int* __restrict__ owi, bool* __restrict__ owv,
+    int* __restrict__ ou, bool* __restrict__ oact,
+    int R, int t, int Rp, int P, int eager) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  float* cd = reinterpret_cast<float*>(smem);    // Rp
+  int* ci = reinterpret_cast<int*>(cd + Rp);     // Rp
+  float* md = reinterpret_cast<float*>(ci + Rp); // P
+  int* mi = reinterpret_cast<int*>(md + P);      // P
+  int* mv = mi + P;                              // P
+
+  const int b = blockIdx.x;
+  for (int i = threadIdx.x; i < t; i += blockDim.x) {
+    md[i] = wld[(size_t)b * t + i];
+    mi[i] = wli[(size_t)b * t + i];
+    mv[i] = wlv[(size_t)b * t + i] ? 1 : 0;
+  }
+  for (int r = threadIdx.x; r < Rp; r += blockDim.x) {
+    cd[r] = r < R ? cand_d[(size_t)b * R + r] : CUDART_INF_F;
+    ci[r] = r < R ? cand_i[(size_t)b * R + r] : REPRO_INVALID;
+  }
+  __syncthreads();
+  traverse_tail(cd, ci, md, mi, mv, b, t, Rp, P, eager, active, owd, owi, owv, ou, oact);
+}
+
 }  // namespace
 
 extern "C" int repro_search_step(
@@ -155,5 +207,20 @@ extern "C" int repro_search_step(
       (const float*)wld, (const int*)wli, (const bool*)wlv, (const bool*)active,
       (float*)owd, (int*)owi, (bool*)owv, (int*)ou, (bool*)oact,
       n, m, R, t, Rp, P, eager);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int repro_fused_traverse(
+    const void* cand_d, const void* cand_i, const void* wld, const void* wli, const void* wlv,
+    const void* active, void* owd, void* owi, void* owv, void* ou, void* oact,
+    int B, int R, int t, int Rp, int P, int eager, int threads, void* stream) {
+  // The candidate tile (dist, id) and the merge buffer (dist, id, visited).
+  const size_t smem = (size_t)Rp * 8 + (size_t)P * 12;
+  cudaError_t err = allow_smem(fused_traverse_kernel, smem);
+  if (err != cudaSuccess) return (int)err;
+  fused_traverse_kernel<<<B, threads, smem, (cudaStream_t)stream>>>(
+      (const float*)cand_d, (const int*)cand_i, (const float*)wld, (const int*)wli,
+      (const bool*)wlv, (const bool*)active, (float*)owd, (int*)owi, (bool*)owv,
+      (int*)ou, (bool*)oact, R, t, Rp, P, eager);
   return (int)cudaGetLastError();
 }

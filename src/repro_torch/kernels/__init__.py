@@ -1,4 +1,6 @@
 # Hand-written Hopper kernels (csrc/*.cu) with their plain PyTorch versions:
-#   pq_adc       -- ADC of R candidates per query (medoid seed)
-#   search_step  -- one whole Algorithm-2 hop per query
+#   pq_adc       -- ADC of R candidates per query (medoid seed; staged distances)
+#   search_step  -- one whole Algorithm-2 hop per query; the hop on
+#                   precomputed distances (exact variant)
+#   bitonic      -- candidate sort and worklist merge (staged mode)
 #   rerank_l2    -- exact squared L2 for the re-rank

@@ -1,1 +1,2 @@
-"""Fused traversal-step kernel: one whole Algorithm-2 hop per query."""
+"""Fused traversal-step kernels: one whole Algorithm-2 hop per query (K1),
+and the hop on precomputed distances (K6)."""

@@ -1,5 +1,5 @@
-"""One fused Algorithm-2 hop: the CUDA kernel on the card, its plain version
-on the CPU.
+"""One fused Algorithm-2 hop (K1) and the same hop on precomputed distances
+(K6): the CUDA kernels on the card, their plain versions on the CPU.
 
 `fused_step` takes the place of both reference entry points,
 `fused_step_pallas` and the beyond-VMEM `fused_step_dma_pallas`: the TPU had
@@ -15,7 +15,7 @@ import torch
 from repro_torch.core.worklist import Worklist
 from repro_torch.kernels import common
 
-from .ref import step_ref
+from .ref import step_ref, traverse_ref
 
 THREADS = 128
 
@@ -88,6 +88,59 @@ def fused_step(
     return Worklist(d, i, v), u, a
 
 
-fused_step.launches = 0
+def fused_traverse(
+    wl: Worklist,
+    cand_dists: torch.Tensor,
+    cand_ids: torch.Tensor,
+    active: torch.Tensor,
+    *,
+    eager: bool = True,
+) -> tuple[Worklist, torch.Tensor, torch.Tensor]:
+    """Sort + select + merge + mark-visited on precomputed candidate
+    distances: returns (worklist', u_next (B,), active' (B,)).
 
-__all__ = ["fused_step", "step_ref"]
+    cand_dists (B, R) f32, +inf on masked lanes; cand_ids (B, R) int32,
+    INVALID on masked lanes; wl (B, t); active (B,) bool.
+    """
+    tensors = (cand_dists, cand_ids, wl.dists, wl.ids, wl.visited, active)
+    if not common.on_cuda(*tensors):
+        d, i, v, u, a = traverse_ref(cand_dists, cand_ids, wl.dists, wl.ids, wl.visited, active,
+                                     eager=eager)
+        return Worklist(d, i, v), u, a
+    B, t = wl.dists.shape
+    R = cand_dists.shape[1]
+    for name, x, dtype, shape in (
+        ("cand_dists", cand_dists, torch.float32, (B, R)),
+        ("cand_ids", cand_ids, torch.int32, (B, R)),
+        ("wl.dists", wl.dists, torch.float32, (B, t)),
+        ("wl.ids", wl.ids, torch.int32, (B, t)),
+        ("wl.visited", wl.visited, torch.bool, (B, t)),
+        ("active", active, torch.bool, (B,)),
+    ):
+        common.check(x, name, dtype, shape)
+    if R < 1 or t < 1:
+        raise ValueError(f"need R, t >= 1, got R={R}, t={t}")
+    Rp = common.next_pow2(R)
+    P = common.next_pow2(t + Rp)
+    dev = wl.dists.device
+    owd, owi, owv = torch.empty_like(wl.dists), torch.empty_like(wl.ids), torch.empty_like(wl.visited)
+    ou = torch.empty((B,), dtype=torch.int32, device=dev)
+    oact = torch.empty((B,), dtype=torch.bool, device=dev)
+    if B:
+        fn = common.kernel_fn("repro_fused_traverse", [common.PTR] * 11 + [common.INT] * 7 + [common.PTR])
+        with torch.cuda.device(dev):
+            rc = fn(
+                cand_dists.data_ptr(), cand_ids.data_ptr(), wl.dists.data_ptr(), wl.ids.data_ptr(),
+                wl.visited.data_ptr(), active.data_ptr(),
+                owd.data_ptr(), owi.data_ptr(), owv.data_ptr(), ou.data_ptr(), oact.data_ptr(),
+                B, R, t, Rp, P, int(eager), THREADS, common.stream_of(cand_dists),
+            )
+        common.check_launch(rc, f"fused_traverse (R={R}, t={t})")
+        fused_traverse.launches += 1
+    return Worklist(owd, owi, owv), ou, oact
+
+
+fused_step.launches = 0
+fused_traverse.launches = 0
+
+__all__ = ["fused_step", "fused_traverse", "step_ref", "traverse_ref"]

@@ -15,10 +15,21 @@ through `dispatch` / `finish`:
     current stream, with a CUDA event recorded behind it, and `finish` waits
     on that event. The search loop reads the convergence flag each hop, so
     on the card `dispatch` returns after the traversal with the re-rank
-    still in flight.
+    still in flight ("base" waits for the expanded ids, which its re-rank
+    sends to the host).
+  * **Kernel mode.** A configuration without `kernel_mode` runs "fused" on
+    a CUDA device and "reference" on the CPU; the mode is resolved here,
+    before the cache key is formed.
 
-This slice serves `variant="inmem"`; the other variants raise
-NotImplementedError until their slices land.
+Variants, as the reference's `_compile` dispatches them:
+
+  * "inmem": codes, adjacency and vectors on the device; PQ search, re-rank
+    from device vectors.
+  * "base": only the codes and codebooks on the device; the adjacency and
+    the vectors stay in pinned host memory, the search fetches each hop's
+    rows from there and the re-rank gathers the candidates' vectors there.
+  * "exact": adjacency and vectors on the device; exact distances, and no
+    re-rank (the worklist already holds exact distances).
 """
 from __future__ import annotations
 
@@ -33,10 +44,10 @@ from repro_torch.core import pq as pqlib
 from repro_torch.core import rerank as rr
 from repro_torch.core import search as searchlib
 from repro_torch.core.bang import SearchStats
+from repro_torch.core.hostrows import HostRows
 from repro_torch.core.search import SearchConfig
 
 VARIANTS = ("inmem", "base", "exact")
-PORTED_VARIANTS = ("inmem",)
 
 
 def bucket_size(batch: int, *, min_bucket: int = 8) -> int:
@@ -84,32 +95,57 @@ class SearchExecutor:
         self,
         codec: pqlib.PQCodec,
         codes: torch.Tensor,
-        adjacency: torch.Tensor,
         medoid: int,
-        data: torch.Tensor,
         *,
         variant: str = "inmem",
+        adjacency: torch.Tensor | None = None,
+        data: torch.Tensor | None = None,
+        host_adjacency: torch.Tensor | None = None,
+        host_data: torch.Tensor | None = None,
     ) -> None:
+        """`adjacency`/`data` are the device copies ("inmem", "exact"),
+        `host_adjacency`/`host_data` the host ones ("base"; "inmem" re-ranks
+        from `host_data` when it has no device vectors)."""
         if variant not in VARIANTS:
             raise ValueError(f"unknown variant {variant!r}, expected one of {VARIANTS}")
-        if variant not in PORTED_VARIANTS:
-            raise NotImplementedError(f"variant {variant!r} is not ported yet")
         self.variant = variant
         self.device = codes.device
         self._codec = codec
         self._codes = codes
-        self._adjacency = adjacency
         self._medoid = int(medoid)
-        self._data = data
+        self._adjacency = None
+        self._data = None
+        # Host sources ("base"; "inmem" without device vectors), public for
+        # their byte and time counters.
+        self.neighbors: searchlib.HostNeighborFn | None = None
+        self.host_data: HostRows | None = None
+        if variant == "base":
+            if host_adjacency is None or host_data is None:
+                raise ValueError("the base variant needs host_adjacency and host_data")
+            self.neighbors = searchlib.host_neighbor_fn(host_adjacency, self.device)
+            self.host_data = HostRows(host_data, self.device)
+        else:
+            if adjacency is None:
+                raise ValueError(f"the {variant} variant needs the device adjacency")
+            if variant == "exact" and data is None:
+                raise ValueError("the exact variant needs the vectors on the device")
+            if data is None and host_data is None:
+                raise ValueError("the re-rank needs data or host_data")
+            self._adjacency = adjacency
+            self._data = data
+            if data is None:
+                self.host_data = HostRows(host_data, self.device)
+        self._dim = int((data if data is not None else host_data).shape[1])
         self._cache: dict[Any, Any] = {}
         self.trace_counts: dict[Any, int] = {}
 
     @classmethod
     def from_index(cls, index, variant: str = "inmem") -> "SearchExecutor":
-        return cls(
-            index.codec, index.codes, index.graph.adjacency, index.graph.medoid, index.data,
-            variant=variant,
-        )
+        if variant == "base":
+            return cls(index.codec, index.codes, index.graph.medoid, variant=variant,
+                       host_adjacency=index.graph.adjacency, host_data=index.data_host)
+        return cls(index.codec, index.codes, index.graph.medoid, variant=variant,
+                   adjacency=index.adjacency_dev(), data=index.data_dev, host_data=index.data_host)
 
     @property
     def n_traces(self) -> int:
@@ -121,28 +157,41 @@ class SearchExecutor:
 
     @property
     def query_dim(self) -> int:
-        return int(self._data.shape[1])
+        return self._dim
 
     # -------------------------------------------------------------- building
     def _pipeline(self, bucket: int, d: int, k: int, rerank: bool, cfg: SearchConfig):
-        """Cached pipeline for the key, and the seconds its set-up took."""
+        """Cached pipeline for the key, and the seconds its set-up took.
+        `cfg.kernel_mode` is resolved."""
         key = (bucket, d, k, rerank, cfg)
         fn = self._cache.get(key)
         if fn is not None:
             return fn, 0.0
         t0 = time.perf_counter()
-        if cfg.resolved_kernel_mode() == "staged":
-            raise NotImplementedError('kernel_mode="staged" is not ported yet')
-        use_kernels = cfg.uses_kernels()
+        use_kernels = cfg.kernel_mode != "reference"
+        variant = self.variant
 
         def pipeline(queries: torch.Tensor):
+            if variant == "exact":
+                res = searchlib.search_exact(
+                    queries, self._data, self._adjacency, self._medoid, cfg,
+                )
+                # The exact variant skips the re-rank (§5.2): the worklist
+                # already holds exact distances.
+                return res.worklist.ids[:, :k], res.worklist.dists[:, :k], res.n_hops, res.n_iters
             table = pqlib.build_dist_table(self._codec, queries)
-            res = searchlib.search_inmem(
-                queries, table, self._codes, self._adjacency, self._medoid, cfg,
-            )
+            if variant == "inmem":
+                res = searchlib.search_inmem(
+                    queries, table, self._codes, self._adjacency, self._medoid, cfg,
+                )
+            else:
+                res = searchlib.search_base(
+                    queries, table, self._codes, self.neighbors, self._medoid, cfg,
+                )
             if rerank:
                 ids, dists = rr.rerank(
-                    queries, res.history_ids, k, data=self._data, use_kernels=use_kernels,
+                    queries, res.history_ids, k, data=self._data, host_data=self.host_data,
+                    use_kernels=use_kernels,
                 )
             else:
                 ids, dists = res.worklist.ids[:, :k], res.worklist.dists[:, :k]
@@ -180,6 +229,7 @@ class SearchExecutor:
                     f"{searchlib.KERNEL_MODES}"
                 )
             cfg = dataclasses.replace(cfg, kernel_mode=kernel_mode)
+        cfg = dataclasses.replace(cfg, kernel_mode=cfg.resolved_kernel_mode(self.device))
         bucket = bucket_size(B)
         pipeline, compile_s = self._pipeline(bucket, d, k, rerank, cfg)
         q_dev = torch.from_numpy(pad_batch(q, bucket)).to(self.device)

@@ -1,0 +1,143 @@
+"""Port kernels K4 (bitonic sort) and K5 (bitonic worklist merge) vs the
+reference's Pallas kernels (interpret mode) and its ref.py oracles.
+
+On the CPU the wrappers run their plain versions, which run the Pallas
+kernels' compare-exchange network stage by stage: dists, ids and visited
+flags must equal `sort_kv_pallas` / `merge_pallas` bit for bit, the visited
+flags of (+inf, INVALID) pad slots included. Against the reference's stable
+lax.sort oracles, dists and ids are bit-exact and the visited flags of real
+entries too (real (dist, id) keys are unique; only pads tie).
+
+The `cuda` cases hold the CUDA kernels against their plain versions on the
+card; they skip where there is no GPU.
+"""
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.core.worklist import INVALID_ID, Worklist
+from repro_torch.kernels.bitonic import ops
+
+SORT_SHAPES = [(1, 2), (5, 16), (9, 23), (3, 64), (2, 100)]     # tests/test_kernels.py:52
+MERGE_SHAPES = [(1, 4, 4), (6, 16, 12), (3, 64, 64), (2, 33, 7)]  # tests/test_kernels.py:66
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
+    return torch.device("cuda")
+
+
+def _sort_inputs(rng, B, n):
+    """The reference test's draw: duplicate dists exercise the id tie-break."""
+    d = rng.standard_normal((B, n)).astype(np.float32)
+    d = np.concatenate([d[:, : n // 2], d[:, : n - n // 2]], axis=-1)
+    i = rng.integers(0, 10_000, (B, n)).astype(np.int32)
+    return d, i
+
+
+def _merge_inputs(rng, B, t, R, pads: bool):
+    """Sorted worklist (ids < 1000) and sorted candidates (ids >= 1000).
+    With `pads`, each row ends in a random number of (+inf, INVALID) pads:
+    visited in the worklist, unvisited among the candidates."""
+    wd = np.sort(rng.standard_normal((B, t)).astype(np.float32), axis=-1)
+    wi = rng.integers(0, 1000, (B, t)).astype(np.int32)
+    wv = rng.random((B, t)) > 0.5
+    cd = np.sort(rng.standard_normal((B, R)).astype(np.float32), axis=-1)
+    ci = rng.integers(1000, 2000, (B, R)).astype(np.int32)
+    if pads:
+        for b in range(B):
+            w, c = int(rng.integers(0, t + 1)), int(rng.integers(0, R + 1))
+            wd[b, w:], wi[b, w:], wv[b, w:] = np.inf, INVALID_ID, True
+            cd[b, c:], ci[b, c:] = np.inf, INVALID_ID
+    return wd, wi, wv, cd, ci
+
+
+def _port_merge(inputs, device="cpu"):
+    wd, wi, wv, cd, ci = (torch.from_numpy(a).to(device) for a in inputs)
+    out = ops.merge_worklist(Worklist(wd, wi, wv), cd, ci)
+    return [x.cpu().numpy() for x in out]
+
+
+@pytest.mark.parametrize("B,n", SORT_SHAPES)
+def test_sort_ref_matches_pallas_and_reference_oracle(B, n):
+    import jax.numpy as jnp
+    from repro.kernels.bitonic.bitonic import sort_kv_pallas
+    from repro.kernels.bitonic.ref import sort_kv_ref as jsort_ref
+
+    d, i = _sort_inputs(np.random.default_rng(B * 100 + n), B, n)
+    sd, si = (x.numpy() for x in ops.sort_kv(torch.from_numpy(d), torch.from_numpy(i)))
+    for ref in (sort_kv_pallas(jnp.asarray(d), jnp.asarray(i), interpret=True),
+                jsort_ref(jnp.asarray(d), jnp.asarray(i))):
+        np.testing.assert_array_equal(sd, np.asarray(ref[0]))
+        np.testing.assert_array_equal(si, np.asarray(ref[1]))
+
+
+@pytest.mark.parametrize("B,t,R", MERGE_SHAPES)
+@pytest.mark.parametrize("pads", [False, True])
+def test_merge_ref_matches_pallas_and_reference_oracle(B, t, R, pads):
+    import jax.numpy as jnp
+    from repro.kernels.bitonic.bitonic import merge_pallas
+    from repro.kernels.bitonic.ref import merge_ref as jmerge_ref
+
+    inputs = _merge_inputs(np.random.default_rng(B * 1000 + t * 10 + R), B, t, R, pads)
+    j = [jnp.asarray(a) for a in inputs]
+    md, mi, mv = _port_merge(inputs)
+    # Bit for bit against the Pallas network, pad slots' visited flags included.
+    for o, r in zip((md, mi, mv), merge_pallas(*j, t=t, interpret=True)):
+        np.testing.assert_array_equal(o, np.asarray(r))
+    rd, ri, rv = (np.asarray(x) for x in jmerge_ref(*j, t))
+    np.testing.assert_array_equal(md, rd)
+    np.testing.assert_array_equal(mi, ri)
+    real = mi != INVALID_ID
+    np.testing.assert_array_equal(mv[real], rv[real])
+
+
+def test_merge_with_many_pads_matches_pallas():
+    """Rows that are mostly pads, so the kept t slots hold pads of both
+    lists: the visited flag each keeps is the network's choice."""
+    import jax.numpy as jnp
+    from repro.kernels.bitonic.bitonic import merge_pallas
+
+    rng = np.random.default_rng(7)
+    for B, t, R in ((16, 16, 12), (16, 64, 64), (8, 8, 24)):
+        inputs = _merge_inputs(rng, B, t, R, pads=True)
+        outs = _port_merge(inputs)
+        assert (outs[1] == INVALID_ID).any()
+        for o, r in zip(outs, merge_pallas(*map(jnp.asarray, inputs), t=t, interpret=True)):
+            np.testing.assert_array_equal(o, np.asarray(r))
+
+
+def test_wrappers_check_inputs_on_the_cpu_and_count_no_launch():
+    d, i = _sort_inputs(np.random.default_rng(0), 2, 8)
+    before = (ops.sort_kv.launches, ops.merge_worklist.launches)
+    ops.sort_kv(torch.from_numpy(d), torch.from_numpy(i))
+    _port_merge(_merge_inputs(np.random.default_rng(0), 2, 4, 4, pads=False))
+    assert (ops.sort_kv.launches, ops.merge_worklist.launches) == before
+    with pytest.raises(ValueError, match="devices"):
+        ops.sort_kv(torch.from_numpy(d), torch.from_numpy(i).to("meta"))
+
+
+# ------------------------------------------------------ CUDA kernels (card)
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,n", SORT_SHAPES + [(1024, 64)])
+def test_sort_kernel_matches_plain(cuda, B, n):
+    d, i = (torch.from_numpy(a) for a in _sort_inputs(np.random.default_rng(B + n), B, n))
+    before = ops.sort_kv.launches
+    out = ops.sort_kv(d.to(cuda), i.to(cuda))
+    assert ops.sort_kv.launches == before + 1
+    for o, r in zip(out, ops.sort_kv_ref(d, i)):
+        assert torch.equal(o.cpu(), r)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,t,R", MERGE_SHAPES + [(1024, 64, 64)])
+@pytest.mark.parametrize("pads", [False, True])
+def test_merge_kernel_matches_plain(cuda, B, t, R, pads):
+    inputs = _merge_inputs(np.random.default_rng(B + t + R), B, t, R, pads)
+    before = ops.merge_worklist.launches
+    outs = _port_merge(inputs, device=cuda)
+    assert ops.merge_worklist.launches == before + 1
+    for o, r in zip(outs, _port_merge(inputs)):
+        np.testing.assert_array_equal(o, r)

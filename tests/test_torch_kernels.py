@@ -27,7 +27,10 @@ STEP_SHAPES = [
     (8, 32, 32, 8, 256),       # pow2 everywhere
     (2, 24, 33, 6, 90),        # t just past a pow2 boundary
 ]
-ADC_SHAPES = [(1, 4, 4), (3, 17, 9), (8, 64, 74), (5, 31, 16), (4, 1, 32)]
+# (4, 1, 32): the medoid seed (R = 1); (4, 64, 32): the staged mode's
+# distances at the main path's R = 64, m = 32.
+ADC_SHAPES = [(1, 4, 4), (3, 17, 9), (8, 64, 74), (5, 31, 16), (4, 1, 32), (4, 64, 32)]
+TRAVERSE_SHAPES = [(1, 4, 8), (5, 31, 16), (9, 16, 64)]         # tests/test_kernels.py:155
 RERANK_SHAPES = [(1, 1, 8), (5, 19, 37), (4, 200, 128), (2, 7, 129)]
 
 
@@ -69,6 +72,22 @@ def _port_step(inputs, eager, tile_rows=0, device="cpu"):
     return [x.cpu().numpy() for x in (wl.dists, wl.ids, wl.visited, u, a)]
 
 
+def _traverse_inputs(rng, B, R, t):
+    """Precomputed candidates (the draw of the reference's
+    test_fused_traverse_matches_oracle) and a random hop state."""
+    fresh = rng.random((B, R)) > 0.3
+    cd = np.where(fresh, rng.integers(0, 5000, (B, R)).astype(np.float32), np.float32(np.inf))
+    ci = np.where(fresh, rng.integers(0, 10_000, (B, R)).astype(np.int32), np.int32(INVALID_ID))
+    _, _, _, _, wd, wi, wv, active = _step_inputs(rng, B, R, t, 1, 16)
+    return cd.astype(np.float32), ci.astype(np.int32), wd, wi, wv, active
+
+
+def _port_traverse(inputs, eager, device="cpu"):
+    cd, ci, wd, wi, wv, active = [torch.from_numpy(np.ascontiguousarray(a)).to(device) for a in inputs]
+    wl, u, a = step_ops.fused_traverse(Worklist(wd, wi, wv), cd, ci, active, eager=eager)
+    return [x.cpu().numpy() for x in (wl.dists, wl.ids, wl.visited, u, a)]
+
+
 def _assert_same(outs, refs):
     for o, r in zip(outs, refs):
         np.testing.assert_array_equal(o, np.asarray(r))
@@ -99,6 +118,22 @@ def test_search_step_tile_rows_bit_identical(tile_rows):
     _assert_same(_port_step(inputs, True, tile_rows), base)
     with pytest.raises(ValueError, match="tile_rows"):
         _port_step(inputs, True, -1)
+
+
+# --------------------------------------------------------------- K6 (CPU)
+@pytest.mark.parametrize("B,R,t", TRAVERSE_SHAPES)
+@pytest.mark.parametrize("eager", [True, False])
+def test_fused_traverse_ref_matches_pallas_and_reference_oracle(B, R, t, eager):
+    import jax
+    import jax.numpy as jnp
+    from repro.kernels.search_step import ref as jref
+    from repro.kernels.search_step.search_step import fused_traverse_pallas
+
+    inputs = _traverse_inputs(np.random.default_rng(B * 100 + R + t), B, R, t)
+    j = [jnp.asarray(a) for a in inputs]
+    outs = _port_traverse(inputs, eager)
+    _assert_same(outs, fused_traverse_pallas(*j, eager=eager, interpret=True))
+    _assert_same(outs, jax.jit(jref.traverse_ref, static_argnames="eager")(*j, eager=eager))
 
 
 # --------------------------------------------------------------- K2 (CPU)
@@ -186,6 +221,17 @@ def test_search_step_kernel_matches_plain(cuda, B, R, t, m, n, eager, integer_ta
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("B,R,t", TRAVERSE_SHAPES + [(1024, 64, 64)])
+@pytest.mark.parametrize("eager", [True, False])
+def test_fused_traverse_kernel_matches_plain(cuda, B, R, t, eager):
+    inputs = _traverse_inputs(np.random.default_rng(B + R + t), B, R, t)
+    before = step_ops.fused_traverse.launches
+    outs = _port_traverse(inputs, eager, device=cuda)
+    assert step_ops.fused_traverse.launches == before + 1
+    _assert_same(outs, _port_traverse(inputs, eager))
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("B,R,m", ADC_SHAPES)
 def test_pq_adc_kernel_matches_plain(cuda, B, R, m):
     rng = np.random.default_rng(B + R + m)
@@ -234,3 +280,8 @@ def test_kernels_raise_beyond_shared_memory(cuda):
         step_ops.fused_step(table, torch.zeros((8, m), dtype=torch.uint8, device=cuda), wl,
                             torch.zeros((B, R), dtype=torch.int32, device=cuda), valid,
                             torch.ones((B,), dtype=torch.bool, device=cuda))
+    # The refusals leave no error behind for the next launch to report.
+    m = 32
+    out = adc_ops.adc(torch.zeros((B, m, 256), device=cuda),
+                      torch.zeros((B, R, m), dtype=torch.int32, device=cuda), valid)
+    assert torch.equal(out.cpu(), torch.zeros((B, R)))
