@@ -14,20 +14,26 @@ Phases, each timed; any failure exits non-zero:
      and a library yardstick where one PyTorch call computes the function:
      K1 fused hop, K2 ADC (R=1, the seed, and R=64, the staged distances),
      K3 re-rank distances, K4 bitonic sort, K5 bitonic merge, K6 fused
-     traverse;
+     traverse, K7 owner-shard ADC (4 shards of n/4 rows, and one shard of
+     all n), K8 PQ distance table;
   4. the main paths on a synthetic corpus with the shape of SIFT1M (n =
      10**6, d = 128, the ANN_SIFT1M set of the BIGANN/texmex corpus;
      clusters of intrinsic dimension 16, queries held out from the same
      draw), one graph and one index for all of them, batches of 1,024:
      "inmem" (fused), "base" (fused; adjacency and vectors in pinned host
      memory, only codes and codebooks on the card), "exact" (fused
-     traverse, no re-rank) and the staged kernel mode on one batch. Each
-     path runs with every launch count set to 0 just before it and read just
-     after; each reports recall@10, QPS, n_iters, hops, batch walls and the
-     device's idle share. Checks: base ids equal inmem ids, staged ids equal
-     fused ids, exact fused ids equal exact reference-mode ids, fused ids
-     equal reference-mode ids, and `index.search(q)` with no kernel_mode
-     launches K1;
+     traverse, no re-rank), the staged kernel mode on one batch, and the
+     mesh paths "sharded" and "sharded-base" (fused) on the default (1, 1)
+     mesh, a one-rank NCCL group. Each path runs with every launch count set
+     to 0 just before it and read just after; each reports recall@10, QPS,
+     n_iters, hops, batch walls and the device's idle share. Checks: base
+     ids equal inmem ids, staged ids equal fused ids, exact fused ids equal
+     exact reference-mode ids, fused ids equal reference-mode ids, sharded
+     ids and distances equal inmem's and sharded-base's equal base's on
+     every batch (K7 and K6 launched on every hop, two all-reduces a hop),
+     and `index.search(q)` with no kernel_mode launches K1. K8, which no
+     search path runs, is driven through its own entry point
+     (`kernels.pq_table.ops.build_dist_table`) on every batch;
   5. a small corpus searched on the card and on the CPU, ids equal.
 
 Kernel times are taken cold: the timed calls cycle through copies of the
@@ -55,7 +61,9 @@ ROOT = Path(__file__).resolve().parent
 
 N, D, M, R, T, K = 1_000_000, 128, 32, 64, 64, 10
 N_QUERIES, BATCH, SEED = 10_000, 1024, 0
-PATH_BATCHES = {"inmem": 10, "base": 10, "exact": 10}   # batches each variant's path runs
+PATH_BATCHES = {"inmem": 10, "base": 10, "exact": 10,   # batches each variant's path runs
+                "sharded": 10, "sharded-base": 10}
+S_K7 = 4                       # shards of the owner-shard ADC's kernel check
 INTRINSIC_DIM = 16             # per-cluster subspace of the synthetic corpus
 COPIES = 4                     # input copies cycled by timed calls, at least
 L2_BYTES = 50 * 2**20          # H100 L2; the copies together exceed twice this
@@ -142,10 +150,12 @@ def exact(a, b) -> None:
 def check_kernels(dev) -> list[dict]:
     import torch
 
+    from repro_torch.core.distributed import _owned_at
     from repro_torch.core.worklist import INVALID_ID, Worklist
     from repro_torch.kernels import common
     from repro_torch.kernels.bitonic import ops as bitonic_ops
     from repro_torch.kernels.pq_adc import ops as adc_ops
+    from repro_torch.kernels.pq_table import ops as table_ops
     from repro_torch.kernels.rerank_l2 import ops as rr_ops
     from repro_torch.kernels.search_step import ops as step_ops
 
@@ -353,6 +363,88 @@ def check_kernels(dev) -> list[dict]:
     log(f"[kernels] fused_traverse (B={B}, R={R}, t={T}, eager+lazy): bit-equal to plain; "
         f"{ms:.4f} ms vs plain {plain_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}); no single "
         f"PyTorch call does sort, select and merge")
+
+    # K7: the owner-shard ADC, on S_K7 contiguous shards of the n code rows
+    # (each shard's contribution, exact zeros where it does not own the lane,
+    # and the sum over the shards equal to K2 on the same candidates), and
+    # on one shard owning every row (the main path's (1, 1) mesh).
+    n_loc = N // S_K7
+    contribs = []
+    for s in range(S_K7):
+        rel, own = _owned_at(s, n_loc, nbrs)
+        mine = own & fresh
+        codes_s = codes[s * n_loc : (s + 1) * n_loc]
+        out = step_ops.local_adc(table, codes_s, rel, mine)
+        exact(out, step_ops.local_adc_ref(table, codes_s, rel, mine))
+        exact(step_ops.local_adc(table, codes_s, rel, mine, tile_rows=4096), out)
+        if not bool((out[~mine] == 0.0).all()):
+            raise AssertionError("local_adc wrote a non-zero where the shard owns no lane")
+        contribs.append(out)
+    total = contribs[0]
+    for c in contribs[1:]:
+        total = total + c
+    k2 = adc_ops.adc(table, cand_codes, fresh)
+    exact(total[fresh], k2[fresh])
+    if not bool((total[~fresh] == 0.0).all()):
+        raise AssertionError("local_adc: the shards' sum is not zero on lanes that are not fresh")
+    rel0, own0 = _owned_at(0, n_loc, nbrs)
+    mine0 = own0 & fresh
+    sets = copies(table)
+    shard_ms = time_ms(lambda tb: step_ops.local_adc(tb, codes[:n_loc], rel0, mine0), sets)
+    shard_b_ms, _ = bound_ms(table_sectors(cand_codes, mine0) * SECTOR + int(mine0.sum()) * M
+                             + B * R * 5 + B * R * 4, int(mine0.sum()) * M)
+    out = step_ops.local_adc(table, codes, nbrs, fresh)
+    ref = step_ops.local_adc_ref(table, codes, nbrs, fresh)
+    exact(out, ref)
+    ms = time_ms(lambda tb: step_ops.local_adc(tb, codes, nbrs, fresh), sets)
+    plain_ms = time_ms(lambda tb: step_ops.local_adc_ref(tb, codes, nbrs, fresh), sets, reps=5)
+    # Inputs: the table sectors the owned lanes' codes look up, their code
+    # rows, ids and flags; output: one distance per lane.
+    sectors = table_sectors(cand_codes, fresh)
+    b_ms, b_by = bound_ms(sectors * SECTOR + n_fresh * M + B * R * 5 + B * R * 4, n_fresh * M)
+    rows.append(dict(name="local_adc", route="cuda", source="src/repro_torch/csrc/local_adc.cu",
+                     replaces="src/repro/kernels/search_step/search_step.py:492",
+                     max_abs_err=float((out - ref).abs().max()), ms=ms, plain_ms=plain_ms,
+                     bound_ms=b_ms, bound_by=b_by, library_ms=None, library_call=None,
+                     shards=dict(S=S_K7, n_loc=n_loc, ms=shard_ms, bound_ms=shard_b_ms,
+                                 owned_lanes=int(mine0.sum()))))
+    log(f"[kernels] local_adc (B={B}, R={R}, m={M}): {S_K7} shards of n_loc={n_loc} each bit-equal "
+        f"to plain, exact zeros where not owned, their sum bit-equal to pq_adc at R={R}, tile_rows "
+        f"0 and 4096 bit-identical; one shard of the {S_K7}: {shard_ms:.4f} ms, bound "
+        f"{shard_b_ms:.4f} ms ({int(mine0.sum())} owned lanes); one shard owning all n rows (the "
+        f"main path): {ms:.4f} ms vs plain {plain_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}); no "
+        f"single PyTorch call gathers the code rows, looks the table up and masks")
+
+    # K8: the PQ distance table through its own kernel (off the search path).
+    dsub = D // M
+    q_sub = torch.randn((B, M, dsub), generator=g, device=dev)
+    cb = torch.randn((M, 256, dsub), generator=g, device=dev)
+    out = table_ops.dist_table(q_sub, cb)
+    ref = table_ops.dist_table_ref(q_sub, cb)
+    exact(out, ref)
+    sets = copies(q_sub)
+    ms = time_ms(lambda qs: table_ops.dist_table(qs, cb), sets)
+    plain_ms = time_ms(lambda qs: table_ops.dist_table_ref(qs, cb), sets, reps=5)
+    # Yardstick: one baddbmm over (m, B, dsub) x (m, dsub, 256), the norms
+    # (m, B, 256) prepared outside the timed call; its output is (m, B, 256).
+    norms = ((q_sub * q_sub).sum(-1).T[:, :, None] + (cb * cb).sum(-1)[:, None, :]).contiguous()
+    cb_t = cb.transpose(1, 2)
+    lib = torch.baddbmm(norms, q_sub.transpose(0, 1), cb_t, alpha=-2.0)
+    if not torch.allclose(lib.transpose(0, 1), ref, rtol=2e-4, atol=2e-4):
+        raise AssertionError("baddbmm yardstick disagrees with the distance table")
+    lib_ms = time_ms(lambda qs: torch.baddbmm(norms, qs.transpose(0, 1), cb_t, alpha=-2.0), sets)
+    # Inputs read once, the table written once; the norms and the dot
+    # products (a multiply and an add per dimension), then two adds and a
+    # scaling per entry.
+    b_ms, b_by = bound_ms(q_sub.numel() * 4 + cb.numel() * 4 + out.numel() * 4,
+                          2 * dsub * (B * M + M * 256 + B * M * 256) + 3 * B * M * 256)
+    rows.append(dict(name="dist_table", route="cuda", source="src/repro_torch/csrc/pq_table.cu",
+                     replaces="src/repro/kernels/pq_table/pq_table.py:56",
+                     max_abs_err=float((out - ref).abs().max()), ms=ms, plain_ms=plain_ms,
+                     bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms,
+                     library_call="torch.baddbmm over (m, B, dsub) x (m, dsub, 256), norms precomputed"))
+    log(f"[kernels] dist_table (B={B}, m={M}, dsub={dsub}): bit-equal to plain; {ms:.4f} ms vs "
+        f"plain {plain_ms:.4f} ms, baddbmm {lib_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
     return rows
 
 
@@ -382,13 +474,15 @@ def kernel_counters() -> dict:
     """The launch-counted kernel wrappers, by kernel name."""
     from repro_torch.kernels.bitonic import ops as bitonic_ops
     from repro_torch.kernels.pq_adc import ops as adc_ops
+    from repro_torch.kernels.pq_table import ops as table_ops
     from repro_torch.kernels.rerank_l2 import ops as rr_ops
     from repro_torch.kernels.search_step import ops as step_ops
 
     return {"search_step": (step_ops, "fused_step"), "pq_adc": (adc_ops, "adc"),
             "rerank_l2": (rr_ops, "exact_sq_dists"), "bitonic_sort": (bitonic_ops, "sort_kv"),
             "bitonic_merge": (bitonic_ops, "merge_worklist"),
-            "fused_traverse": (step_ops, "fused_traverse")}
+            "fused_traverse": (step_ops, "fused_traverse"), "local_adc": (step_ops, "local_adc"),
+            "dist_table": (table_ops, "dist_table")}
 
 
 def reset_launches() -> None:
@@ -406,6 +500,9 @@ PATH_KERNELS = {
     "base": ("search_step", "pq_adc", "rerank_l2"),
     "exact": ("fused_traverse",),
     "staged": ("pq_adc", "bitonic_sort", "bitonic_merge", "rerank_l2"),
+    "sharded": ("local_adc", "fused_traverse", "rerank_l2"),
+    "sharded-base": ("local_adc", "fused_traverse", "rerank_l2"),
+    "pq_table": ("dist_table",),
 }
 
 
@@ -538,8 +635,8 @@ def main_path(dev, card: str) -> dict:
                 f"{res['rerank_bytes_per_batch'] / 2**20:.1f} MiB; host gathers per batch: adjacency "
                 f"rows {adj_s * 1e3 / nb:.2f} ms, re-rank vectors {vec_s * 1e3 / nb:.2f} ms, "
                 f"{100 * res['host_gather_share']:.1f}% of the batch wall")
-        res["device_busy_ms_per_batch"] = profile_batch(index, q0, cfg, variant, "fused",
-                                                        float(np.mean(res["batch_wall_ms"])))
+        set_profile(res, profile_batch(index, q0, cfg, variant, "fused",
+                                       float(np.mean(res["batch_wall_ms"]))))
         paths[variant] = res
 
     # Checks on the paths' results.
@@ -566,10 +663,12 @@ def main_path(dev, card: str) -> dict:
     # The staged kernel mode on one batch: ADC, bitonic sort and bitonic
     # merge, one launch each per hop.
     paths["staged"] = run_path("staged", index, queries, gt, cfg, "inmem", "staged", 1, card)
-    paths["staged"]["device_busy_ms_per_batch"] = profile_batch(
-        index, q0, cfg, "inmem", "staged", paths["staged"]["batch_wall_ms"][0])
+    set_profile(paths["staged"], profile_batch(index, q0, cfg, "inmem", "staged",
+                                               paths["staged"]["batch_wall_ms"][0]))
     check_same("staged vs fused ids", paths["staged"]["ids"], inmem["ids"][:1])
     log("[check] staged ids equal fused ids on the first batch")
+
+    paths.update(sharded_paths(dev, index, queries, gt, cfg, card, inmem, base))
 
     # With no kernel_mode, the index on the card runs the fused kernels.
     reset_launches()
@@ -582,13 +681,129 @@ def main_path(dev, card: str) -> dict:
 
     for res in paths.values():
         del res["ids"], res["dists"]
-    return dict(paths=paths, nn_contrast=contrast)
+    return dict(paths=paths, nn_contrast=contrast, pq_table=table_path(index, queries))
+
+
+def set_profile(res: dict, prof: dict | None) -> None:
+    res["device_busy_ms_per_batch"] = None if prof is None else prof["busy_ms"]
+    res["collective_ms_per_batch"] = None if prof is None else prof["nccl_ms"]
+    res["collective_events_per_batch"] = None if prof is None else prof["nccl_events"]
+
+
+def sharded_paths(dev, index, queries, gt, cfg, card: str, inmem: dict, base: dict) -> dict:
+    """The mesh paths on the default (1, 1) mesh (a one-rank process group:
+    NCCL on the card), ids and distances held equal to inmem's ("sharded")
+    and base's ("sharded-base") on every batch; K7 and K6 launched on every
+    hop, two all-reduces a hop (neighbour rows, distances) and two a batch
+    (the medoid's distance, the re-rank)."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.core import distributed as tdist
+    from repro_torch.distributed import default_mesh
+
+    made = not dist.is_initialized()
+    t0 = time.perf_counter()
+    mesh = default_mesh(dev)
+    log(f"[sharded] mesh {mesh.shape} on {mesh.device} ({dist.get_backend()}, one rank): "
+        f"{time.perf_counter() - t0:.1f} s")
+    model = mesh.group("model")
+    x = torch.rand((BATCH, R), device=dev)
+    allreduce_ms = time_ms(lambda v: dist.all_reduce(v, group=model), copies(x))
+    log(f"[sharded] one all-reduce of a ({BATCH}, {R}) f32 tile on the one-rank group: "
+        f"{allreduce_ms:.4f} ms (CUDA events)")
+    paths = {}
+    try:
+        for variant, twin in (("sharded", inmem), ("sharded-base", base)):
+            index.search(queries[:BATCH], K, cfg=cfg, variant=variant, kernel_mode="fused")
+            torch.cuda.synchronize()
+            ex = index.executor(variant)
+            nbr = ex.neighbors
+            before = (nbr.frontier_bytes, nbr.rows.bytes_sent, nbr.rows.seconds) if nbr else None
+            tdist.all_reduce_sum.calls, tdist.all_reduce_sum.seconds = 0, 0.0
+            res = run_path(variant, index, queries, gt, cfg, variant, "fused", PATH_BATCHES[variant], card)
+            calls, ar_s = tdist.all_reduce_sum.calls, tdist.all_reduce_sum.seconds
+            hops, nb = sum(res["n_iters"]), res["n_batches"]
+            nb_twin = min(nb, twin["n_batches"])
+            for b in range(nb_twin):
+                check_same(f"{variant} batch {b} ids", [res["ids"][b]], [twin["ids"][b]])
+                if dev.type == "cuda":
+                    check_same(f"{variant} batch {b} distances", [res["dists"][b]], [twin["dists"][b]])
+                elif not torch.allclose(res["dists"][b], twin["dists"][b], rtol=1e-6, atol=1e-4):
+                    # On the CPU (the rehearsal) the sharded re-rank sums in
+                    # XLA:CPU's order, the single-device one in K3's; the
+                    # formula cancels at the corpus's squared norms (about
+                    # 50), a few ulp of which are ~2e-5 (ROADMAP C4).
+                    raise AssertionError(f"{variant} batch {b} distances differ")
+            lk = res["launches"]
+            if lk["local_adc"] != hops + nb or lk["fused_traverse"] != hops or lk["search_step"]:
+                raise AssertionError(f"{variant}: launches {lk} for {hops} hops in {nb} batches")
+            if calls != 2 * hops + 2 * nb:
+                raise AssertionError(f"{variant}: {calls} all-reduces for {hops} hops in {nb} batches")
+            res["all_reduces_per_hop"] = (calls - 2 * nb) / hops
+            res["all_reduces"] = calls
+            res["allreduce_ms"] = allreduce_ms
+            res["allreduce_host_ms_per_batch"] = ar_s * 1e3 / nb
+            res["exchange_bytes_per_hop"] = ex.exchange_bytes_per_hop(BATCH)
+            res["k7_k6_launches_per_batch"] = [lk["local_adc"] / nb, lk["fused_traverse"] / nb]
+            if nbr is not None:
+                down, up, secs = (a - b for a, b in zip(
+                    (nbr.frontier_bytes, nbr.rows.bytes_sent, nbr.rows.seconds), before))
+                res["link_bytes_per_hop"] = (down + up) / hops
+                res["host_gather_ms_per_batch"] = {"adjacency": secs * 1e3 / nb}
+                res["host_gather_share"] = secs / res["total_s"]
+            log(f"[{variant}] ids and distances equal {'inmem' if twin is inmem else 'base'}'s on "
+                f"{nb_twin} batches ({'bit for bit' if dev.type == 'cuda' else 'distances within 1e-4'}); local_adc {lk['local_adc'] / nb:.1f} and fused_traverse "
+                f"{lk['fused_traverse'] / nb:.1f} launches per batch; {calls} all-reduces = "
+                f"{res['all_reduces_per_hop']:.2f} per hop + 2 per batch, issued in "
+                f"{res['allreduce_host_ms_per_batch']:.2f} ms of host time per batch; exchange_bytes_per_hop "
+                f"{res['exchange_bytes_per_hop']}"
+                + (f"; host link {res['link_bytes_per_hop']:.0f} bytes per hop, adjacency gathers "
+                   f"{secs * 1e3 / nb:.2f} ms per batch" if nbr is not None else ""))
+            set_profile(res, profile_batch(index, queries[:BATCH], cfg, variant, "fused",
+                                           float(np.mean(res["batch_wall_ms"]))))
+            paths[variant] = res
+    finally:
+        if made and dist.is_initialized():
+            dist.destroy_process_group()
+    return paths
+
+
+def table_path(index, queries) -> dict:
+    """K8 through its own entry point, `kernels.pq_table.ops.build_dist_table`,
+    on every batch of the queries, held against the search's plain table
+    within the reference's bound for its kernel."""
+    import torch
+
+    from repro_torch.core import pq
+    from repro_torch.kernels.pq_table import ops as table_ops
+
+    reset_launches()
+    n_batches, err, walls = PATH_BATCHES["inmem"], 0.0, []
+    for b in range(n_batches):
+        q = torch.from_numpy(queries[b * BATCH : (b + 1) * BATCH]).to(index.device)
+        t0 = time.perf_counter()
+        table = table_ops.build_dist_table(index.codec, q)
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+        plain = pq.build_dist_table(index.codec, q)
+        if not torch.allclose(table, plain, rtol=2e-4, atol=2e-4):
+            raise AssertionError("build_dist_table through the kernel disagrees with the plain table")
+        err = max(err, float((table - plain).abs().max()))
+    launches = read_launches()
+    if launches["dist_table"] != n_batches:
+        raise AssertionError(f"pq_table entry point: {launches['dist_table']} launches in {n_batches} batches")
+    log(f"[pq_table] build_dist_table through the kernel on {n_batches} batches of {BATCH}: within "
+        f"rtol/atol 2e-4 of the plain table (max |diff| {err:.3g}); host wall per call "
+        f"{[round(w, 3) for w in walls]} ms")
+    return dict(launches=launches, n_batches=n_batches, max_abs_diff=err, wall_ms=walls)
 
 
 def profile_batch(index, queries, cfg, variant: str, kernel_mode: str,
-                  batch_wall_ms: float) -> float | None:
+                  batch_wall_ms: float) -> dict | None:
     """Device time by kernel over one batch (torch.profiler). Returns the
-    device's busy ms, or None where the profiler saw no device time.
+    device's busy ms and the collectives' (NCCL) device ms and event count,
+    or None where the profiler saw no device time.
 
     Only device-side events are summed (an aten op's own entry repeats its
     kernels' time). The profiler slows the host many times over, so the busy
@@ -613,12 +828,16 @@ def profile_batch(index, queries, cfg, variant: str, kernel_mode: str,
         log(f"[profile] {variant}: the profiler recorded no device time: not measured")
         return None
     busy_ms = sum(self_us(e) for e in events) / 1e3
+    nccl = [e for e in events if "nccl" in e.key.lower()]
     log(f"[profile] {variant}, one batch of {queries.shape[0]}: device busy {busy_ms:.2f} ms in "
         f"{sum(e.count for e in events)} device events = {100 * busy_ms / batch_wall_ms:.1f}% of "
         f"the unprofiled mean batch wall {batch_wall_ms:.2f} ms (profiled wall {wall_ms:.0f} ms)")
     for e in events[:12]:
         log(f"[profile]   {self_us(e) / 1e3:9.3f} ms  x{e.count:<6d} {e.key[:90]}")
-    return busy_ms
+    for e in nccl:
+        log(f"[profile]   collective {self_us(e) / 1e3:9.3f} ms  x{e.count:<6d} {e.key[:90]}")
+    return dict(busy_ms=busy_ms, nccl_ms=sum(self_us(e) for e in nccl) / 1e3,
+                nccl_events=sum(e.count for e in nccl))
 
 
 def small_vs_cpu(dev) -> float:
@@ -684,7 +903,12 @@ def main() -> int:
     for row in rows:
         # A kernel's launches are those of the path that runs it; the counts
         # of every path stand beside them.
-        primary = next(p for p in ("inmem", "exact", "staged") if row["name"] in PATH_KERNELS[p])
+        if row["name"] == "dist_table":
+            row["launches"] = res["pq_table"]["launches"]["dist_table"]
+            row["launches_per_batch"] = row["launches"] / res["pq_table"]["n_batches"]
+            row["launches_by_path"] = {"pq_table": row["launches"]}
+            continue
+        primary = next(p for p in ("inmem", "exact", "staged", "sharded") if row["name"] in PATH_KERNELS[p])
         row["launches"] = paths[primary]["launches"][row["name"]]
         row["launches_per_batch"] = paths[primary]["launches_per_batch"][row["name"]]
         row["launches_by_path"] = {p: r["launches"][row["name"]] for p, r in paths.items()}
@@ -696,7 +920,10 @@ def main() -> int:
 
     keys = ("recall_at_10", "qps", "n_batches", "mean_n_iters", "mean_hops", "batch_wall_ms",
             "device_busy_ms_per_batch", "link_bytes_per_hop", "rerank_bytes_per_batch",
-            "host_gather_ms_per_batch", "host_gather_share")
+            "host_gather_ms_per_batch", "host_gather_share", "collective_ms_per_batch",
+            "collective_events_per_batch", "all_reduces_per_hop", "allreduce_ms",
+            "allreduce_host_ms_per_batch",
+            "exchange_bytes_per_hop", "k7_k6_launches_per_batch")
     summary = {p: {k: r[k] for k in keys if k in r} for p, r in paths.items()}
     for r in summary.values():
         busy = r["device_busy_ms_per_batch"]

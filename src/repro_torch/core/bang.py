@@ -7,10 +7,12 @@
 Three variants (paper §5): "base" (BANG proper: graph and full vectors in
 host RAM, only the PQ codes and codebooks on the device), "inmem" (graph,
 codes and vectors on the device) and "exact" (graph and vectors on the
-device, exact distances, no re-rank). Three kernel modes: "fused" (the hop
-in one kernel), "staged" (one kernel per stage) and "reference" (the plain
-PyTorch versions); all return identical ids. With no `kernel_mode` a search
-on a CUDA index runs "fused", one on a CPU index "reference".
+device, exact distances, no re-rank); and two over a mesh of ranks,
+"sharded" and "sharded-base" (`repro_torch.runtime.sharded`). Three kernel
+modes: "fused" (the hop in one kernel), "staged" (one kernel per stage) and
+"reference" (the plain PyTorch versions); all return identical ids. With no
+`kernel_mode` a search on a CUDA index runs "fused", one on a CPU index
+"reference".
 
 An index serves one device, CUDA unless the caller asks for the CPU. The
 adjacency and the full vectors are kept in host memory (pinned for a CUDA
@@ -117,14 +119,34 @@ class BangIndex:
     def n(self) -> int:
         return self.codes.shape[0]
 
-    def executor(self, variant: str = "inmem"):
-        """The cached executor serving this index for `variant`."""
-        ex = self._executors.get(variant)
-        if ex is None:
-            from repro_torch.runtime.executor import SearchExecutor
+    def executor(self, variant: str = "inmem", *, mesh=None):
+        """The cached executor serving this index for `variant`.
 
-            ex = SearchExecutor.from_index(self, variant=variant)
-            self._executors[variant] = ex
+        `variant="sharded"` or `"sharded-base"` returns a
+        `ShardedSearchExecutor` over `mesh` (a `repro_torch.distributed`
+        mesh; by default (1, every rank of the default process group), or a
+        one-rank group when there is none). Executors are cached per
+        (variant, mesh), so the two sharded variants never share state.
+        """
+        if variant in ("sharded", "sharded-base"):
+            if mesh is None:
+                from repro_torch.distributed import default_mesh
+
+                mesh = default_mesh(self.device)
+        elif mesh is not None:
+            raise ValueError(f"mesh= only applies to the sharded variants, got {variant!r}")
+        key = (variant, mesh)
+        ex = self._executors.get(key)
+        if ex is None:
+            if mesh is not None:
+                from repro_torch.runtime.sharded import ShardedSearchExecutor
+
+                ex = ShardedSearchExecutor.from_index(self, mesh, variant=variant)
+            else:
+                from repro_torch.runtime.executor import SearchExecutor
+
+                ex = SearchExecutor.from_index(self, variant=variant)
+            self._executors[key] = ex
         return ex
 
     def search(
@@ -134,6 +156,7 @@ class BangIndex:
         *,
         t: int = 64,
         variant: str = "inmem",
+        mesh=None,
         rerank: bool = True,
         cfg: SearchConfig | None = None,
         return_stats: bool = False,
@@ -141,7 +164,7 @@ class BangIndex:
     ):
         """Batched k-NN search. Returns (ids (B, k), dists (B, k)) on the
         index's device, plus `SearchStats` with `return_stats=True`."""
-        return self.executor(variant).search(
+        return self.executor(variant, mesh=mesh).search(
             queries, k, t=t, cfg=cfg, rerank=rerank,
             return_stats=return_stats, kernel_mode=kernel_mode,
         )

@@ -44,22 +44,30 @@ class HostRows:
         """Rows `ids` (a CPU integer tensor of N ids) as an (N, width) tensor
         on the device. Lanes holding INVALID read row 0, or hold `fill`
         where it is given."""
-        t0 = time.perf_counter()
         pad = ids == INVALID_ID
         safe = torch.where(pad, torch.zeros_like(ids), ids).long()
-        if self.device.type != "cuda":
-            out = self.table.index_select(0, safe)
+
+        def rows(out: torch.Tensor) -> None:
+            torch.index_select(self.table, 0, safe, out=out)
             if fill is not None:
                 out[pad] = fill
+
+        return self.send(safe.shape[0], rows)
+
+    def send(self, n: int, rows) -> torch.Tensor:
+        """An (n, width) tensor on the device whose rows `rows(out)` writes
+        on the host into `out`, a host tensor of that shape (the pinned
+        staging buffer on a CUDA device)."""
+        t0 = time.perf_counter()
+        if self.device.type != "cuda":
+            out = torch.empty((n, self.width), dtype=self.table.dtype)
+            rows(out)
         else:
             if self._copied is not None:
                 self._copied.synchronize()
-            if self._buf is None or self._buf.shape[0] != safe.shape[0]:
-                self._buf = torch.empty((safe.shape[0], self.width), dtype=self.table.dtype,
-                                        pin_memory=True)
-            torch.index_select(self.table, 0, safe, out=self._buf)
-            if fill is not None:
-                self._buf[pad] = fill
+            if self._buf is None or self._buf.shape[0] != n:
+                self._buf = torch.empty((n, self.width), dtype=self.table.dtype, pin_memory=True)
+            rows(self._buf)
             out = self._buf.to(self.device, non_blocking=True)
             self._copied = torch.cuda.Event()
             self._copied.record(torch.cuda.current_stream(self.device))

@@ -1,2 +1,3 @@
 """Fused traversal-step kernels: one whole Algorithm-2 hop per query (K1),
-and the hop on precomputed distances (K6)."""
+the hop on precomputed distances (K6), and the owner-shard gather + ADC of
+the sharded search (K7)."""

@@ -1,12 +1,14 @@
-"""One fused Algorithm-2 hop (K1) and the same hop on precomputed distances
-(K6): the CUDA kernels on the card, their plain versions on the CPU.
+"""One fused Algorithm-2 hop (K1), the same hop on precomputed distances
+(K6) and the owner-shard gather + ADC of the sharded search (K7): the CUDA
+kernels on the card, their plain versions on the CPU.
 
 `fused_step` takes the place of both reference entry points,
 `fused_step_pallas` and the beyond-VMEM `fused_step_dma_pallas`: the TPU had
 to stream a codes block larger than VMEM through it in tiles, while the GPU
 kernel gathers code rows straight from global memory at any n. `tile_rows`
 is accepted and validated so configurations carry over, and changes no bit
-of the result.
+of the result. `local_adc` likewise serves both `local_adc_pallas` and
+`local_adc_dma_pallas`.
 """
 from __future__ import annotations
 
@@ -15,7 +17,7 @@ import torch
 from repro_torch.core.worklist import Worklist
 from repro_torch.kernels import common
 
-from .ref import step_ref, traverse_ref
+from .ref import local_adc_ref, step_ref, traverse_ref
 
 THREADS = 128
 
@@ -140,7 +142,50 @@ def fused_traverse(
     return Worklist(owd, owi, owv), ou, oact
 
 
+def local_adc(
+    table: torch.Tensor,
+    codes_local: torch.Tensor,
+    rel: torch.Tensor,
+    own: torch.Tensor,
+    *,
+    tile_rows: int = 0,
+) -> torch.Tensor:
+    """Owner-shard fused gather + ADC: (B, R) f32 contributions, 0.0 where
+    a lane is not owned.
+
+    table (B, m, 256) f32; codes_local (n_loc, m) uint8, this shard's rows;
+    rel (B, R) int32 shard-relative ids in [0, n_loc); own (B, R) bool.
+    `tile_rows` is validated as for `fused_step` and changes no bit.
+    """
+    if int(tile_rows) != tile_rows or tile_rows < 0:
+        raise ValueError(f"tile_rows must be an integer >= 0, got {tile_rows}")
+    if not common.on_cuda(table, codes_local, rel, own):
+        return local_adc_ref(table, codes_local, rel, own)
+    B, m, _ = table.shape
+    n_loc = codes_local.shape[0]
+    R = rel.shape[1]
+    for name, x, dtype, shape in (
+        ("table", table, torch.float32, (B, m, 256)),
+        ("codes_local", codes_local, torch.uint8, (n_loc, m)),
+        ("rel", rel, torch.int32, (B, R)),
+        ("own", own, torch.bool, (B, R)),
+    ):
+        common.check(x, name, dtype, shape)
+    if n_loc < 1:
+        raise ValueError("codes_local must hold at least one row")
+    out = torch.empty((B, R), dtype=torch.float32, device=table.device)
+    if B and R:
+        fn = common.kernel_fn("repro_local_adc", [common.PTR] * 5 + [common.INT] * 5 + [common.PTR])
+        with torch.cuda.device(table.device):
+            rc = fn(table.data_ptr(), codes_local.data_ptr(), rel.data_ptr(), own.data_ptr(),
+                    out.data_ptr(), B, R, m, n_loc, THREADS, common.stream_of(table))
+        common.check_launch(rc, f"local_adc (m={m})")
+        local_adc.launches += 1
+    return out
+
+
 fused_step.launches = 0
 fused_traverse.launches = 0
+local_adc.launches = 0
 
-__all__ = ["fused_step", "fused_traverse", "step_ref", "traverse_ref"]
+__all__ = ["fused_step", "fused_traverse", "local_adc", "local_adc_ref", "step_ref", "traverse_ref"]

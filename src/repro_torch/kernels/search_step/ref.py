@@ -1,4 +1,5 @@
-"""Plain PyTorch version of the fused search-step kernel (csrc/search_step.cu).
+"""Plain PyTorch versions of the fused search-step kernel (csrc/search_step.cu)
+and of the owner-shard ADC kernel (csrc/local_adc.cu).
 
 Same contract as `ops.fused_step`: one whole Algorithm-2 iteration body
 (ADC -> sort -> select -> merge -> mark-visited) with the gather, the
@@ -93,3 +94,21 @@ def step_ref(
     cd = torch.where(fresh, adc, torch.full_like(adc, float("inf")))
     ci = torch.where(fresh, nbrs, torch.full_like(nbrs, INVALID_ID))
     return traverse_ref(cd, ci, wld, wli, wlv, active, eager=eager)
+
+
+def local_adc_ref(
+    table: torch.Tensor,        # (B, m, 256) f32
+    codes_local: torch.Tensor,  # (n_loc, m) uint8, one shard's rows
+    rel: torch.Tensor,          # (B, R) i32 shard-relative ids in [0, n_loc)
+    own: torch.Tensor,          # (B, R) bool: the lane's id lies in this shard
+) -> torch.Tensor:
+    """Owner-shard gather + ADC: (B, R) f32, the chunked ADC sum of each
+    owned lane's code row and 0.0 elsewhere, so that a sum over the shards
+    rebuilds the full row (x + 0.0 = x)."""
+    safe = torch.where(own, rel, torch.zeros_like(rel)).long()
+    gathered = codes_local[safe].long()                          # (B, R, m)
+    vals = torch.gather(
+        table[:, None, :, :].expand(-1, gathered.shape[1], -1, -1), 3, gathered[..., None]
+    )[..., 0]
+    adc = adc_sum(vals)
+    return torch.where(own, adc, torch.zeros_like(adc))

@@ -80,7 +80,7 @@ class SearchHandle:
     ids: torch.Tensor        # (bucket, k)
     dists: torch.Tensor      # (bucket, k)
     n_hops: torch.Tensor     # (bucket,)
-    n_iters: int
+    n_iters: int | torch.Tensor  # a 0-d device tensor where it is read at finish
     batch: int               # true batch size (<= bucket)
     bucket: int
     dispatch_t: float        # perf_counter at dispatch (after set-up)
@@ -159,6 +159,9 @@ class SearchExecutor:
     def query_dim(self) -> int:
         return self._dim
 
+    def _bucket_for(self, batch: int) -> int:
+        return bucket_size(batch)
+
     # -------------------------------------------------------------- building
     def _pipeline(self, bucket: int, d: int, k: int, rerank: bool, cfg: SearchConfig):
         """Cached pipeline for the key, and the seconds its set-up took.
@@ -230,7 +233,7 @@ class SearchExecutor:
                 )
             cfg = dataclasses.replace(cfg, kernel_mode=kernel_mode)
         cfg = dataclasses.replace(cfg, kernel_mode=cfg.resolved_kernel_mode(self.device))
-        bucket = bucket_size(B)
+        bucket = self._bucket_for(B)
         pipeline, compile_s = self._pipeline(bucket, d, k, rerank, cfg)
         q_dev = torch.from_numpy(pad_batch(q, bucket)).to(self.device)
         t0 = time.perf_counter()

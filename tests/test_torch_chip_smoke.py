@@ -2,8 +2,10 @@
 
 The script's phases run here with the kernels' plain versions: the same
 checks (base ids equal to inmem's, staged ids equal to fused ids, exact
-fused ids equal to its reference mode's, exact re-rank distances, card vs
-CPU ids) at n = 3,000, d = 32, m = 8 instead of the card's sizes. Nothing
+fused ids equal to its reference mode's, exact re-rank distances, the mesh
+paths equal to inmem and base on a one-rank gloo group, the distance-table
+entry point, card vs CPU ids) at n = 3,000, d = 32, m = 8 instead of the
+card's sizes. Nothing
 launches on the CPU, so the wrappers are counted by stand-ins, times come
 from the host clock, and the device profile is left out.
 """
@@ -16,12 +18,14 @@ import torch
 
 from repro_torch.kernels.bitonic import ops as bitonic_ops
 from repro_torch.kernels.pq_adc import ops as adc_ops
+from repro_torch.kernels.pq_table import ops as table_ops
 from repro_torch.kernels.rerank_l2 import ops as rr_ops
 from repro_torch.kernels.search_step import ops as step_ops
 
 SCRIPT = Path(__file__).resolve().parents[1] / "chip_smoke.py"
 WRAPPERS = ((step_ops, "fused_step"), (step_ops, "fused_traverse"), (adc_ops, "adc"),
-            (rr_ops, "exact_sq_dists"), (bitonic_ops, "sort_kv"), (bitonic_ops, "merge_worklist"))
+            (rr_ops, "exact_sq_dists"), (bitonic_ops, "sort_kv"), (bitonic_ops, "merge_worklist"),
+            (step_ops, "local_adc"), (table_ops, "dist_table"))
 
 
 def _counted(fn):
@@ -45,9 +49,16 @@ def smoke(monkeypatch):
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
     for name, value in (("N", 3000), ("D", 32), ("M", 8), ("N_QUERIES", 80), ("BATCH", 32),
-                        ("PATH_BATCHES", {"inmem": 3, "base": 2, "exact": 2}),
+                        ("PATH_BATCHES", {"inmem": 3, "base": 2, "exact": 2, "sharded": 3,
+                                          "sharded-base": 2}),
                         ("time_ms", _host_time_ms)):
         monkeypatch.setattr(mod, name, value)
+    # On the CPU the sharded re-rank follows XLA:CPU's order outside the
+    # re-rank kernel's wrapper (it launches K3 on the card only).
+    kernels = dict(mod.PATH_KERNELS)
+    for name in ("sharded", "sharded-base"):
+        kernels[name] = tuple(k for k in kernels[name] if k != "rerank_l2")
+    monkeypatch.setattr(mod, "PATH_KERNELS", kernels)
     # Device tracing has nothing to trace here (and takes seconds on the host).
     monkeypatch.setattr(mod, "profile_batch", lambda *args: None)
     monkeypatch.setattr(torch.cuda, "synchronize", lambda *a, **k: None)
@@ -60,15 +71,33 @@ def test_chip_smoke_phases_on_cpu(smoke):
     cpu = torch.device("cpu")
     rows = smoke.check_kernels(cpu)
     assert [r["name"] for r in rows] == ["search_step", "pq_adc", "rerank_l2", "bitonic_sort",
-                                         "bitonic_merge", "fused_traverse"]
+                                         "bitonic_merge", "fused_traverse", "local_adc", "dist_table"]
     assert all(r["max_abs_err"] == 0.0 and r["bound_ms"] > 0 for r in rows)
     assert rows[1]["at_r64"]["max_abs_err"] == 0.0
+    assert rows[6]["shards"]["S"] == 4 and 0 < rows[6]["shards"]["bound_ms"] < rows[6]["bound_ms"]
+    assert rows[7]["library_ms"] > 0 and rows[6]["library_ms"] is None
     res = smoke.main_path(cpu, "cpu")
+    assert not torch.distributed.is_initialized()        # the one-rank group is gone
     paths = res["paths"]
     inmem, base, exact, staged = (paths[p] for p in ("inmem", "base", "exact", "staged"))
     assert inmem["launches"] == {
         "search_step": sum(inmem["n_iters"]), "pq_adc": 3, "rerank_l2": 3,
-        "bitonic_sort": 0, "bitonic_merge": 0, "fused_traverse": 0}
+        "bitonic_sort": 0, "bitonic_merge": 0, "fused_traverse": 0, "local_adc": 0,
+        "dist_table": 0}
+    # The mesh paths: K7 on every hop and the medoid, K6 on every hop, no K1;
+    # two all-reduces a hop and two a batch.
+    for name, nb in (("sharded", 3), ("sharded-base", 2)):
+        sh = paths[name]
+        hops = sum(sh["n_iters"])
+        assert sh["launches"]["local_adc"] == hops + nb and sh["launches"]["fused_traverse"] == hops
+        assert sh["launches"]["search_step"] == 0 and sh["launches"]["rerank_l2"] == 0
+        assert sh["all_reduces"] == 2 * hops + 2 * nb and sh["all_reduces_per_hop"] == 2.0
+        assert sh["allreduce_host_ms_per_batch"] > 0.0
+        assert sh["exchange_bytes_per_hop"]["collective_bytes"] == smoke.BATCH * smoke.R * 8
+        assert sh["recall_at_10"] == inmem["recall_at_10"] or nb != inmem["n_batches"]
+    assert paths["sharded-base"]["link_bytes_per_hop"] == (smoke.BATCH + smoke.BATCH * smoke.R) * 4
+    assert paths["sharded"]["exchange_bytes_per_hop"]["host_link_bytes"] == 0
+    assert res["pq_table"]["launches"]["dist_table"] == 3 and res["pq_table"]["max_abs_diff"] < 2e-4
     assert base["launches"]["search_step"] == sum(base["n_iters"]) and base["launches"]["rerank_l2"] == 2
     assert exact["launches"]["fused_traverse"] == sum(exact["n_iters"])
     assert exact["launches"]["search_step"] == exact["launches"]["rerank_l2"] == 0

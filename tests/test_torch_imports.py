@@ -26,6 +26,8 @@ for name in names:
     importlib.import_module(name)
 leaked = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "repro"))
 assert not leaked, leaked
+import torch.distributed as dist
+assert not dist.is_initialized(), "importing the port made a process group"
 print(" ".join(names))
 '''
 
@@ -33,6 +35,13 @@ print(" ".join(names))
 SECOND_SLICE = {
     "repro_torch.kernels.bitonic", "repro_torch.kernels.bitonic.ops",
     "repro_torch.kernels.bitonic.ref", "repro_torch.core.hostrows",
+}
+# Modules of the third slice: the mesh, the sharded search and executor, the
+# distance-table kernel.
+THIRD_SLICE = {
+    "repro_torch.distributed", "repro_torch.distributed.mesh", "repro_torch.core.distributed",
+    "repro_torch.runtime.sharded", "repro_torch.kernels.pq_table",
+    "repro_torch.kernels.pq_table.ops", "repro_torch.kernels.pq_table.ref",
 }
 
 
@@ -44,7 +53,7 @@ def test_every_module_imports_without_jax_or_reference():
     )
     assert res.returncode == 0, res.stderr
     names = set(res.stdout.split())
-    assert len(names) >= 24 and SECOND_SLICE <= names   # every module of the port was walked
+    assert len(names) >= 31 and SECOND_SLICE | THIRD_SLICE <= names   # every module was walked
 
 
 def test_from_arrays_defaults_to_cuda():

@@ -17,6 +17,7 @@ import torch
 
 from repro_torch.core.worklist import INVALID_ID, Worklist
 from repro_torch.kernels.pq_adc import ops as adc_ops
+from repro_torch.kernels.pq_table import ops as table_ops
 from repro_torch.kernels.rerank_l2 import ops as rr_ops
 from repro_torch.kernels.search_step import ops as step_ops
 
@@ -32,6 +33,10 @@ STEP_SHAPES = [
 ADC_SHAPES = [(1, 4, 4), (3, 17, 9), (8, 64, 74), (5, 31, 16), (4, 1, 32), (4, 64, 32)]
 TRAVERSE_SHAPES = [(1, 4, 8), (5, 31, 16), (9, 16, 64)]         # tests/test_kernels.py:155
 RERANK_SHAPES = [(1, 1, 8), (5, 19, 37), (4, 200, 128), (2, 7, 129)]
+# (B, R, m, n_loc): tests/test_kernels.py:344, and the main path's B, R, m on
+# a quarter of n = 10**6 rows.
+LOCAL_ADC_SHAPES = [(5, 13, 9, 120), (1, 1, 4, 1), (64, 64, 32, 250_000)]
+TABLE_SHAPES = [(1, 1, 4), (7, 6, 11), (13, 8, 16), (4, 74, 2)]   # tests/test_kernels.py:39
 
 
 @pytest.fixture
@@ -285,3 +290,41 @@ def test_kernels_raise_beyond_shared_memory(cuda):
     out = adc_ops.adc(torch.zeros((B, m, 256), device=cuda),
                       torch.zeros((B, R, m), dtype=torch.int32, device=cuda), valid)
     assert torch.equal(out.cpu(), torch.zeros((B, R)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,R,m,n_loc", LOCAL_ADC_SHAPES)
+@pytest.mark.parametrize("integer_table", [True, False])
+def test_local_adc_kernel_matches_plain(cuda, B, R, m, n_loc, integer_table):
+    """Bit-equal on float tables too (the same chunked sum); exact zeros on
+    the lanes not owned; tile_rows changes no bit."""
+    rng = np.random.default_rng(B + R + m)
+    if integer_table:
+        table = rng.integers(0, 1000, (B, m, 256)).astype(np.float32)
+    else:
+        table = (rng.standard_normal((B, m, 256)) ** 2).astype(np.float32)
+    codes = rng.integers(0, 256, (n_loc, m)).astype(np.uint8)
+    rel = rng.integers(0, n_loc, (B, R)).astype(np.int32)
+    own = rng.random((B, R)) > 0.4
+    cpu = [torch.from_numpy(x) for x in (table, codes, rel, own)]
+    dev = [x.to(cuda) for x in cpu]
+    before = step_ops.local_adc.launches
+    out = step_ops.local_adc(*dev)
+    assert step_ops.local_adc.launches == before + 1
+    np.testing.assert_array_equal(out.cpu().numpy(), step_ops.local_adc_ref(*cpu).numpy())
+    assert (out.cpu()[~cpu[3]] == 0.0).all()
+    for tile_rows in (8, 4096):
+        assert torch.equal(step_ops.local_adc(*dev, tile_rows=tile_rows), out)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,m,dsub", TABLE_SHAPES + [(1024, 32, 4)])
+def test_dist_table_kernel_matches_plain(cuda, B, m, dsub):
+    """The same sums in the same order: bit-equal."""
+    rng = np.random.default_rng(B + m + dsub)
+    q = torch.from_numpy(rng.standard_normal((B, m, dsub)).astype(np.float32))
+    cb = torch.from_numpy(rng.standard_normal((m, 256, dsub)).astype(np.float32))
+    before = table_ops.dist_table.launches
+    out = table_ops.dist_table(q.to(cuda), cb.to(cuda))
+    assert table_ops.dist_table.launches == before + 1
+    np.testing.assert_array_equal(out.cpu().numpy(), table_ops.dist_table_ref(q, cb).numpy())

@@ -207,7 +207,7 @@ def test_executor_builds_once_per_bucket_and_cfg(port_index):
     for variant in ("base", "exact"):
         assert tidx.executor(variant).variant == variant
     with pytest.raises(ValueError, match="variant"):
-        tidx.executor("sharded")
+        tidx.executor("sharded-exact")
 
 
 def test_padded_lanes_do_not_change_real_lanes(port_index):
