@@ -12,7 +12,9 @@ Phases, each timed; any failure exits non-zero:
      same tensors on the card, at the main path's shapes (B=1024, R=64,
      t=64, m=32, n=10**6, d=128, C=104), held bit-equal, with times, bounds
      and a library yardstick where one PyTorch call computes the function:
-     K1 fused hop, K2 ADC (R=1, the seed, and R=64, the staged distances),
+     K1 fused hop, K2 ADC (R=1, the seed, and R=64, the staged distances,
+     and both of its regimes, global lookups and a shared table, over R:
+     the crossover),
      K3 re-rank distances, K4 bitonic sort, K5 bitonic merge, K6 fused
      traverse, K7 owner-shard ADC (4 shards of n/4 rows, and one shard of
      all n), K8 PQ distance table;
@@ -64,6 +66,7 @@ N_QUERIES, BATCH, SEED = 10_000, 1024, 0
 PATH_BATCHES = {"inmem": 10, "base": 10, "exact": 10,   # batches each variant's path runs
                 "sharded": 10, "sharded-base": 10}
 S_K7 = 4                       # shards of the owner-shard ADC's kernel check
+ADC_SWEEP_R = (1, 2, 4, 8, 16, 24, 32, 40, 48, 64)   # K2's two regimes timed at these R: the crossover
 INTRINSIC_DIM = 16             # per-cluster subspace of the synthetic corpus
 COPIES = 4                     # input copies cycled by timed calls, at least
 L2_BYTES = 50 * 2**20          # H100 L2; the copies together exceed twice this
@@ -218,7 +221,7 @@ def check_kernels(dev) -> list[dict]:
 
     # K2: the medoid seed, R = 1 candidate per query.
     table = torch.rand((B, M, 256), generator=g, device=dev) ** 2 * 4
-    seed_codes = codes[torch.randint(0, N, (B, 1), generator=g, device=dev)].to(torch.int32)
+    seed_codes = codes[torch.randint(0, N, (B, 1), generator=g, device=dev)]   # uint8, as the path gives
     valid = torch.ones((B, 1), dtype=torch.bool, device=dev)
     out = adc_ops.adc(table, seed_codes, valid)
     ref = adc_ops.adc_ref(table, seed_codes, valid)
@@ -238,14 +241,15 @@ def check_kernels(dev) -> list[dict]:
     # Inputs: the m looked-up table sectors per query, the codes and valid
     # flags; output: one distance per query.
     sectors = table_sectors(seed_codes, valid)
-    b_ms, b_by = bound_ms(sectors * SECTOR + seed_codes.numel() * 4 + B + B * 4, B * M)
+    b_ms, b_by = bound_ms(sectors * SECTOR + seed_codes.numel() + B + B * 4, B * M)
     rows.append(dict(name="pq_adc", route="cuda", source="src/repro_torch/csrc/pq_adc.cu",
                      replaces="src/repro/kernels/pq_adc/pq_adc.py:98",
                      max_abs_err=float((out - ref).abs().max()), ms=ms, plain_ms=plain_ms,
                      bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms,
                      library_call="torch.nn.functional.embedding_bag(mode='sum')"))
     log(f"[kernels] pq_adc (B={B}, R=1, m={M}): bit-equal to plain; {ms:.4f} ms vs plain "
-        f"{plain_ms:.4f} ms, embedding_bag {lib_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
+        f"{plain_ms:.4f} ms, embedding_bag {lib_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}; under "
+        f"one launch's own device time)")
 
     # K2 at R = 64: the staged mode's distances of the gathered (B, R, m)
     # codes, fresh lanes only.
@@ -269,6 +273,33 @@ def check_kernels(dev) -> list[dict]:
     log(f"[kernels] pq_adc (B={B}, R={R}, m={M}, staged distances): bit-equal to plain; {ms:.4f} ms "
         f"vs plain {plain_ms:.4f} ms, embedding_bag {lib_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}: "
         f"{sectors} table sectors)")
+
+    # K2's two regimes over R on the fresh lanes' codes: where the shared
+    # table starts to pay (the wrapper switches at SHARED_TABLE_MIN_R).
+    sweep = []
+    for r in ADC_SWEEP_R:
+        cc, ok = cand_codes[:, :r].contiguous(), fresh[:, :r].contiguous()
+        ref = adc_ops.adc_ref(table, cc, ok)
+        entry = dict(R=r, shared_table=r >= adc_ops.SHARED_TABLE_MIN_R)
+        for key, shared in (("global_ms", False), ("shared_ms", True)):
+            exact(adc_ops._adc_regime(table, cc, ok, shared_table=shared), ref)
+            entry[key] = time_ms(lambda tb, c, ok=ok, shared=shared: adc_ops._adc_regime(
+                tb, c, ok, shared_table=shared), copies(table, cc))
+        entry["ms"] = entry["shared_ms" if entry["shared_table"] else "global_ms"]
+        entry["bound_ms"] = bound_ms(table_sectors(cc, ok) * SECTOR + cc.numel() + B * r * 5,
+                                     int(ok.sum()) * M)[0]
+        sweep.append(entry)
+        log(f"[kernels] pq_adc regimes at R={r}: global lookups {entry['global_ms']:.4f} ms, shared "
+            f"table {entry['shared_ms']:.4f} ms, bound {entry['bound_ms']:.4f} ms; the wrapper takes "
+            f"the {'shared table' if entry['shared_table'] else 'global lookups'}")
+    cross = adc_ops.SHARED_TABLE_MIN_R
+    rows[-1].update(
+        crossover_r_measured=next((e["R"] for e in sweep if e["shared_ms"] < e["global_ms"]), None),
+        regimes=sweep,
+        below_crossover=max((e for e in sweep if e["R"] < cross), key=lambda e: e["R"], default=None),
+        above_crossover=min((e for e in sweep if e["R"] >= cross), key=lambda e: e["R"], default=None))
+    log(f"[kernels] pq_adc crossover: the wrapper's R={cross}; this run's first R with the shared "
+        f"table faster: {rows[-1]['crossover_r_measured']}")
 
     # K3: exact re-rank distances of C = iters() candidates per query.
     q = torch.randn((B, D), generator=g, device=dev)

@@ -2,51 +2,127 @@
 //
 // Replaces the TPU kernel pq_adc.adc_pallas (src/repro/kernels/pq_adc/pq_adc.py:80,
 // _adc_onehot_kernel and _adc_gather_kernel). On the TPU the table lookups
-// became a one-hot matrix product for the MXU; on the GPU a lookup in shared
-// memory is cheap, so both variant names run this one kernel.
+// became a one-hot matrix product for the MXU; on the GPU a lookup is a load,
+// so both variant names run this kernel.
 //
-// One thread block per query: the (m, 256) table goes to shared memory, then
-// each thread sums one candidate's m entries in MC-subspace chunks, in the
-// order of the plain version (ref.adc_ref), and writes +inf where invalid.
+// What bounds it on the H100: bytes. The function needs, per valid candidate,
+// the m looked-up table entries (one 32-byte sector each) and its m codes.
+// Two regimes, chosen by the wrapper from R (kernels/pq_adc/ops.py,
+// SHARED_TABLE_MIN_R = 40, where the shared table first beats the global
+// lookups in chip_smoke.py's sweep over R on the H100 at B = 1024, m = 32):
 //
-// What bounds it on the H100: bytes. The function needs, per candidate, the
-// m looked-up table entries, one 32-byte sector each, plus its codes: on the
-// search path (the medoid seed, R = 1) about 1 KB per query, about 1.2 MB at
-// B = 1024, which is under 1 us at 3.35 TB/s. This kernel reads each block's
-// whole table (32 KB at m = 32) into shared memory first, 32 times the bytes
-// the function needs at R = 1, so it stands far above that bound; at large R
-// the table copy pays for itself. Looking entries up straight from global
-// memory when R is small is left to a later change, since this launch runs
-// once per batch.
+//  * small R (the medoid seed, R = 1): one warp per candidate looks its m
+//    entries up straight from the table in global memory, lane j taking
+//    subspace j, so a query reads about 1 KB and not its whole 32 KB table.
+//    The code load and the table load are the only two memory round trips;
+//    at R = 1 a launch's own time is more than the bytes need.
+//  * large R (the staged mode, R = 64): the fresh candidates touch most of
+//    the table's sectors (75.6% at B = 1024, R = 64, m = 32), so one block
+//    per query copies its whole table, its codes and its valid flags into
+//    shared memory with 16-byte cp.async copies, all in flight at once
+//    (stage.cuh); then each thread sums one candidate from there. The table
+//    copy streams at the memory's rate, and about six 34 KB blocks fit an
+//    SM, so the copies of several queries overlap.
+//
+// Both regimes fold the m entries of a candidate in the order of the plain
+// version (ref.adc_ref, core/pq.py adc_sum, csrc/common.cuh adc_sum): each
+// chunk of REPRO_MC subspaces summed in sequence, 0.0f past m, then the
+// chunks in sequence. In the global regime the lanes' values are gathered
+// with shuffles and added in that order (no tree), so both regimes are
+// bit-equal to the plain version.
+// Codes are uint8, the index's own type (the wrapper converts others).
 #include "common.cuh"
+#include "stage.cuh"
 
 namespace {
 
-__global__ void pq_adc_kernel(const float* __restrict__ table, const int* __restrict__ codes,
-                              const bool* __restrict__ valid, float* __restrict__ out,
-                              int R, int m) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  float* tbl = reinterpret_cast<float*>(smem);
-  const int b = blockIdx.x;
-  const float* tb = table + (size_t)b * m * 256;
-  for (int i = threadIdx.x; i < m * 256; i += blockDim.x) tbl[i] = tb[i];
-  __syncthreads();
-  for (int r = threadIdx.x; r < R; r += blockDim.x) {
-    const size_t o = (size_t)b * R + r;
-    const float acc = adc_sum(tbl, codes + o * m, m);
-    out[o] = valid[o] ? acc : CUDART_INF_F;
+constexpr unsigned FULL = 0xffffffffu;
+static_assert(32 % REPRO_MC == 0, "a warp's window must hold whole chunks");
+
+// Add one window of 32 subspaces, s0 .. s0+31, to acc in adc_sum's order:
+// lane l holds the entry of subspace s0 + l (0.0f past m). Every lane forms
+// its chunk's sequential sum, then every lane adds the chunks in turn, so
+// all lanes return the same bits.
+__device__ __forceinline__ float fold_window(float acc, float v, int s0, int m, int lane) {
+  const int c = lane & ~(REPRO_MC - 1);
+  float part = __shfl_sync(FULL, v, c);
+#pragma unroll
+  for (int j = 1; j < REPRO_MC; ++j) part = part + __shfl_sync(FULL, v, c + j);
+#pragma unroll
+  for (int k = 0; k < 32; k += REPRO_MC)
+    if (s0 + k < m) acc = acc + __shfl_sync(FULL, part, k);
+  return acc;
+}
+
+// Small R: one warp per (query, candidate), the table read in place.
+__global__ void adc_global_kernel(const float* __restrict__ table, const uint8_t* __restrict__ codes,
+                                  const bool* __restrict__ valid, float* __restrict__ out,
+                                  long long pairs, int R, int m) {
+  const long long w = ((long long)blockIdx.x * blockDim.x + threadIdx.x) >> 5;
+  const int lane = threadIdx.x & 31;
+  if (w >= pairs) return;                      // the whole warp leaves
+  const float* tb = table + (size_t)(w / R) * m * 256;
+  const uint8_t* cw = codes + (size_t)w * m;
+  // The flag and the first window's code are loaded together; an invalid
+  // candidate reads no table entry.
+  const bool ok = valid[w];
+  int code = lane < m ? (int)cw[lane] : 0;
+  float acc = CUDART_INF_F;
+  if (ok) {
+    acc = 0.0f;
+    for (int s0 = 0; s0 < m; s0 += 32) {
+      const int s = s0 + lane;
+      if (s0 > 0) code = s < m ? (int)cw[s] : 0;
+      const float v = s < m ? tb[s * 256 + code] : 0.0f;
+      acc = fold_window(acc, v, s0, m, lane);
+    }
   }
+  if (lane == 0) out[w] = acc;
+}
+
+__host__ __device__ inline size_t align16(size_t x) { return (x + 15) & ~(size_t)15; }
+
+// Large R: one block per query, table, codes and flags staged in shared
+// memory, one thread per candidate summing with adc_sum (K1's and K7's sum).
+__global__ void adc_shared_kernel(const float* __restrict__ table, const uint8_t* __restrict__ codes,
+                                  const bool* __restrict__ valid, float* __restrict__ out,
+                                  int R, int m) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int b = blockIdx.x;
+  const size_t tbytes = (size_t)m * 256 * 4, cbytes = (size_t)R * m;
+  float* tbl = reinterpret_cast<float*>(smem);
+  uint8_t* cs = smem + tbytes;
+  bool* vs = reinterpret_cast<bool*>(smem + tbytes + align16(cbytes));
+  stage_bytes(tbl, table + (size_t)b * m * 256, (int)tbytes);
+  stage_bytes(cs, codes + (size_t)b * R * m, (int)cbytes);
+  for (int r = threadIdx.x; r < R; r += blockDim.x) vs[r] = valid[(size_t)b * R + r];
+  stage_wait();
+  __syncthreads();
+  for (int r = threadIdx.x; r < R; r += blockDim.x)
+    out[(size_t)b * R + r] = vs[r] ? adc_sum(tbl, cs + (size_t)r * m, m) : CUDART_INF_F;
 }
 
 }  // namespace
 
+// shared_table: 0 for the global-lookup regime, 1 for the shared-table one.
+// threads: a multiple of 32.
 extern "C" int repro_pq_adc(const void* table, const void* codes, const void* valid, void* out,
-                            int B, int R, int m, int threads, void* stream) {
-  const size_t smem = (size_t)m * 256 * 4;
-  cudaError_t err = allow_smem(pq_adc_kernel, smem);
+                            int B, int R, int m, int shared_table, int threads, void* stream) {
+  const float* t = (const float*)table;
+  const uint8_t* c = (const uint8_t*)codes;
+  const bool* v = (const bool*)valid;
+  float* o = (float*)out;
+  const cudaStream_t s = (cudaStream_t)stream;
+  if (!shared_table) {
+    const long long pairs = (long long)B * R;
+    const long long blocks = (pairs * 32 + threads - 1) / threads;
+    adc_global_kernel<<<(unsigned)blocks, threads, 0, s>>>(t, c, v, o, pairs, R, m);
+    return (int)cudaGetLastError();
+  }
+  const size_t smem = (size_t)m * 256 * 4 + align16((size_t)R * m) + align16(R);
+  cudaError_t err = allow_smem(adc_shared_kernel, smem);
   if (err != cudaSuccess) return (int)err;
-  pq_adc_kernel<<<B, threads, smem, (cudaStream_t)stream>>>(
-      (const float*)table, (const int*)codes, (const bool*)valid, (float*)out, R, m);
+  adc_shared_kernel<<<B, threads, smem, s>>>(t, c, v, o, R, m);
   return (int)cudaGetLastError();
 }
 

@@ -74,6 +74,16 @@ def test_chip_smoke_phases_on_cpu(smoke):
                                          "bitonic_merge", "fused_traverse", "local_adc", "dist_table"]
     assert all(r["max_abs_err"] == 0.0 and r["bound_ms"] > 0 for r in rows)
     assert rows[1]["at_r64"]["max_abs_err"] == 0.0
+    # K2's regimes over R, the measured crossover and the times on each side
+    # of the wrapper's.
+    adc = rows[1]
+    assert [e["R"] for e in adc["regimes"]] == list(smoke.ADC_SWEEP_R)
+    assert all(e["global_ms"] > 0 and e["shared_ms"] > 0 and e["bound_ms"] > 0 for e in adc["regimes"])
+    assert "crossover_r_measured" in adc
+    below, above = adc["below_crossover"], adc["above_crossover"]
+    assert below["R"] < adc_ops.SHARED_TABLE_MIN_R <= above["R"]
+    assert not below["shared_table"] and above["shared_table"]
+    assert below["ms"] == below["global_ms"] and above["ms"] == above["shared_ms"]
     assert rows[6]["shards"]["S"] == 4 and 0 < rows[6]["shards"]["bound_ms"] < rows[6]["bound_ms"]
     assert rows[7]["library_ms"] > 0 and rows[6]["library_ms"] is None
     res = smoke.main_path(cpu, "cpu")

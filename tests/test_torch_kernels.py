@@ -37,6 +37,14 @@ RERANK_SHAPES = [(1, 1, 8), (5, 19, 37), (4, 200, 128), (2, 7, 129)]
 # a quarter of n = 10**6 rows.
 LOCAL_ADC_SHAPES = [(5, 13, 9, 120), (1, 1, 4, 1), (64, 64, 32, 250_000)]
 TABLE_SHAPES = [(1, 1, 4), (7, 6, 11), (13, 8, 16), (4, 74, 2)]   # tests/test_kernels.py:39
+# Card-only shapes of K2's two regimes (global lookups below
+# adc_ops.SHARED_TABLE_MIN_R candidates, a shared table from it on): R on
+# both sides of the crossover and at it, m a multiple of 8 and not.
+ADC_REGIME_R = [1, 2, 8, 16, 63, 64, 100]
+ADC_REGIME_M = [9, 32, 74]
+# Card-only shapes of K3's tiles: C not a multiple of the tile, d not a
+# multiple of 8 or 4, and B = 1.
+RERANK_TILE_SHAPES = [(b, c, d) for b in (1, 3) for c in (1, 19, 104, 200) for d in (37, 128, 129)]
 
 
 @pytest.fixture
@@ -262,6 +270,109 @@ def test_rerank_l2_kernel_matches_plain(cuda, B, C, d):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("R", ADC_REGIME_R)
+@pytest.mark.parametrize("m", ADC_REGIME_M)
+@pytest.mark.parametrize("code_dtype", [torch.int32, torch.uint8])
+def test_pq_adc_regimes_match_plain(cuda, R, m, code_dtype):
+    """Both regimes, and the wrapper's choice between them, bit-equal to the
+    plain version, on all-valid and owner-style masked flags and under both
+    variant names; one launch a call."""
+    B = 3
+    rng = np.random.default_rng(R * 100 + m)
+    table = torch.from_numpy((rng.standard_normal((B, m, 256)) ** 2).astype(np.float32))
+    codes = torch.from_numpy(rng.integers(0, 256, (B, R, m))).to(code_dtype)
+    for valid in (torch.ones((B, R), dtype=torch.bool), torch.from_numpy(rng.random((B, R)) > 0.75)):
+        plain = adc_ops.adc_ref(table, codes, valid).numpy()
+        dev = [x.to(cuda) for x in (table, codes, valid)]
+        for variant in ("onehot", "gather"):
+            before = adc_ops.adc.launches
+            out = adc_ops.adc(*dev, variant=variant)
+            assert adc_ops.adc.launches == before + 1
+            np.testing.assert_array_equal(out.cpu().numpy(), plain)
+        for shared_table in (False, True):
+            before = adc_ops.adc.launches
+            out = adc_ops._adc_regime(*dev, shared_table=shared_table)
+            assert adc_ops.adc.launches == before + 1
+            np.testing.assert_array_equal(out.cpu().numpy(), plain)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,C,d", RERANK_TILE_SHAPES)
+def test_rerank_l2_tiles_match_plain(cuda, B, C, d):
+    rng = np.random.default_rng(B * 1000 + C + d)
+    q = torch.from_numpy(rng.standard_normal((B, d)).astype(np.float32))
+    v = torch.from_numpy((rng.standard_normal((B, C, d)) + 3.0).astype(np.float32))
+    before = rr_ops.exact_sq_dists.launches
+    out = rr_ops.exact_sq_dists(q.to(cuda), v.to(cuda))
+    assert rr_ops.exact_sq_dists.launches == before + 1
+    np.testing.assert_array_equal(out.cpu().numpy(), rr_ops.exact_sq_dists_ref(q, v).numpy())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("scale", [1e-30, 1e-19, 1.0, 1e18, 1e30])
+def test_rerank_l2_rounding_edges(cuda, scale):
+    """K3 rounds its partials to float32 in float64 arithmetic while they stay
+    in float32's normal range and falls back to conversions elsewhere: tiny
+    and huge values, zeros, and overflow to inf and NaN give the plain
+    version's bits."""
+    rng = np.random.default_rng(int(np.log10(scale)) + 40)
+    B, C, d = 4, 104, 128
+    q = (rng.standard_normal((B, d)) * scale).astype(np.float32)
+    v = (rng.standard_normal((B, C, d)) * scale).astype(np.float32)
+    v[rng.random(v.shape) < 0.5] = 0.0
+    q[rng.random(q.shape) < 0.3] = 0.0
+    q, v = torch.from_numpy(q).to(cuda), torch.from_numpy(v).to(cuda)
+    out = rr_ops.exact_sq_dists(q, v)
+    # The plain version on the card too: it makes the same NaN as the kernel.
+    ref = rr_ops.exact_sq_dists_ref(q, v)
+    assert torch.equal(out.view(torch.int32), ref.view(torch.int32))
+
+
+@pytest.mark.cuda
+def test_rerank_l2_largest_d(cuda):
+    """K3's shared memory grows with d (csrc/rerank_l2.cu): d = 7,380 is the
+    largest that fits the H100's 227 KB at C >= 128 and gives the plain
+    version's bits; one float4 wider, the launch is refused and raises, and
+    the next launch runs."""
+    B, C, d_max = 1, 128, 7380
+    rng = np.random.default_rng(11)
+    q = torch.from_numpy(rng.standard_normal((B, d_max)).astype(np.float32))
+    v = torch.from_numpy(rng.standard_normal((B, C, d_max)).astype(np.float32))
+    out = rr_ops.exact_sq_dists(q.to(cuda), v.to(cuda))
+    np.testing.assert_array_equal(out.cpu().numpy(), rr_ops.exact_sq_dists_ref(q, v).numpy())
+    with pytest.raises(RuntimeError):
+        rr_ops.exact_sq_dists(torch.zeros((B, d_max + 4), device=cuda),
+                              torch.zeros((B, C, d_max + 4), device=cuda))
+    out = rr_ops.exact_sq_dists(q.to(cuda), v.to(cuda))
+    np.testing.assert_array_equal(out.cpu().numpy(), rr_ops.exact_sq_dists_ref(q, v).numpy())
+
+
+@pytest.mark.cuda
+def test_kernels_take_unaligned_inputs(cuda):
+    """Contiguous views that start off a 16-byte boundary take the kernels'
+    narrower copies, with the same bits."""
+    rng = np.random.default_rng(7)
+    B, R, m, C, d = 3, 64, 32, 104, 128
+    table = torch.from_numpy((rng.standard_normal((B, m, 256)) ** 2).astype(np.float32))
+    codes = torch.from_numpy(rng.integers(0, 256, (B, R, m)).astype(np.uint8))
+    valid = torch.from_numpy(rng.random((B, R)) > 0.25)
+    q = torch.from_numpy(rng.standard_normal((B, d)).astype(np.float32))
+    v = torch.from_numpy(rng.standard_normal((B, C, d)).astype(np.float32))
+
+    def shifted(x):   # a contiguous copy of x, one element past an aligned start
+        buf = torch.empty(x.numel() + 1, dtype=x.dtype, device=cuda)
+        out = buf[1:].view(x.shape)
+        out.copy_(x.to(cuda))
+        return out
+
+    for shared_table in (False, True):
+        out = adc_ops._adc_regime(shifted(table), shifted(codes), valid.to(cuda), shared_table=shared_table)
+        np.testing.assert_array_equal(out.cpu().numpy(), adc_ops.adc_ref(table, codes, valid).numpy())
+    out = rr_ops.exact_sq_dists(shifted(q), shifted(v))
+    np.testing.assert_array_equal(out.cpu().numpy(), rr_ops.exact_sq_dists_ref(q, v).numpy())
+
+
+@pytest.mark.cuda
 def test_wrappers_raise_on_bad_cuda_inputs(cuda):
     q = torch.zeros(2, 8, device=cuda, dtype=torch.float64)
     with pytest.raises(TypeError, match="float32"):
@@ -272,8 +383,10 @@ def test_wrappers_raise_on_bad_cuda_inputs(cuda):
 
 @pytest.mark.cuda
 def test_kernels_raise_beyond_shared_memory(cuda):
-    # m = 256: a 256 KB table per block, beyond the H100's 227 KB.
-    B, R, t, m = 2, 4, 4, 256
+    # m = 256: a 256 KB table per block, beyond the H100's 227 KB. K2 copies
+    # the table to shared memory only from SHARED_TABLE_MIN_R candidates on.
+    B, t, m = 2, 4, 256
+    R = adc_ops.SHARED_TABLE_MIN_R
     table = torch.zeros((B, m, 256), device=cuda)
     codes = torch.zeros((B, R, m), dtype=torch.int32, device=cuda)
     valid = torch.ones((B, R), dtype=torch.bool, device=cuda)
@@ -290,6 +403,19 @@ def test_kernels_raise_beyond_shared_memory(cuda):
     out = adc_ops.adc(torch.zeros((B, m, 256), device=cuda),
                       torch.zeros((B, R, m), dtype=torch.int32, device=cuda), valid)
     assert torch.equal(out.cpu(), torch.zeros((B, R)))
+
+
+@pytest.mark.cuda
+def test_pq_adc_global_lookups_need_no_shared_memory(cuda):
+    """Below SHARED_TABLE_MIN_R, K2 serves tables of any width (m = 256:
+    256 KB a query, beyond one block's shared memory)."""
+    B, R, m = 2, 1, 256
+    rng = np.random.default_rng(3)
+    table = torch.from_numpy((rng.standard_normal((B, m, 256)) ** 2).astype(np.float32))
+    codes = torch.from_numpy(rng.integers(0, 256, (B, R, m)).astype(np.uint8))
+    valid = torch.ones((B, R), dtype=torch.bool)
+    out = adc_ops.adc(table.to(cuda), codes.to(cuda), valid.to(cuda))
+    np.testing.assert_array_equal(out.cpu().numpy(), adc_ops.adc_ref(table, codes, valid).numpy())
 
 
 @pytest.mark.cuda
