@@ -12,12 +12,14 @@ Phases, each timed; any failure exits non-zero:
      same tensors on the card, at the main path's shapes (B=1024, R=64,
      t=64, m=32, n=10**6, d=128, C=104), held bit-equal, with times, bounds
      and a library yardstick where one PyTorch call computes the function:
-     K1 fused hop, K2 ADC (R=1, the seed, and R=64, the staged distances,
-     and both of its regimes, global lookups and a shared table, over R:
-     the crossover),
+     K1 fused hop (also timed over the count of fresh lanes a query, with a
+     warm table, and with one block per SM), K2 ADC (R=1, the seed, and R=64, the
+     staged distances, and both of its regimes, global lookups and a shared
+     table, over R: the crossover),
      K3 re-rank distances, K4 bitonic sort, K5 bitonic merge, K6 fused
-     traverse, K7 owner-shard ADC (4 shards of n/4 rows, and one shard of
-     all n), K8 PQ distance table;
+     traverse, K7 owner-shard ADC (4 shards of n/4 rows, one shard of all
+     n, the medoid seed at R=1, and over the count of owned lanes a
+     query), K8 PQ distance table;
   4. the main paths on a synthetic corpus with the shape of SIFT1M (n =
      10**6, d = 128, the ANN_SIFT1M set of the BIGANN/texmex corpus;
      clusters of intrinsic dimension 16, queries held out from the same
@@ -33,7 +35,9 @@ Phases, each timed; any failure exits non-zero:
      exact reference-mode ids, fused ids equal reference-mode ids, sharded
      ids and distances equal inmem's and sharded-base's equal base's on
      every batch (K7 and K6 launched on every hop, two all-reduces a hop),
-     and `index.search(q)` with no kernel_mode launches K1. K8, which no
+     and `index.search(q)` with no kernel_mode launches K1. One more inmem
+     batch, outside the timed runs, counts the fresh lanes per query of
+     every K1 launch (K1's time grows with it). K8, which no
      search path runs, is driven through its own entry point
      (`kernels.pq_table.ops.build_dist_table`) on every batch;
   5. a small corpus searched on the card and on the CPU, ids equal.
@@ -67,6 +71,7 @@ PATH_BATCHES = {"inmem": 10, "base": 10, "exact": 10,   # batches each variant's
                 "sharded": 10, "sharded-base": 10}
 S_K7 = 4                       # shards of the owner-shard ADC's kernel check
 ADC_SWEEP_R = (1, 2, 4, 8, 16, 24, 32, 40, 48, 64)   # K2's two regimes timed at these R: the crossover
+LANE_SWEEP = (0, 1, 4, 8, 16, 32, 48, 64)   # K1 and K7 timed at these scored lanes a query
 INTRINSIC_DIM = 16             # per-cluster subspace of the synthetic corpus
 COPIES = 4                     # input copies cycled by timed calls, at least
 L2_BYTES = 50 * 2**20          # H100 L2; the copies together exceed twice this
@@ -130,6 +135,14 @@ def table_sectors(codes, mask) -> int:
     return int(hit.sum())
 
 
+def exactly(g, B: int, R: int, f: int, dev):
+    """(B, R) bool flags with exactly f set lanes in every row, at random."""
+    import torch
+
+    keys = torch.rand((B, R), generator=g, device=dev)
+    return keys.argsort(dim=-1).argsort(dim=-1) < f
+
+
 def bound_ms(nbytes: float, ops: float) -> tuple[float, str]:
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / FP32_OPS_PER_S
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
@@ -175,6 +188,17 @@ def check_kernels(dev) -> list[dict]:
     wv = torch.rand((B, T), generator=g, device=dev) > 0.5
     active = torch.rand((B,), generator=g, device=dev) > 0.2
     wl = Worklist(wd, wi, wv)
+
+    def step(tb, cd, fr, eager=True):
+        return step_ops.fused_step(tb, cd, wl, nbrs, fr, active, eager=eager)
+
+    def check_step(tb, fr, eager=True):
+        kern = step(tb, codes, fr, eager)
+        plain = step_ops.step_ref(tb, codes, nbrs, fr, wd, wi, wv, active, eager=eager)
+        for a, b in zip((kern[0].dists, kern[0].ids, kern[0].visited, kern[1], kern[2]), plain):
+            exact(a, b)
+        return float((kern[0].dists - plain[0]).nan_to_num().abs().max())
+
     err = 0.0
     for integer in (True, False):
         if integer:
@@ -182,16 +206,15 @@ def check_kernels(dev) -> list[dict]:
         else:
             table = torch.rand((B, M, 256), generator=g, device=dev) ** 2 * 4
         for eager in (True, False):
-            kern = step_ops.fused_step(table, codes, wl, nbrs, fresh, active, eager=eager)
-            plain = step_ops.step_ref(table, codes, nbrs, fresh, wd, wi, wv, active, eager=eager)
-            for a, b in zip((kern[0].dists, kern[0].ids, kern[0].visited, kern[1], kern[2]), plain):
-                exact(a, b)
-            err = max(err, float((kern[0].dists - plain[0]).nan_to_num().abs().max()))
+            err = max(err, check_step(table, fresh, eager))
     torch.cuda.synchronize()
     sets = copies(table, codes)
-    ms = time_ms(lambda tb, cd: step_ops.fused_step(tb, cd, wl, nbrs, fresh, active), sets)
+    ms = time_ms(lambda tb, cd: step(tb, cd, fresh), sets)
     plain_ms = time_ms(lambda tb, cd: step_ops.step_ref(tb, cd, nbrs, fresh, wd, wi, wv, active),
                        sets, reps=5)
+    # The same table and inputs every call, as the path re-reads one table
+    # for every hop of a batch.
+    warm_ms = time_ms(lambda tb, cd: step(tb, cd, fresh), sets[:1])
     # One block per SM: the latency of one block's hop, whatever the batch.
     sms = torch.cuda.get_device_properties(dev).multi_processor_count if dev.type == "cuda" else 8
     one = [x[:sms] for x in (nbrs, fresh, wd, wi, wv, active)]
@@ -199,25 +222,40 @@ def check_kernels(dev) -> list[dict]:
                                                              one[1], one[5]), sets)
     rp = common.next_pow2(R)
     p = common.next_pow2(T + rp)
-    n_fresh = int(fresh.sum())
     cmp_sort, cmp_merge = exchanges(rp, True), exchanges(p, False)
-    # Inputs: the table sectors the fresh codes look up, the fresh code rows,
-    # neighbours, fresh flags, worklists and active flags; outputs: worklists,
-    # u_next and active.
+
+    def step_bound(fr):
+        # Inputs: the table sectors the fresh codes look up, the fresh code
+        # rows, neighbours, fresh flags, worklists and active flags; outputs:
+        # worklists, u_next and active.
+        nf = int(fr.sum())
+        nbytes = (table_sectors(codes[nbrs.long()], fr) * SECTOR + nf * M + B * R * 5 + B * T * 9 + B
+                  + B * T * 9 + B * 5)
+        return bound_ms(nbytes, nf * M + B * 2 * (cmp_sort + cmp_merge))
+
+    n_fresh = int(fresh.sum())
     sectors = table_sectors(codes[nbrs.long()], fresh)
-    nbytes = (sectors * SECTOR + n_fresh * M + B * R * 5 + B * T * 9 + B
-              + B * T * 9 + B * 5)
-    ops = n_fresh * M + B * 2 * (cmp_sort + cmp_merge)
-    b_ms, b_by = bound_ms(nbytes, ops)
+    b_ms, b_by = step_bound(fresh)
+    # Over the count of fresh lanes a query, every query with the same count:
+    # the lookups' cost beyond the hop's tail (F = 0).
+    sweep = []
+    for f in LANE_SWEEP:
+        fr = exactly(g, B, R, f, dev)
+        check_step(table, fr)
+        sweep.append(dict(F=f, ms=time_ms(lambda tb, cd, fr=fr: step(tb, cd, fr), sets),
+                          bound_ms=step_bound(fr)[0]))
+        log(f"[kernels] search_step at F={f} fresh lanes a query: {sweep[-1]['ms']:.4f} ms, bound "
+            f"{sweep[-1]['bound_ms']:.4f} ms")
     rows.append(dict(name="search_step", route="cuda", source="src/repro_torch/csrc/search_step.cu",
                      replaces="src/repro/kernels/search_step/search_step.py:311",
                      max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-                     library_ms=None, library_call=None, ms_one_block_per_sm=one_wave_ms))
-    log(f"[kernels] search_step (fused hop, eager+lazy, integer and float tables): bit-equal to "
-        f"plain (tolerance 0); {ms:.4f} ms vs plain {plain_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}: "
-        f"{n_fresh} fresh lanes, {sectors} table sectors = "
-        f"{100 * sectors * SECTOR / (table.numel() * 4):.1f}% of the tables); "
-        f"B={sms} (one block per SM) {one_wave_ms:.4f} ms")
+                     library_ms=None, library_call=None, ms_warm_table=warm_ms,
+                     ms_one_block_per_sm=one_wave_ms, by_fresh_lanes=sweep))
+    log(f"[kernels] search_step (fused hop, eager+lazy, integer and float tables, F = "
+        f"{', '.join(map(str, LANE_SWEEP))} fresh lanes a query): bit-equal to plain (tolerance 0); "
+        f"{ms:.4f} ms vs plain {plain_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}: {n_fresh} fresh lanes, "
+        f"{sectors} table sectors = {100 * sectors * SECTOR / (table.numel() * 4):.1f}% of the "
+        f"tables); warm table {warm_ms:.4f} ms; B={sms} (one block per SM) {one_wave_ms:.4f} ms")
 
     # K2: the medoid seed, R = 1 candidate per query.
     table = torch.rand((B, M, 256), generator=g, device=dev) ** 2 * 4
@@ -433,18 +471,40 @@ def check_kernels(dev) -> list[dict]:
     # rows, ids and flags; output: one distance per lane.
     sectors = table_sectors(cand_codes, fresh)
     b_ms, b_by = bound_ms(sectors * SECTOR + n_fresh * M + B * R * 5 + B * R * 4, n_fresh * M)
+    # The medoid seed: R = 1, the one lane owned (the (1, 1) mesh).
+    seed = torch.randint(0, N, (B, 1), generator=g, device=dev, dtype=torch.int32)
+    seed_own = torch.ones((B, 1), dtype=torch.bool, device=dev)
+    exact(step_ops.local_adc(table, codes, seed, seed_own), step_ops.local_adc_ref(table, codes, seed, seed_own))
+    r1_ms = time_ms(lambda tb: step_ops.local_adc(tb, codes, seed, seed_own), sets)
+    r1_b_ms, _ = bound_ms(table_sectors(codes[seed.long()], seed_own) * SECTOR + B * M + B * 5 + B * 4,
+                          B * M)
+    # Over the count of owned lanes a query (one shard owning every row,
+    # every query with the same count).
+    sweep = []
+    for f in LANE_SWEEP:
+        mine = exactly(g, B, R, f, dev)
+        exact(step_ops.local_adc(table, codes, nbrs, mine), step_ops.local_adc_ref(table, codes, nbrs, mine))
+        sweep.append(dict(F=f, ms=time_ms(lambda tb, mine=mine: step_ops.local_adc(tb, codes, nbrs, mine),
+                                          sets),
+                          bound_ms=bound_ms(table_sectors(cand_codes, mine) * SECTOR + f * B * M
+                                            + B * R * 9, f * B * M)[0]))
+        log(f"[kernels] local_adc at F={f} owned lanes a query: {sweep[-1]['ms']:.4f} ms, bound "
+            f"{sweep[-1]['bound_ms']:.4f} ms")
     rows.append(dict(name="local_adc", route="cuda", source="src/repro_torch/csrc/local_adc.cu",
                      replaces="src/repro/kernels/search_step/search_step.py:492",
                      max_abs_err=float((out - ref).abs().max()), ms=ms, plain_ms=plain_ms,
                      bound_ms=b_ms, bound_by=b_by, library_ms=None, library_call=None,
                      shards=dict(S=S_K7, n_loc=n_loc, ms=shard_ms, bound_ms=shard_b_ms,
-                                 owned_lanes=int(mine0.sum()))))
+                                 owned_lanes=int(mine0.sum())),
+                     at_r1=dict(ms=r1_ms, bound_ms=r1_b_ms), by_owned_lanes=sweep))
     log(f"[kernels] local_adc (B={B}, R={R}, m={M}): {S_K7} shards of n_loc={n_loc} each bit-equal "
         f"to plain, exact zeros where not owned, their sum bit-equal to pq_adc at R={R}, tile_rows "
-        f"0 and 4096 bit-identical; one shard of the {S_K7}: {shard_ms:.4f} ms, bound "
-        f"{shard_b_ms:.4f} ms ({int(mine0.sum())} owned lanes); one shard owning all n rows (the "
-        f"main path): {ms:.4f} ms vs plain {plain_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}); no "
-        f"single PyTorch call gathers the code rows, looks the table up and masks")
+        f"0 and 4096 bit-identical, F = {', '.join(map(str, LANE_SWEEP))} owned lanes a query "
+        f"bit-equal; one shard of the {S_K7}: "
+        f"{shard_ms:.4f} ms, bound {shard_b_ms:.4f} ms ({int(mine0.sum())} owned lanes); one shard "
+        f"owning all n rows (the main path): {ms:.4f} ms vs plain {plain_ms:.4f} ms, bound "
+        f"{b_ms:.4f} ms ({b_by}); the medoid seed (R=1): {r1_ms:.4f} ms, bound {r1_b_ms:.4f} ms; "
+        f"no single PyTorch call gathers the code rows, looks the table up and masks")
 
     # K8: the PQ distance table through its own kernel (off the search path).
     dsub = D // M
@@ -642,6 +702,7 @@ def main_path(dev, card: str) -> dict:
         # Warm-up batch (first-use allocations), not counted.
         index.search(q0, K, cfg=cfg, variant=variant, kernel_mode="fused")
     torch.cuda.synchronize()
+    fresh = fresh_lanes(index, q0, cfg)
 
     paths = {}
     for variant in ("inmem", "base", "exact"):
@@ -712,7 +773,41 @@ def main_path(dev, card: str) -> dict:
 
     for res in paths.values():
         del res["ids"], res["dists"]
-    return dict(paths=paths, nn_contrast=contrast, pq_table=table_path(index, queries))
+    return dict(paths=paths, nn_contrast=contrast, pq_table=table_path(index, queries),
+                fresh_lanes=fresh)
+
+
+def fresh_lanes(index, q0, cfg) -> dict:
+    """The fresh lanes per query of every K1 launch of one inmem batch, run
+    outside the timed batches: the count F that K1's time grows with.
+    Returns the number of blocks at each F = 0..R and its quantiles."""
+    import torch
+
+    from repro_torch.kernels.search_step import ops as step_ops
+
+    real, counts = step_ops.fused_step, []
+
+    def counting(table, codes, wl, nbrs, fresh, active, **kw):
+        counts.append(fresh.sum(-1))
+        return real(table, codes, wl, nbrs, fresh, active, **kw)
+
+    # The kernel's wrapper counts its launches on whatever the module's
+    # `fused_step` is; these launches stay out of every path's counts.
+    counting.launches = 0
+    step_ops.fused_step = counting
+    try:
+        index.search(q0, K, cfg=cfg, variant="inmem", kernel_mode="fused")
+    finally:
+        step_ops.fused_step = real
+    f = torch.cat(counts).cpu()
+    hist = torch.bincount(f, minlength=R + 1).tolist()
+    q = torch.quantile(f.double(), torch.tensor([0.1, 0.5, 0.9], dtype=torch.float64)).tolist()
+    res = dict(launches=len(counts), blocks=int(f.numel()), mean=float(f.double().mean()),
+               p10=q[0], p50=q[1], p90=q[2], blocks_at_f=hist)
+    log(f"[fresh] inmem, one batch of {q0.shape[0]} outside the timed runs: {len(counts)} K1 launches, "
+        f"fresh lanes per query mean {res['mean']:.2f}, p10/p50/p90 {q[0]:.0f}/{q[1]:.0f}/{q[2]:.0f}; "
+        f"blocks at F=0..{R}: {hist}")
+    return res
 
 
 def set_profile(res: dict, prof: dict | None) -> None:
@@ -931,6 +1026,7 @@ def main() -> int:
     t0 = time.perf_counter()
     res = main_path(dev, card)
     paths = res["paths"]
+    rows[0]["fresh_lanes_inmem"] = res["fresh_lanes"]
     for row in rows:
         # A kernel's launches are those of the path that runs it; the counts
         # of every path stand beside them.

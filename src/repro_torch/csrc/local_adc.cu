@@ -13,42 +13,40 @@
 // elsewhere, and an all-reduce (sum) over the model group rebuilds the full
 // (B, R) row, exactly, since x + 0.0f = x.
 //
-// One thread block per query (K2's design): the (m, 256) table goes to
-// shared memory, then each thread sums one owned candidate's m entries with
-// adc_sum, in the order of K1, K2 and the plain version
-// (ref.local_adc_ref). An owner's value is therefore bit-equal to the
-// single-device ADC, and the sharded traversal to the single-device one.
+// One thread block per query, one thread per lane (adc.cuh, lane_adc, as
+// K1): an owned lane's thread reads its code row and looks its m entries up
+// in the (m, 256) table in global memory, summed in the order of K1, K2 and
+// the plain version (ref.local_adc_ref), so an owner's value is bit-equal to
+// the single-device ADC, and the sharded traversal to the single-device one.
 // Lanes that are not owned read no code row and no table entry.
 //
 // What bounds it on the H100: bytes. The function needs, per owned lane, the
 // m table sectors (32 bytes each) its codes look up and its m code bytes,
 // plus the ids, flags and outputs: about 25 MB per hop at B = 1024, R = 64,
 // m = 32 on one shard (about 76% of the tables' sectors), under 8 us at
-// 3.35 TB/s; on S shards each reads about 1/S of the lanes' sectors. As for
-// K2, this kernel copies each query's whole table (32 KB) into shared memory
-// first, so every shard pays the full table read whatever it owns; that is
-// the cost to cut first (look entries up in global memory when few lanes are
-// owned).
-#include "common.cuh"
+// 3.35 TB/s; on S shards each reads about 1/S of the lanes' sectors. The
+// lookups read just those sectors, so a shard's time falls with the lanes it
+// owns, where a copy of each query's whole 32 KB table to shared memory
+// would cost every shard the full table. A block runs one thread per lane,
+// up to 128, so the medoid seed (R = 1) runs one warp a query.
+#include "adc.cuh"
+#include "stage.cuh"
 
 namespace {
 
 __global__ void local_adc_kernel(const float* __restrict__ table, const uint8_t* __restrict__ codes,
                                  const int* __restrict__ rel, const bool* __restrict__ own,
                                  float* __restrict__ out, int R, int m, int n_loc) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  float* tbl = reinterpret_cast<float*>(smem);
   const int b = blockIdx.x;
   const float* tb = table + (size_t)b * m * 256;
-  for (int i = threadIdx.x; i < m * 256; i += blockDim.x) tbl[i] = tb[i];
-  __syncthreads();
+  const bool wide = m % 16 == 0 && aligned16(codes);
   for (int r = threadIdx.x; r < R; r += blockDim.x) {
     const size_t o = (size_t)b * R + r;
     float acc = 0.0f;
     if (own[o]) {
       // Clamped like the reference's gather; owned ids lie in [0, n_loc).
       const int row = min(max(rel[o], 0), n_loc - 1);
-      acc = adc_sum(tbl, codes + (size_t)row * m, m);
+      acc = lane_adc(tb, codes + (size_t)row * m, m, wide);
     }
     out[o] = acc;
   }
@@ -59,10 +57,7 @@ __global__ void local_adc_kernel(const float* __restrict__ table, const uint8_t*
 extern "C" int repro_local_adc(const void* table, const void* codes, const void* rel,
                                const void* own, void* out, int B, int R, int m, int n_loc,
                                int threads, void* stream) {
-  const size_t smem = (size_t)m * 256 * 4;
-  cudaError_t err = allow_smem(local_adc_kernel, smem);
-  if (err != cudaSuccess) return (int)err;
-  local_adc_kernel<<<B, threads, smem, (cudaStream_t)stream>>>(
+  local_adc_kernel<<<B, threads, 0, (cudaStream_t)stream>>>(
       (const float*)table, (const uint8_t*)codes, (const int*)rel, (const bool*)own, (float*)out,
       R, m, n_loc);
   return (int)cudaGetLastError();

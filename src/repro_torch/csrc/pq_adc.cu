@@ -29,30 +29,13 @@
 // chunk of REPRO_MC subspaces summed in sequence, 0.0f past m, then the
 // chunks in sequence. In the global regime the lanes' values are gathered
 // with shuffles and added in that order (no tree), so both regimes are
-// bit-equal to the plain version.
+// bit-equal to the plain version. The global lookups are adc.cuh's
+// warp_adc, shared with K1 and K7.
 // Codes are uint8, the index's own type (the wrapper converts others).
-#include "common.cuh"
+#include "adc.cuh"
 #include "stage.cuh"
 
 namespace {
-
-constexpr unsigned FULL = 0xffffffffu;
-static_assert(32 % REPRO_MC == 0, "a warp's window must hold whole chunks");
-
-// Add one window of 32 subspaces, s0 .. s0+31, to acc in adc_sum's order:
-// lane l holds the entry of subspace s0 + l (0.0f past m). Every lane forms
-// its chunk's sequential sum, then every lane adds the chunks in turn, so
-// all lanes return the same bits.
-__device__ __forceinline__ float fold_window(float acc, float v, int s0, int m, int lane) {
-  const int c = lane & ~(REPRO_MC - 1);
-  float part = __shfl_sync(FULL, v, c);
-#pragma unroll
-  for (int j = 1; j < REPRO_MC; ++j) part = part + __shfl_sync(FULL, v, c + j);
-#pragma unroll
-  for (int k = 0; k < 32; k += REPRO_MC)
-    if (s0 + k < m) acc = acc + __shfl_sync(FULL, part, k);
-  return acc;
-}
 
 // Small R: one warp per (query, candidate), the table read in place.
 __global__ void adc_global_kernel(const float* __restrict__ table, const uint8_t* __restrict__ codes,
@@ -61,22 +44,12 @@ __global__ void adc_global_kernel(const float* __restrict__ table, const uint8_t
   const long long w = ((long long)blockIdx.x * blockDim.x + threadIdx.x) >> 5;
   const int lane = threadIdx.x & 31;
   if (w >= pairs) return;                      // the whole warp leaves
-  const float* tb = table + (size_t)(w / R) * m * 256;
   const uint8_t* cw = codes + (size_t)w * m;
   // The flag and the first window's code are loaded together; an invalid
   // candidate reads no table entry.
   const bool ok = valid[w];
-  int code = lane < m ? (int)cw[lane] : 0;
-  float acc = CUDART_INF_F;
-  if (ok) {
-    acc = 0.0f;
-    for (int s0 = 0; s0 < m; s0 += 32) {
-      const int s = s0 + lane;
-      if (s0 > 0) code = s < m ? (int)cw[s] : 0;
-      const float v = s < m ? tb[s * 256 + code] : 0.0f;
-      acc = fold_window(acc, v, s0, m, lane);
-    }
-  }
+  const int code = window_code(cw, 0, m, lane);
+  const float acc = ok ? warp_adc(table + (size_t)(w / R) * m * 256, cw, m, lane, code) : CUDART_INF_F;
   if (lane == 0) out[w] = acc;
 }
 

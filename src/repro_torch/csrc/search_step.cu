@@ -9,9 +9,11 @@
 // rows are gathered straight from global memory, so one kernel serves both.
 //
 // Per query (one thread block, the paper's mapping):
-//   1. the (m, 256) PQ distance table and the t-worklist go to shared memory;
-//   2. ADC: each fresh candidate's m code bytes are gathered from global
-//      memory and summed from the table in MC-subspace chunks;
+//   1. the t-worklist goes to shared memory;
+//   2. ADC: one thread per fresh candidate gathers its code row and looks
+//      its m entries up in the (m, 256) PQ distance table in global memory
+//      (adc.cuh, lane_adc), all of a window's 32 loads in flight at once,
+//      summed in MC-subspace chunks;
 //   3. the next_pow2(R) candidates are sorted by (dist, id) with a bitonic
 //      network in shared memory, padded with (+inf, INVALID);
 //   4. eager selection (§4.6) reads the pre-merge worklist;
@@ -27,12 +29,16 @@
 // probability 1 - (31/32)^F, about 76% of the 32 KB table at F = 45 (m = 32),
 // so the table still dominates: about 25 MB per hop at B = 1024, about 8 us
 // at 3.35 TB/s, against about 1.5 MB of code rows. Operations are few (R*m
-// adds, O(P log^2 P) compare-exchanges). This kernel copies the whole table
-// to shared memory and keeps every intermediate (distances, the sorted
-// tile, the merge buffer) there, so per hop only the inputs are read and
-// the new worklist written. Re-reading the table every hop is the cost a
-// later persistent kernel (table kept in shared memory across hops) would
-// remove.
+// adds, O(P log^2 P) compare-exchanges). The lookups read only the sectors
+// the codes need, each fresh candidate's in two dependent round trips
+// (its code row, then its entries), and every intermediate (distances, the
+// sorted tile, the merge buffer) stays in shared memory, so per hop only
+// the inputs are read and the new worklist written. Copying each query's
+// whole table to shared memory instead, in every block or per block from its
+// count of fresh candidates, measured slower on the H100 at every count from
+// 0 to 64: the copy moves all 32 KB, and a launch that allows it reserves
+// 32 KB of shared memory for every block, six blocks an SM. Without it, all
+// 1,024 blocks of a batch are resident at once.
 //
 // K6 replaces search_step.fused_traverse_pallas (search_step.py:433,
 // _traverse_kernel): steps 3-6 above on precomputed (B, R) distances, for the
@@ -41,7 +47,8 @@
 // (B, R) and the worklist in and out, about 1.7 MB at B = 1024, R = t = 64
 // (0.5 us at 3.35 TB/s); its 28 barrier-separated network stages on one
 // block per query keep it far above that, as for K1.
-#include "common.cuh"
+#include "adc.cuh"
+#include "stage.cuh"
 
 namespace {
 
@@ -123,24 +130,22 @@ __global__ void search_step_kernel(
     int* __restrict__ ou, bool* __restrict__ oact,
     int n, int m, int R, int t, int Rp, int P, int eager) {
   extern __shared__ __align__(16) unsigned char smem[];
-  float* tbl = reinterpret_cast<float*>(smem);  // m * 256
-  float* cd = tbl + m * 256;                     // Rp
+  float* cd = reinterpret_cast<float*>(smem);    // Rp
   int* ci = reinterpret_cast<int*>(cd + Rp);     // Rp
   float* md = reinterpret_cast<float*>(ci + Rp); // P
   int* mi = reinterpret_cast<int*>(md + P);      // P
   int* mv = mi + P;                              // P
 
   const int b = blockIdx.x;
-  const float* tb = table + (size_t)b * m * 256;
-  for (int i = threadIdx.x; i < m * 256; i += blockDim.x) tbl[i] = tb[i];
   for (int i = threadIdx.x; i < t; i += blockDim.x) {
     md[i] = wld[(size_t)b * t + i];
     mi[i] = wli[(size_t)b * t + i];
     mv[i] = wlv[(size_t)b * t + i] ? 1 : 0;
   }
-  __syncthreads();
 
   // §4.5 ADC with the code gather inside the kernel.
+  const float* tb = table + (size_t)b * m * 256;
+  const bool wide = m % 16 == 0 && aligned16(codes);
   for (int r = threadIdx.x; r < Rp; r += blockDim.x) {
     float d = CUDART_INF_F;
     int id = REPRO_INVALID;
@@ -149,7 +154,7 @@ __global__ void search_step_kernel(
       // Clamped like the reference's XLA gather; ids out of [0, n) do not
       // occur on the search path.
       const int row = min(max(id, 0), n - 1);
-      d = adc_sum(tbl, codes + (size_t)row * m, m);
+      d = lane_adc(tb, codes + (size_t)row * m, m, wide);
     }
     cd[r] = d;
     ci[r] = id;
@@ -197,9 +202,9 @@ extern "C" int repro_search_step(
     void* owd, void* owi, void* owv, void* ou, void* oact,
     int B, int n, int m, int R, int t, int Rp, int P, int eager, int threads,
     void* stream) {
-  // The table, the sorted candidate tile (dist, id) and the merge buffer
-  // (dist, id, visited).
-  const size_t smem = (size_t)m * 256 * 4 + (size_t)Rp * 8 + (size_t)P * 12;
+  // The sorted candidate tile (dist, id) and the merge buffer (dist, id,
+  // visited).
+  const size_t smem = (size_t)Rp * 8 + (size_t)P * 12;
   cudaError_t err = allow_smem(search_step_kernel, smem);
   if (err != cudaSuccess) return (int)err;
   search_step_kernel<<<B, threads, smem, (cudaStream_t)stream>>>(

@@ -176,9 +176,11 @@ def local_adc(
     out = torch.empty((B, R), dtype=torch.float32, device=table.device)
     if B and R:
         fn = common.kernel_fn("repro_local_adc", [common.PTR] * 5 + [common.INT] * 5 + [common.PTR])
+        # One thread per lane: one warp a block at the medoid seed (R = 1).
+        threads = min(THREADS, -(-R // 32) * 32)
         with torch.cuda.device(table.device):
             rc = fn(table.data_ptr(), codes_local.data_ptr(), rel.data_ptr(), own.data_ptr(),
-                    out.data_ptr(), B, R, m, n_loc, THREADS, common.stream_of(table))
+                    out.data_ptr(), B, R, m, n_loc, threads, common.stream_of(table))
         common.check_launch(rc, f"local_adc (m={m})")
         local_adc.launches += 1
     return out

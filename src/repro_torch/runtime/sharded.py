@@ -94,12 +94,10 @@ class ShardedSearchExecutor(SearchExecutor):
                 )
             raise NotImplementedError(
                 "hostio= (the host-I/O service per shard) comes with the host-I/O slice "
-                "of the port (ROADMAP A5)"
+                "of the port"
             )
         if with_tombstones:
-            raise NotImplementedError(
-                "with_tombstones=True comes with the mutability slice of the port (ROADMAP A7)"
-            )
+            raise NotImplementedError("with_tombstones=True comes with the mutability slice of the port")
         if mesh.device.type != codes.device.type:
             raise ValueError(f"the mesh drives {mesh.device}, the index lies on {codes.device}")
         self.variant = variant
@@ -190,7 +188,7 @@ class ShardedSearchExecutor(SearchExecutor):
 
         Host link ("sharded-base"): the (B_loc,) int32 frontier down to this
         rank's host block and the (B_loc, R) int32 rows back. The hot-cache
-        fields are 0: the host-I/O service's cache is not ported (A5).
+        fields are 0: the host-I/O service's cache is not ported yet.
         """
         bucket = self._bucket_for(batch)
         b_loc = bucket // self.n_data_shards

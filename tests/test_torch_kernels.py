@@ -45,6 +45,11 @@ ADC_REGIME_M = [9, 32, 74]
 # Card-only shapes of K3's tiles: C not a multiple of the tile, d not a
 # multiple of 8 or 4, and B = 1.
 RERANK_TILE_SHAPES = [(b, c, d) for b in (1, 3) for c in (1, 19, 104, 200) for d in (37, 128, 129)]
+# Card-only widths of K1's and K7's global lookups (a window of 32
+# subspaces read in two 16-byte loads where m % 16 == 0, else byte by byte):
+# m a multiple of 16, of 4 only, and odd; R = 1 is K7's medoid seed.
+LOOKUP_M = [9, 32, 74]
+LOCAL_ADC_LOOKUP_R = [1, 64]
 
 
 @pytest.fixture
@@ -99,6 +104,20 @@ def _port_traverse(inputs, eager, device="cpu"):
     cd, ci, wd, wi, wv, active = [torch.from_numpy(np.ascontiguousarray(a)).to(device) for a in inputs]
     wl, u, a = step_ops.fused_traverse(Worklist(wd, wi, wv), cd, ci, active, eager=eager)
     return [x.cpu().numpy() for x in (wl.dists, wl.ids, wl.visited, u, a)]
+
+
+def _exactly(rng, counts, R):
+    """(len(counts), R) bool flags, row b with exactly counts[b] set lanes."""
+    flags = np.zeros((len(counts), R), dtype=bool)
+    for b, f in enumerate(counts):
+        flags[b, rng.permutation(R)[:f]] = True
+    return flags
+
+
+def _lane_counts(R):
+    """Scored lanes a query, one query each: none, one, a quarter, half, all
+    but one and all, clipped to [0, R]."""
+    return sorted({min(f, R) for f in (0, 1, R // 4, R // 2, max(R - 1, 0), R)})
 
 
 def _assert_same(outs, refs):
@@ -348,6 +367,65 @@ def test_rerank_l2_largest_d(cuda):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("m", LOOKUP_M)
+@pytest.mark.parametrize("eager", [True, False])
+@pytest.mark.parametrize("integer_table", [True, False])
+def test_search_step_fresh_counts_match_plain(cuda, m, eager, integer_table):
+    """K1 at the main path's R = t = 64, one launch whose queries hold none,
+    one, a quarter, half, all but one and all lanes fresh: the plain
+    version's bits; one launch a call."""
+    R, t, n = 64, 64, 5000
+    counts = _lane_counts(R)
+    rng = np.random.default_rng(m * 4 + 2 * eager + integer_table)
+    inputs = list(_step_inputs(rng, len(counts), R, t, m, n, integer_table))
+    inputs[3] = _exactly(rng, counts, R)
+    before = step_ops.fused_step.launches
+    outs = _port_step(inputs, eager, device=cuda)
+    assert step_ops.fused_step.launches == before + 1
+    _assert_same(outs, _port_step(inputs, eager))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", LOOKUP_M)
+@pytest.mark.parametrize("R", LOCAL_ADC_LOOKUP_R)
+@pytest.mark.parametrize("integer_table", [True, False])
+def test_local_adc_owned_counts_match_plain(cuda, m, R, integer_table):
+    """K7, one launch whose queries own none, one, a quarter, half, all but
+    one and all lanes (at R = 1, the medoid seed: none or the one lane):
+    the plain version's bits, exact zeros where not owned; one launch a
+    call."""
+    n_loc = 3000
+    counts = _lane_counts(R)
+    rng = np.random.default_rng(m * 10 + R + integer_table)
+    if integer_table:
+        table = rng.integers(0, 1000, (len(counts), m, 256)).astype(np.float32)
+    else:
+        table = (rng.standard_normal((len(counts), m, 256)) ** 2).astype(np.float32)
+    codes = rng.integers(0, 256, (n_loc, m)).astype(np.uint8)
+    rel = rng.integers(0, n_loc, (len(counts), R)).astype(np.int32)
+    own = _exactly(rng, counts, R)
+    cpu = [torch.from_numpy(x) for x in (table, codes, rel, own)]
+    before = step_ops.local_adc.launches
+    out = step_ops.local_adc(*(x.to(cuda) for x in cpu)).cpu()
+    assert step_ops.local_adc.launches == before + 1
+    np.testing.assert_array_equal(out.numpy(), step_ops.local_adc_ref(*cpu).numpy())
+    assert (out[~cpu[3]] == 0.0).all()
+
+
+@pytest.mark.cuda
+def test_search_step_and_local_adc_take_any_table_width(cuda):
+    """K1 and K7 look the table up in global memory and keep no copy of it in
+    shared memory, so they serve tables of any width (m = 256: 256 KB a
+    query, beyond one block's shared memory)."""
+    B, R, t, m, n = 2, 64, 4, 256, 50
+    inputs = list(_step_inputs(np.random.default_rng(5), B, R, t, m, n))
+    _assert_same(_port_step(inputs, True, device=cuda), _port_step(inputs, True))
+    table, codes, nbrs, fresh = (torch.from_numpy(x) for x in inputs[:4])
+    out = step_ops.local_adc(*(x.to(cuda) for x in (table, codes, nbrs, fresh)))
+    np.testing.assert_array_equal(out.cpu().numpy(), step_ops.local_adc_ref(table, codes, nbrs, fresh).numpy())
+
+
+@pytest.mark.cuda
 def test_kernels_take_unaligned_inputs(cuda):
     """Contiguous views that start off a 16-byte boundary take the kernels'
     narrower copies, with the same bits."""
@@ -370,6 +448,14 @@ def test_kernels_take_unaligned_inputs(cuda):
         np.testing.assert_array_equal(out.cpu().numpy(), adc_ops.adc_ref(table, codes, valid).numpy())
     out = rr_ops.exact_sq_dists(shifted(q), shifted(v))
     np.testing.assert_array_equal(out.cpu().numpy(), rr_ops.exact_sq_dists_ref(q, v).numpy())
+    # K1 and K7: code rows off a 16-byte boundary are read byte by byte.
+    inputs = list(_step_inputs(rng, B, R, 64, m, 500))
+    tb, rows, nbrs, fresh, wd, wi, wv, active = (torch.from_numpy(x) for x in inputs)
+    dev = [shifted(x) for x in (tb, rows, nbrs, fresh, wd, wi, wv, active)]
+    wl, u, a = step_ops.fused_step(dev[0], dev[1], Worklist(*dev[4:7]), dev[2], dev[3], dev[7])
+    _assert_same([x.cpu().numpy() for x in (wl.dists, wl.ids, wl.visited, u, a)], _port_step(inputs, True))
+    out = step_ops.local_adc(*dev[:4])
+    np.testing.assert_array_equal(out.cpu().numpy(), step_ops.local_adc_ref(tb, rows, nbrs, fresh).numpy())
 
 
 @pytest.mark.cuda
@@ -384,20 +470,16 @@ def test_wrappers_raise_on_bad_cuda_inputs(cuda):
 @pytest.mark.cuda
 def test_kernels_raise_beyond_shared_memory(cuda):
     # m = 256: a 256 KB table per block, beyond the H100's 227 KB. K2 copies
-    # the table to shared memory only from SHARED_TABLE_MIN_R candidates on.
-    B, t, m = 2, 4, 256
+    # the table to shared memory only from SHARED_TABLE_MIN_R candidates on;
+    # K1 keeps no copy of it and serves this width
+    # (test_search_step_and_local_adc_take_any_table_width).
+    B, m = 2, 256
     R = adc_ops.SHARED_TABLE_MIN_R
     table = torch.zeros((B, m, 256), device=cuda)
     codes = torch.zeros((B, R, m), dtype=torch.int32, device=cuda)
     valid = torch.ones((B, R), dtype=torch.bool, device=cuda)
     with pytest.raises(RuntimeError, match="pq_adc"):
         adc_ops.adc(table, codes, valid)
-    wl = Worklist(torch.zeros((B, t), device=cuda), torch.zeros((B, t), dtype=torch.int32, device=cuda),
-                  torch.zeros((B, t), dtype=torch.bool, device=cuda))
-    with pytest.raises(RuntimeError, match="search_step"):
-        step_ops.fused_step(table, torch.zeros((8, m), dtype=torch.uint8, device=cuda), wl,
-                            torch.zeros((B, R), dtype=torch.int32, device=cuda), valid,
-                            torch.ones((B,), dtype=torch.bool, device=cuda))
     # The refusals leave no error behind for the next launch to report.
     m = 32
     out = adc_ops.adc(torch.zeros((B, m, 256), device=cuda),
