@@ -16,10 +16,13 @@ Phases, each timed; any failure exits non-zero:
      warm table, and with one block per SM), K2 ADC (R=1, the seed, and R=64, the
      staged distances, and both of its regimes, global lookups and a shared
      table, over R: the crossover),
-     K3 re-rank distances, K4 bitonic sort, K5 bitonic merge, K6 fused
-     traverse, K7 owner-shard ADC (4 shards of n/4 rows, one shard of all
-     n, the medoid seed at R=1, and over the count of owned lanes a
-     query), K8 PQ distance table;
+     K3 re-rank distances, K4 bitonic sort (also over rows a block and
+     over n, across its two regimes), K5 bitonic merge, K6 fused traverse
+     (also over queries a block and over t, across its two regimes), K7
+     owner-shard ADC (4 shards of n/4 rows, one shard of all n, the medoid
+     seed at R=1, and over the count of owned lanes a query), K8 PQ
+     distance table; and the launch floor, the device time of a one-element
+     zero_(), beside every kernel's bound;
   4. the main paths on a synthetic corpus with the shape of SIFT1M (n =
      10**6, d = 128, the ANN_SIFT1M set of the BIGANN/texmex corpus;
      clusters of intrinsic dimension 16, queries held out from the same
@@ -72,6 +75,9 @@ PATH_BATCHES = {"inmem": 10, "base": 10, "exact": 10,   # batches each variant's
 S_K7 = 4                       # shards of the owner-shard ADC's kernel check
 ADC_SWEEP_R = (1, 2, 4, 8, 16, 24, 32, 40, 48, 64)   # K2's two regimes timed at these R: the crossover
 LANE_SWEEP = (0, 1, 4, 8, 16, 32, 48, 64)   # K1 and K7 timed at these scored lanes a query
+WARPS_SWEEP = (1, 2, 4, 8)     # K6's queries and K4's rows a block, timed at the main shape
+TRAVERSE_SWEEP_T = (16, 64, 152, 448, 500)   # K6 timed at these t (R = 64): P = 128 .. 1024
+SORT_SWEEP_N = (64, 512, 513, 1000)          # K4 timed at these n: both sides of its regimes
 INTRINSIC_DIM = 16             # per-cluster subspace of the synthetic corpus
 COPIES = 4                     # input copies cycled by timed calls, at least
 L2_BYTES = 50 * 2**20          # H100 L2; the copies together exceed twice this
@@ -155,6 +161,18 @@ def exchanges(n: int, full_sort: bool) -> int:
     return n // 2 * (lg * (lg + 1) // 2 if full_sort else lg)
 
 
+def sorted_by_key(d, i):
+    """Rows of (dist, id) in the worklist's order, ascending by (dist, id):
+    float32 draws scaled to 5000 tie often enough that sorting by the
+    distance alone would leave tied pairs out of order."""
+    import torch
+
+    from repro_torch.core.worklist import lex_order
+
+    o = lex_order(d, i)
+    return torch.gather(d, -1, o), torch.gather(i, -1, o)
+
+
 def exact(a, b) -> None:
     import torch
 
@@ -176,15 +194,22 @@ def check_kernels(dev) -> list[dict]:
     from repro_torch.kernels.search_step import ops as step_ops
 
     g = torch.Generator(device=dev).manual_seed(SEED)
+    # The sweeps' own draws, so that every other kernel sees the inputs of
+    # earlier versions of this script.
+    g_sweep = torch.Generator(device=dev).manual_seed(SEED + 1)
     B, C = BATCH, int(1.5 * T) + 8
     rows = []
+    # The launch floor: the device time of the smallest launch, a one-element
+    # zero_(), timed as every kernel is. A bound below it cannot be reached.
+    floor_ms = time_ms(lambda z: z.zero_(), [(torch.zeros(1, device=dev),)])
+    log(f"[kernels] launch floor (one-element zero_(), the same timing): {floor_ms:.4f} ms")
 
     # K1: one fused hop at the main path's state sizes.
     codes = torch.randint(0, 256, (N, M), generator=g, device=dev, dtype=torch.uint8)
     nbrs = torch.randint(0, N, (B, R), generator=g, device=dev, dtype=torch.int32)
     fresh = torch.rand((B, R), generator=g, device=dev) > 0.3
-    wd = torch.sort(torch.rand((B, T), generator=g, device=dev) * 5000, dim=-1).values
-    wi = torch.randperm(B * T, generator=g, device=dev).to(torch.int32).reshape(B, T) + N
+    wd, wi = sorted_by_key(torch.rand((B, T), generator=g, device=dev) * 5000,
+                           torch.randperm(B * T, generator=g, device=dev).to(torch.int32).reshape(B, T) + N)
     wv = torch.rand((B, T), generator=g, device=dev) > 0.5
     active = torch.rand((B,), generator=g, device=dev) > 0.2
     wl = Worklist(wd, wi, wv)
@@ -386,13 +411,37 @@ def check_kernels(dev) -> list[dict]:
         raise AssertionError("torch.sort yardstick disagrees with the bitonic sort")
     lib_ms = time_ms(lambda d, i: torch.sort(d, dim=-1, stable=True), sets)
     b_ms, b_by = bound_ms(2 * B * R * 8, B * 2 * exchanges(rp, True))
+    # Rows a block of the warp regime, and the block regime, at the main shape.
+    by_rows = []
+    for w in (0,) + WARPS_SWEEP:
+        for a, b in zip(bitonic_ops._sort(cand_d, cand_i, rows=w), ref):
+            exact(a, b)
+        by_rows.append(dict(rows=w, ms=time_ms(lambda d, i, w=w: bitonic_ops._sort(d, i, rows=w), sets)))
+    log(f"[kernels] bitonic_sort at n={R}, rows a block (0: the block regime, one row a block): "
+        + ", ".join(f"{e['rows']}: {e['ms']:.4f} ms" for e in by_rows)
+        + f"; the wrapper takes {bitonic_ops.sort_rows(rp)}")
+    # Over n, across the warp regime's limit (p = 512).
+    by_n = []
+    for n in SORT_SWEEP_N:
+        d = torch.rand((B, n), generator=g_sweep, device=dev) * 5000
+        i = torch.randperm(B * n, generator=g_sweep, device=dev).to(torch.int32).reshape(B, n)
+        for a, b in zip(bitonic_ops.sort_kv(d, i), bitonic_ops.sort_kv_ref(d, i)):
+            exact(a, b)
+        pn = common.next_pow2(n)
+        by_n.append(dict(n=n, rows=bitonic_ops.sort_rows(pn),
+                         ms=time_ms(bitonic_ops.sort_kv, copies(d, i)),
+                         bound_ms=bound_ms(2 * B * n * 8, B * 2 * exchanges(pn, True))[0]))
+        log(f"[kernels] bitonic_sort at n={n} (rows a block {by_n[-1]['rows']}): bit-equal to plain; "
+            f"{by_n[-1]['ms']:.4f} ms, bound {by_n[-1]['bound_ms']:.4f} ms")
     rows.append(dict(name="bitonic_sort", route="cuda", source="src/repro_torch/csrc/bitonic.cu",
                      replaces="src/repro/kernels/bitonic/bitonic.py:147",
                      max_abs_err=float((out[0] - ref[0]).nan_to_num().abs().max()), ms=ms,
                      plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms,
-                     library_call="torch.sort(stable=True) of the distances"))
+                     library_call="torch.sort(stable=True) of the distances",
+                     rows_a_block=bitonic_ops.sort_rows(rp), by_rows_a_block=by_rows, by_n=by_n))
     log(f"[kernels] bitonic_sort (B={B}, n={R}): bit-equal to plain; {ms:.4f} ms vs plain "
-        f"{plain_ms:.4f} ms, torch.sort {lib_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
+        f"{plain_ms:.4f} ms, torch.sort {lib_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}), launch floor "
+        f"{floor_ms:.4f} ms")
 
     # K5: the staged mode's merge of the sorted candidates into the worklist.
     sd, si = out
@@ -424,14 +473,51 @@ def check_kernels(dev) -> list[dict]:
     plain_ms = time_ms(lambda d, i, a, b, c: step_ops.traverse_ref(d, i, a, b, c, active), sets, reps=5)
     b_ms, b_by = bound_ms(B * R * 8 + B * T * 9 + B + B * T * 9 + B * 5,
                           B * 2 * (cmp_sort + cmp_merge))
+
+    def check_traverse(wlt, warps=None):
+        for eager in (True, False):
+            kern = (step_ops.fused_traverse(wlt, cand_d, cand_i, active, eager=eager) if warps is None
+                    else step_ops._traverse(wlt, cand_d, cand_i, active, eager=eager, warps=warps))
+            plain = step_ops.traverse_ref(cand_d, cand_i, *wlt, active, eager=eager)
+            for a, b in zip((kern[0].dists, kern[0].ids, kern[0].visited, kern[1], kern[2]), plain):
+                exact(a, b)
+
+    # Queries a block of the warp regime, and the block regime, at the main shape.
+    by_warps = []
+    for w in (0,) + WARPS_SWEEP:
+        check_traverse(wl, w)
+        by_warps.append(dict(warps=w, ms=time_ms(
+            lambda d, i, a, b, c, w=w: step_ops._traverse(Worklist(a, b, c), d, i, active, eager=True,
+                                                          warps=w), sets)))
+    log(f"[kernels] fused_traverse at t={T}, queries a block (0: the block regime, one query a block): "
+        + ", ".join(f"{e['warps']}: {e['ms']:.4f} ms" for e in by_warps)
+        + f"; the wrapper takes {step_ops.traverse_warps(p)}")
+    # Over t at R = 64 (P = 128 .. 1024), across the warp regime's limit.
+    by_t = []
+    for t in TRAVERSE_SWEEP_T:
+        wlt = Worklist(*sorted_by_key(
+            torch.rand((B, t), generator=g_sweep, device=dev) * 5000,
+            torch.randperm(B * t, generator=g_sweep, device=dev).to(torch.int32).reshape(B, t) + N),
+            torch.rand((B, t), generator=g_sweep, device=dev) > 0.5)
+        check_traverse(wlt)
+        pt = step_ops.merge_slots(R, t)
+        by_t.append(dict(t=t, P=pt, warps=step_ops.traverse_warps(pt), ms=time_ms(
+            lambda d, i, a, b, c: step_ops.fused_traverse(Worklist(a, b, c), d, i, active),
+            copies(cand_d, cand_i, *wlt)),
+            bound_ms=bound_ms(B * R * 8 + B * t * 18 + B * 6,
+                              B * 2 * (cmp_sort + exchanges(pt, False)))[0]))
+        log(f"[kernels] fused_traverse at t={t} (P={pt}, queries a block {by_t[-1]['warps']}): "
+            f"bit-equal to plain, eager and lazy; {by_t[-1]['ms']:.4f} ms, bound "
+            f"{by_t[-1]['bound_ms']:.4f} ms")
     rows.append(dict(name="fused_traverse", route="cuda", source="src/repro_torch/csrc/search_step.cu",
                      replaces="src/repro/kernels/search_step/search_step.py:458",
                      max_abs_err=float((kern[0].dists - plain[0]).nan_to_num().abs().max()), ms=ms,
                      plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=None,
-                     library_call=None))
+                     library_call=None,
+                     warps_a_block=step_ops.traverse_warps(p), by_warps_a_block=by_warps, by_t=by_t))
     log(f"[kernels] fused_traverse (B={B}, R={R}, t={T}, eager+lazy): bit-equal to plain; "
-        f"{ms:.4f} ms vs plain {plain_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}); no single "
-        f"PyTorch call does sort, select and merge")
+        f"{ms:.4f} ms vs plain {plain_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}), launch floor "
+        f"{floor_ms:.4f} ms; no single PyTorch call does sort, select and merge")
 
     # K7: the owner-shard ADC, on S_K7 contiguous shards of the n code rows
     # (each shard's contribution, exact zeros where it does not own the lane,
@@ -536,6 +622,10 @@ def check_kernels(dev) -> list[dict]:
                      library_call="torch.baddbmm over (m, B, dsub) x (m, dsub, 256), norms precomputed"))
     log(f"[kernels] dist_table (B={B}, m={M}, dsub={dsub}): bit-equal to plain; {ms:.4f} ms vs "
         f"plain {plain_ms:.4f} ms, baddbmm {lib_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
+    for row in rows:
+        row["launch_floor_ms"] = floor_ms
+    log("[kernels] ms / bound ms / launch floor ms: " + "; ".join(
+        f"{r['name']} {r['ms']:.4f} / {r['bound_ms']:.5f} / {floor_ms:.4f}" for r in rows))
     return rows
 
 

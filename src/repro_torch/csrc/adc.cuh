@@ -18,7 +18,6 @@
 
 #include "common.cuh"
 
-constexpr unsigned FULL_MASK = 0xffffffffu;
 static_assert(32 % REPRO_MC == 0, "a window of 32 subspaces must hold whole chunks");
 
 // Add one window of 32 subspaces, s0 .. s0+31, to acc in adc_sum's order:

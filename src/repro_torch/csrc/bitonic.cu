@@ -4,10 +4,18 @@
 // Replace the TPU kernels bitonic.sort_kv_pallas (_sort_kernel) and
 // bitonic.merge_pallas (_merge_kernel), src/repro/kernels/bitonic/bitonic.py.
 // The Pallas kernels ran the network as reshapes and selects over (8, n)
-// tiles in VMEM; here one thread block takes one row, keeps it in shared
-// memory and runs the same compare-exchange stages (bitonic_network in
-// common.cuh, shared with the fused hop), one thread per pair, a barrier
-// after each stage.
+// tiles in VMEM; here the same compare-exchange stages run in one of two
+// regimes, chosen by the wrapper from the padded row p:
+//   * the warp regime (K4, p <= 512): one warp per row holds the row in
+//     registers, lane_elems(p) elements a lane, and runs the network of
+//     warp_bitonic.cuh (register exchanges for j >= 32, shuffles below);
+//     several rows a block, loads and stores coalesced, no barrier and no
+//     shared memory;
+//   * the block regime (K4 beyond p = 512, and K5): one block per row keeps
+//     the row in shared memory and runs bitonic_network (common.cuh, shared
+//     with the fused hop's block regime), one thread per pair, a barrier
+//     after each stage.
+// Both run the same network, so both give the plain version's bits.
 //
 // Sort: the row is padded to p = next_pow2(n) with (+inf, INVALID) and the
 // whole network runs (log2(p) (log2(p) + 1) / 2 stages).
@@ -23,14 +31,44 @@
 // What bounds them on the H100: bytes, and far below what one launch
 // costs. At B = 1024, n = 64 the sort reads and writes 1 MB (about 0.3 us at
 // 3.35 TB/s); the merge reads 1.3 MB and writes 0.6 MB. Compare-exchanges
-// are cheap; the 21 (sort) and 7 (merge) barrier-separated stages with few
-// warps per block leave each SM waiting on shared memory and barriers, so
-// these simple kernels stand well above the bound. Warp-level networks with
-// several rows per block are a later change.
+// are cheap. The warp regime keeps the sort's 21 stages in registers; the
+// merge still runs its 7 stages through shared memory with a barrier after
+// each.
 #include "common.cuh"
+#include "warp_bitonic.cuh"
 
 namespace {
 
+// K4, the warp regime: one warp per row, p = next_pow2(n) <= 512 (E =
+// lane_elems(p)), several rows a block.
+template <int E>
+__global__ void warp_sort_kernel(const float* __restrict__ dists, const int* __restrict__ ids,
+                                 float* __restrict__ out_d, int* __restrict__ out_i, int B, int n,
+                                 int p) {
+  const int lane = threadIdx.x & 31;
+  const int b = blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5);
+  if (b >= B) return;
+  const size_t row = (size_t)b * n;
+  float d[E];
+  int id[E], no_payload[E];
+#pragma unroll
+  for (int r = 0; r < E; ++r) {
+    const int q = (r << 5) | lane;
+    d[r] = q < n ? dists[row + q] : CUDART_INF_F;
+    id[r] = q < n ? ids[row + q] : REPRO_INVALID;
+  }
+  warp_bitonic<E, false>(d, id, no_payload, p, true, lane);
+#pragma unroll
+  for (int r = 0; r < E; ++r) {
+    const int q = (r << 5) | lane;
+    if (q < n) {
+      out_d[row + q] = d[r];
+      out_i[row + q] = id[r];
+    }
+  }
+}
+
+// K4, the block regime: one block per row, the row in shared memory.
 __global__ void bitonic_sort_kernel(const float* __restrict__ dists, const int* __restrict__ ids,
                                     float* __restrict__ out_d, int* __restrict__ out_i,
                                     int n, int p) {
@@ -83,13 +121,31 @@ __global__ void bitonic_merge_kernel(const float* __restrict__ wld, const int* _
 
 }  // namespace
 
+// rows = 1..8: the warp regime (p <= 512), `rows` rows a block; rows = 0:
+// the block regime, one row a block of `threads`.
 extern "C" int repro_bitonic_sort(const void* dists, const void* ids, void* out_d, void* out_i,
-                                  int B, int n, int p, int threads, void* stream) {
-  const size_t smem = (size_t)p * 8;
-  cudaError_t err = allow_smem(bitonic_sort_kernel, smem);
-  if (err != cudaSuccess) return (int)err;
-  bitonic_sort_kernel<<<B, threads, smem, (cudaStream_t)stream>>>(
-      (const float*)dists, (const int*)ids, (float*)out_d, (int*)out_i, n, p);
+                                  int B, int n, int p, int threads, int rows, void* stream) {
+  const cudaStream_t st = (cudaStream_t)stream;
+  if (rows == 0) {
+    const size_t smem = (size_t)p * 8;
+    cudaError_t err = allow_smem(bitonic_sort_kernel, smem);
+    if (err != cudaSuccess) return (int)err;
+    bitonic_sort_kernel<<<B, threads, smem, st>>>(
+        (const float*)dists, (const int*)ids, (float*)out_d, (int*)out_i, n, p);
+    return (int)cudaGetLastError();
+  }
+  if (rows < 0 || rows > 8) return (int)cudaErrorInvalidValue;
+  const int blocks = (B + rows - 1) / rows;
+  switch (p > 512 ? 0 : lane_elems(p)) {
+#define REPRO_CASE(E)                                                                    \
+  case E:                                                                                \
+    warp_sort_kernel<E><<<blocks, 32 * rows, 0, st>>>((const float*)dists, (const int*)ids, \
+                                                       (float*)out_d, (int*)out_i, B, n, p); \
+    break;
+    REPRO_CASE(1) REPRO_CASE(2) REPRO_CASE(4) REPRO_CASE(8) REPRO_CASE(16)
+#undef REPRO_CASE
+    default: return (int)cudaErrorInvalidValue;
+  }
   return (int)cudaGetLastError();
 }
 

@@ -1,7 +1,9 @@
 // Device helpers shared by the search kernels: the chunked ADC sum and the
-// bitonic compare-exchange network. Both follow the arithmetic and the
-// comparison rule of the plain PyTorch versions exactly (the library is built
-// with --fmad=false), so the kernels are bit-equal to them.
+// bitonic compare-exchange network in shared memory (the block regime; the
+// warp regime runs the same network in registers, warp_bitonic.cuh). Both
+// follow the arithmetic and the comparison rule of the plain PyTorch
+// versions exactly (the library is built with --fmad=false), so the kernels
+// are bit-equal to them.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -9,6 +11,9 @@
 #include <stdint.h>
 
 #define REPRO_INVALID 0x7fffffff
+
+// Every lane of a warp, for the *_sync intrinsics.
+constexpr unsigned FULL_MASK = 0xffffffffu;
 
 // Subspaces summed per chunk: the ADC sum is the sum over chunks of the
 // sequential sum of MC table entries (src/repro/kernels/pq_adc/pq_adc.py:31,

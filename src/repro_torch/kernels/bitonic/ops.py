@@ -1,6 +1,11 @@
 """Bitonic sort (K4) and worklist merge (K5): the CUDA kernels on the card,
 their plain versions on the CPU. The staged kernel mode runs them between
-the ADC kernel and the search loop, each its own launch."""
+the ADC kernel and the search loop, each its own launch.
+
+K4 has two regimes, chosen here from the padded row p = next_pow2(n): up to
+`WARP_MAX_P` one warp per row sorts it in registers, `SORT_ROWS` rows a
+block; beyond it one block per row sorts it in shared memory. K5 runs one
+block per row in shared memory."""
 from __future__ import annotations
 
 import torch
@@ -11,15 +16,37 @@ from repro_torch.kernels import common
 from .ref import merge_ref, sort_kv_ref
 
 MAX_THREADS = 128
+# The warp regime's longest row: 16 elements a lane.
+WARP_MAX_P = 512
+# Rows a block of K4's warp regime, one warp each (the kernel takes 1 to 8):
+# the fastest of 1, 2, 4 and 8 at the main shape (chip_smoke.py's sweep;
+# PERF.md section 6).
+SORT_ROWS = 4
 
 
 def _threads(p: int) -> int:
-    """One thread per compare-exchange pair, at least a warp."""
+    """The block regime: one thread per compare-exchange pair, at least a
+    warp."""
     return max(32, min(MAX_THREADS, p // 2))
+
+
+def sort_rows(p: int) -> int:
+    """Rows a block of K4 for rows padded to p: `SORT_ROWS` (the warp regime,
+    one warp a row) up to `WARP_MAX_P`, else 0 (the block regime, one row a
+    block of `_threads(p)`)."""
+    return SORT_ROWS if p <= WARP_MAX_P else 0
 
 
 def sort_kv(dists: torch.Tensor, ids: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """Sort (B, n) candidate lists ascending by (dist, id); f32 and int32."""
+    return _sort(dists, ids, rows=sort_rows(common.next_pow2(dists.shape[-1])))
+
+
+def _sort(dists: torch.Tensor, ids: torch.Tensor, *, rows: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """`sort_kv` with the kernel's block shape given (the tests and
+    chip_smoke.py check and time each): `rows` rows a block in the warp
+    regime (p <= WARP_MAX_P), or 0 for the block regime. CPU tensors take
+    the plain version."""
     if not common.on_cuda(dists, ids):
         return sort_kv_ref(dists, ids)
     B, n = dists.shape
@@ -29,11 +56,12 @@ def sort_kv(dists: torch.Tensor, ids: torch.Tensor) -> tuple[torch.Tensor, torch
     out_i = torch.empty_like(ids)
     if B and n:
         p = common.next_pow2(n)
-        fn = common.kernel_fn("repro_bitonic_sort", [common.PTR] * 4 + [common.INT] * 4 + [common.PTR])
+        threads = 32 * rows if rows else _threads(p)
+        fn = common.kernel_fn("repro_bitonic_sort", [common.PTR] * 4 + [common.INT] * 5 + [common.PTR])
         with torch.cuda.device(dists.device):
             rc = fn(dists.data_ptr(), ids.data_ptr(), out_d.data_ptr(), out_i.data_ptr(),
-                    B, n, p, _threads(p), common.stream_of(dists))
-        common.check_launch(rc, f"bitonic sort (n={n})")
+                    B, n, p, threads, rows, common.stream_of(dists))
+        common.check_launch(rc, f"bitonic sort (n={n}, rows={rows})")
         sort_kv.launches += 1
     return out_d, out_i
 

@@ -2,6 +2,12 @@
 (K6) and the owner-shard gather + ADC of the sharded search (K7): the CUDA
 kernels on the card, their plain versions on the CPU.
 
+K1 and K6 share the hop's tail (sort, select, merge), which has two
+regimes, chosen here from the merge row's P = next_pow2(t + next_pow2(R))
+slots: up to `WARP_MAX_P` one warp per query runs it in registers (K6 with
+`TRAVERSE_WARPS` queries a block; K1 on warp 0 of its block, after its
+ADC), beyond it one block of `THREADS` per query runs it in shared memory.
+
 `fused_step` takes the place of both reference entry points,
 `fused_step_pallas` and the beyond-VMEM `fused_step_dma_pallas`: the TPU had
 to stream a codes block larger than VMEM through it in tiles, while the GPU
@@ -20,6 +26,25 @@ from repro_torch.kernels import common
 from .ref import local_adc_ref, step_ref, traverse_ref
 
 THREADS = 128
+# The warp regime's largest merge row: 16 slots a lane (t <= 448 at R = 64).
+WARP_MAX_P = 512
+# Queries a block of K6's warp regime, one warp each (the kernel takes 1 to
+# 8): the fastest of 1, 2, 4 and 8 at the main shape (chip_smoke.py's sweep;
+# PERF.md section 6).
+TRAVERSE_WARPS = 8
+
+
+def merge_slots(R: int, t: int) -> int:
+    """P: the slots of the hop's merge row, the worklist and the padded,
+    reversed candidate tile."""
+    return common.next_pow2(t + common.next_pow2(R))
+
+
+def traverse_warps(P: int) -> int:
+    """Queries a block of K6 for a merge row of P slots: `TRAVERSE_WARPS` (the
+    warp regime) up to `WARP_MAX_P`, else 0 (the block regime, one query a
+    block of `THREADS`)."""
+    return TRAVERSE_WARPS if P <= WARP_MAX_P else 0
 
 
 def _launch(table, codes, nbrs, fresh, wl: Worklist, active, eager: bool):
@@ -41,7 +66,7 @@ def _launch(table, codes, nbrs, fresh, wl: Worklist, active, eager: bool):
     if R < 1 or t < 1 or n < 1:
         raise ValueError(f"need R, t, n >= 1, got R={R}, t={t}, n={n}")
     Rp = common.next_pow2(R)
-    P = common.next_pow2(t + Rp)
+    P = merge_slots(R, t)
     dev = table.device
     owd = torch.empty((B, t), dtype=torch.float32, device=dev)
     owi = torch.empty((B, t), dtype=torch.int32, device=dev)
@@ -49,13 +74,14 @@ def _launch(table, codes, nbrs, fresh, wl: Worklist, active, eager: bool):
     ou = torch.empty((B,), dtype=torch.int32, device=dev)
     oact = torch.empty((B,), dtype=torch.bool, device=dev)
     if B:
-        fn = common.kernel_fn("repro_search_step", [common.PTR] * 13 + [common.INT] * 9 + [common.PTR])
+        fn = common.kernel_fn("repro_search_step", [common.PTR] * 13 + [common.INT] * 10 + [common.PTR])
         with torch.cuda.device(dev):
             rc = fn(
                 table.data_ptr(), codes.data_ptr(), nbrs.data_ptr(), fresh.data_ptr(),
                 wl.dists.data_ptr(), wl.ids.data_ptr(), wl.visited.data_ptr(), active.data_ptr(),
                 owd.data_ptr(), owi.data_ptr(), owv.data_ptr(), ou.data_ptr(), oact.data_ptr(),
-                B, n, m, R, t, Rp, P, int(eager), THREADS, common.stream_of(table),
+                B, n, m, R, t, Rp, P, int(eager), THREADS, int(P <= WARP_MAX_P),
+                common.stream_of(table),
             )
         common.check_launch(rc, f"search_step (m={m}, R={R}, t={t})")
         fused_step.launches += 1
@@ -104,6 +130,15 @@ def fused_traverse(
     cand_dists (B, R) f32, +inf on masked lanes; cand_ids (B, R) int32,
     INVALID on masked lanes; wl (B, t); active (B,) bool.
     """
+    P = merge_slots(cand_dists.shape[1], wl.dists.shape[1])
+    return _traverse(wl, cand_dists, cand_ids, active, eager=eager, warps=traverse_warps(P))
+
+
+def _traverse(wl: Worklist, cand_dists, cand_ids, active, *, eager: bool, warps: int):
+    """`fused_traverse` with the kernel's block shape given (the tests and
+    chip_smoke.py check and time each): `warps` queries a block in the warp
+    regime (P <= WARP_MAX_P), or 0 for the block regime. CPU tensors take
+    the plain version."""
     tensors = (cand_dists, cand_ids, wl.dists, wl.ids, wl.visited, active)
     if not common.on_cuda(*tensors):
         d, i, v, u, a = traverse_ref(cand_dists, cand_ids, wl.dists, wl.ids, wl.visited, active,
@@ -123,21 +158,21 @@ def fused_traverse(
     if R < 1 or t < 1:
         raise ValueError(f"need R, t >= 1, got R={R}, t={t}")
     Rp = common.next_pow2(R)
-    P = common.next_pow2(t + Rp)
+    P = merge_slots(R, t)
     dev = wl.dists.device
     owd, owi, owv = torch.empty_like(wl.dists), torch.empty_like(wl.ids), torch.empty_like(wl.visited)
     ou = torch.empty((B,), dtype=torch.int32, device=dev)
     oact = torch.empty((B,), dtype=torch.bool, device=dev)
     if B:
-        fn = common.kernel_fn("repro_fused_traverse", [common.PTR] * 11 + [common.INT] * 7 + [common.PTR])
+        fn = common.kernel_fn("repro_fused_traverse", [common.PTR] * 11 + [common.INT] * 8 + [common.PTR])
         with torch.cuda.device(dev):
             rc = fn(
                 cand_dists.data_ptr(), cand_ids.data_ptr(), wl.dists.data_ptr(), wl.ids.data_ptr(),
                 wl.visited.data_ptr(), active.data_ptr(),
                 owd.data_ptr(), owi.data_ptr(), owv.data_ptr(), ou.data_ptr(), oact.data_ptr(),
-                B, R, t, Rp, P, int(eager), THREADS, common.stream_of(cand_dists),
+                B, R, t, Rp, P, int(eager), THREADS, warps, common.stream_of(cand_dists),
             )
-        common.check_launch(rc, f"fused_traverse (R={R}, t={t})")
+        common.check_launch(rc, f"fused_traverse (R={R}, t={t}, warps={warps})")
         fused_traverse.launches += 1
     return Worklist(owd, owi, owv), ou, oact
 

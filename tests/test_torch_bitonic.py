@@ -17,9 +17,13 @@ import torch
 
 from repro_torch.core.worklist import INVALID_ID, Worklist
 from repro_torch.kernels.bitonic import ops
+from repro_torch.kernels.common import next_pow2
 
 SORT_SHAPES = [(1, 2), (5, 16), (9, 23), (3, 64), (2, 100)]     # tests/test_kernels.py:52
 MERGE_SHAPES = [(1, 4, 4), (6, 16, 12), (3, 64, 64), (2, 33, 7)]  # tests/test_kernels.py:66
+# Row lengths of K4 around a warp (32), the main path's R (64) and the warp
+# regime's limit (ops.WARP_MAX_P = 512).
+SORT_N = [1, 2, 3, 31, 32, 33, 64, 100, 512, 513, 1000]
 
 
 @pytest.fixture
@@ -119,6 +123,25 @@ def test_wrappers_check_inputs_on_the_cpu_and_count_no_launch():
         ops.sort_kv(torch.from_numpy(d), torch.from_numpy(i).to("meta"))
 
 
+@pytest.mark.parametrize("n", SORT_N)
+def test_sort_regime_choice(n):
+    """K4: the warp regime, SORT_ROWS rows a block, up to WARP_MAX_P; the
+    block regime beyond. On the CPU the wrapper runs its plain version at
+    every block shape and counts no launch. Integer-valued inputs only (no
+    random floats)."""
+    p = next_pow2(n)
+    rows = ops.sort_rows(p)
+    assert rows == (ops.SORT_ROWS if p <= ops.WARP_MAX_P else 0)
+    assert 1 <= ops.SORT_ROWS <= 8 and ops.WARP_MAX_P == 512
+    d = ((torch.arange(3 * n) * 7) % 5).float().reshape(3, n)
+    i = torch.arange(3 * n, dtype=torch.int32).flip(0).reshape(3, n)
+    want = ops.sort_kv_ref(d, i)
+    before = ops.sort_kv.launches
+    for got in (ops.sort_kv(d, i), ops._sort(d, i, rows=0), ops._sort(d, i, rows=rows)):
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    assert ops.sort_kv.launches == before
+
+
 # ------------------------------------------------------ CUDA kernels (card)
 @pytest.mark.cuda
 @pytest.mark.parametrize("B,n", SORT_SHAPES + [(1024, 64)])
@@ -141,3 +164,47 @@ def test_merge_kernel_matches_plain(cuda, B, t, R, pads):
     assert ops.merge_worklist.launches == before + 1
     for o, r in zip(outs, _port_merge(inputs)):
         np.testing.assert_array_equal(o, r)
+
+
+def _tied_sort_inputs(rng, B, n):
+    """Distances from a few values, so most keys tie on the distance, beside
+    ids distinct within a row."""
+    d = rng.integers(0, 4, (B, n)).astype(np.float32)
+    i = np.stack([rng.permutation(10 * n)[:n] for _ in range(B)]).astype(np.int32)
+    return d, i
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", SORT_N)
+@pytest.mark.parametrize("B", [5, 1023])
+def test_sort_regimes_match_plain_on_tied_distances(cuda, n, B):
+    """K4 on both sides of the warp regime's limit, B not a multiple of the
+    rows a block: the plain version's bits, one launch a call."""
+    d, i = (torch.from_numpy(a) for a in _tied_sort_inputs(np.random.default_rng(n + B), B, n))
+    before = ops.sort_kv.launches
+    out = ops.sort_kv(d.to(cuda), i.to(cuda))
+    assert ops.sort_kv.launches == before + 1
+    for o, r in zip(out, ops.sort_kv_ref(d, i)):
+        assert torch.equal(o.cpu(), r)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows", [0, 1, 2, 4, 8])
+@pytest.mark.parametrize("n", [33, 64, 512])
+def test_sort_block_shapes_match_plain(cuda, rows, n):
+    """Every rows-a-block count that chip_smoke.py times, and the block
+    regime (rows = 0) below the limit too, give the same bits."""
+    d, i = (torch.from_numpy(a) for a in _tied_sort_inputs(np.random.default_rng(rows + n), 1023, n))
+    out = ops._sort(d.to(cuda), i.to(cuda), rows=rows)
+    for o, r in zip(out, ops.sort_kv_ref(d, i)):
+        assert torch.equal(o.cpu(), r)
+
+
+@pytest.mark.cuda
+def test_sort_warp_regime_refuses_what_it_cannot_hold(cuda):
+    """Beyond WARP_MAX_P, or beyond 8 rows a block, the warp regime refuses
+    the launch."""
+    for n, rows in ((513, 4), (64, 9)):
+        d = torch.zeros((2, n), device=cuda)
+        with pytest.raises(RuntimeError, match="bitonic sort"):
+            ops._sort(d, torch.zeros((2, n), dtype=torch.int32, device=cuda), rows=rows)

@@ -84,6 +84,17 @@ def test_chip_smoke_phases_on_cpu(smoke):
     assert below["R"] < adc_ops.SHARED_TABLE_MIN_R <= above["R"]
     assert not below["shared_table"] and above["shared_table"]
     assert below["ms"] == below["global_ms"] and above["ms"] == above["shared_ms"]
+    # K4's and K6's block shapes and their sweeps across the two regimes,
+    # and the launch floor beside every bound.
+    sort, trav = rows[3], rows[5]
+    assert [e["rows"] for e in sort["by_rows_a_block"]] == [0, *smoke.WARPS_SWEEP]
+    assert [(e["n"], e["rows"] > 0) for e in sort["by_n"]] == [(64, True), (512, True), (513, False),
+                                                                (1000, False)]
+    assert [e["warps"] for e in trav["by_warps_a_block"]] == [0, *smoke.WARPS_SWEEP]
+    assert [(e["t"], e["P"], e["warps"] > 0) for e in trav["by_t"]] == [
+        (16, 128, True), (64, 128, True), (152, 256, True), (448, 512, True), (500, 1024, False)]
+    assert all(e["ms"] > 0 and e["bound_ms"] > 0 for e in sort["by_n"] + trav["by_t"])
+    assert all(r["launch_floor_ms"] > 0 for r in rows)
     assert rows[6]["shards"]["S"] == 4 and 0 < rows[6]["shards"]["bound_ms"] < rows[6]["bound_ms"]
     assert rows[7]["library_ms"] > 0 and rows[6]["library_ms"] is None
     res = smoke.main_path(cpu, "cpu")

@@ -50,6 +50,13 @@ RERANK_TILE_SHAPES = [(b, c, d) for b in (1, 3) for c in (1, 19, 104, 200) for d
 # m a multiple of 16, of 4 only, and odd; R = 1 is K7's medoid seed.
 LOOKUP_M = [9, 32, 74]
 LOCAL_ADC_LOOKUP_R = [1, 64]
+# (R, t) of the hop's tail (K1 and K6), with its merge row's P: both sides of
+# the warp regime's limit (step_ops.WARP_MAX_P = 512), a partial warp at
+# P < 32, and the paper's sweep to t = 152 at the main path's R = 64.
+TAIL_RT_P = [(1, 1, 2), (4, 8, 16), (31, 16, 64), (64, 64, 128), (64, 152, 256), (64, 448, 512),
+             (64, 500, 1024)]
+# Batches that are and are not a multiple of K6's queries a block.
+TAIL_B = [1, 5, 1023, 1024]
 
 
 @pytest.fixture
@@ -104,6 +111,46 @@ def _port_traverse(inputs, eager, device="cpu"):
     cd, ci, wd, wi, wv, active = [torch.from_numpy(np.ascontiguousarray(a)).to(device) for a in inputs]
     wl, u, a = step_ops.fused_traverse(Worklist(wd, wi, wv), cd, ci, active, eager=eager)
     return [x.cpu().numpy() for x in (wl.dists, wl.ids, wl.visited, u, a)]
+
+
+def _tail_inputs(rng, B, R, t, m=16, n=3000):
+    """Hop state for K1 (table, codes, nbrs, fresh, wd, wi, wv, active) whose
+    rows cycle through the cases the tail must keep to the plain version's
+    bits. Row b % 5 == 0: random; 1: distances tied among the candidates and
+    with the worklist, ids distinct (a 0/1 table); 2: a worklist all
+    visited; 3: no fresh lane; 4: a worklist ending in (+inf, INVALID,
+    visited) pads. Ids are distinct within a row; about a fifth of the
+    queries are inactive."""
+    kind = np.arange(B) % 5
+    table = rng.integers(0, 1000, (B, m, 256)).astype(np.float32)
+    table[kind == 1] = rng.integers(0, 2, (int((kind == 1).sum()), m, 256))
+    codes = rng.integers(0, 256, (n, m)).astype(np.uint8)
+    nbrs = np.stack([rng.choice(n, R, replace=False) for _ in range(B)]).astype(np.int32)
+    fresh = rng.random((B, R)) > 0.3
+    fresh[kind == 3] = False
+    wd = rng.integers(0, 5000, (B, t)).astype(np.float32)
+    wd[kind == 1] = rng.integers(0, m + 1, (int((kind == 1).sum()), t))
+    wi = (n + rng.permutation(t * B)).reshape(B, t).astype(np.int32)
+    wv = rng.random((B, t)) > 0.5
+    wv[kind == 2] = True
+    for b in np.flatnonzero(kind == 4):
+        w = int(rng.integers(0, t + 1))
+        wd[b, w:], wi[b, w:], wv[b, w:] = np.inf, INVALID_ID, True
+    order = np.lexsort((wi, wd), axis=-1)
+    wd, wi, wv = (np.take_along_axis(x, order, -1) for x in (wd, wi, wv))
+    active = rng.random((B,)) > 0.2
+    return table, codes, nbrs, fresh, wd, wi, wv, active
+
+
+def _tail_traverse_inputs(rng, B, R, t):
+    """K6's inputs from the same rows: the candidates' distances drawn
+    (small integers on the tied rows), +inf and INVALID where not fresh."""
+    _, _, nbrs, fresh, wd, wi, wv, active = _tail_inputs(rng, B, R, t)
+    cd = rng.integers(0, 5000, (B, R)).astype(np.float32)
+    cd[np.arange(B) % 5 == 1] = rng.integers(0, 17, (int((np.arange(B) % 5 == 1).sum()), R))
+    cd = np.where(fresh, cd, np.float32(np.inf)).astype(np.float32)
+    ci = np.where(fresh, nbrs, np.int32(INVALID_ID)).astype(np.int32)
+    return cd, ci, wd, wi, wv, active
 
 
 def _exactly(rng, counts, R):
@@ -166,6 +213,41 @@ def test_fused_traverse_ref_matches_pallas_and_reference_oracle(B, R, t, eager):
     outs = _port_traverse(inputs, eager)
     _assert_same(outs, fused_traverse_pallas(*j, eager=eager, interpret=True))
     _assert_same(outs, jax.jit(jref.traverse_ref, static_argnames="eager")(*j, eager=eager))
+
+
+@pytest.mark.parametrize("R,t,P", TAIL_RT_P)
+def test_tail_regime_choice(R, t, P):
+    """K1's and K6's tail: the warp regime, TRAVERSE_WARPS queries a block,
+    up to WARP_MAX_P merge slots; the block regime beyond. On the CPU both
+    wrappers run their plain versions and count no launch. Integer-valued
+    inputs only (no random floats)."""
+    assert step_ops.merge_slots(R, t) == P
+    warps = step_ops.traverse_warps(P)
+    assert warps == (step_ops.TRAVERSE_WARPS if P <= step_ops.WARP_MAX_P else 0)
+    assert 1 <= step_ops.TRAVERSE_WARPS <= 8 and step_ops.WARP_MAX_P == 512
+    B, m, n = 3, 4, 50
+    table = (torch.arange(B * m * 256) % 97).float().reshape(B, m, 256)
+    codes = (torch.arange(n * m) % 256).to(torch.uint8).reshape(n, m)
+    nbrs = (torch.arange(B * R, dtype=torch.int32) % n).reshape(B, R)
+    fresh = (torch.arange(B * R) % 3 != 0).reshape(B, R)
+    wl = Worklist((torch.arange(B * t) % t).float().reshape(B, t) * 10,
+                  (n + torch.arange(B * t, dtype=torch.int32)).reshape(B, t),
+                  (torch.arange(B * t) % 2 == 0).reshape(B, t))
+    active = torch.tensor([True, False, True])
+    cd = torch.where(fresh, (torch.arange(B * R) % 7).float().reshape(B, R), float("inf"))
+    ci = torch.where(fresh, nbrs, INVALID_ID)
+    before = (step_ops.fused_step.launches, step_ops.fused_traverse.launches)
+    for eager in (True, False):
+        got = step_ops.fused_traverse(wl, cd, ci, active, eager=eager)
+        want = step_ops.traverse_ref(cd, ci, wl.dists, wl.ids, wl.visited, active, eager=eager)
+        for a, b in zip((*got[0], got[1], got[2]), want):
+            assert torch.equal(a, b)
+        for w in (0, 1, warps):
+            got = step_ops._traverse(wl, cd, ci, active, eager=eager, warps=w)
+            for a, b in zip((*got[0], got[1], got[2]), want):
+                assert torch.equal(a, b)
+        step_ops.fused_step(table, codes, wl, nbrs, fresh, active, eager=eager)
+    assert (step_ops.fused_step.launches, step_ops.fused_traverse.launches) == before
 
 
 # --------------------------------------------------------------- K2 (CPU)
@@ -261,6 +343,60 @@ def test_fused_traverse_kernel_matches_plain(cuda, B, R, t, eager):
     outs = _port_traverse(inputs, eager, device=cuda)
     assert step_ops.fused_traverse.launches == before + 1
     _assert_same(outs, _port_traverse(inputs, eager))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("R,t,P", TAIL_RT_P)
+@pytest.mark.parametrize("B", TAIL_B)
+@pytest.mark.parametrize("eager", [True, False])
+def test_fused_traverse_regimes_match_plain(cuda, R, t, P, B, eager):
+    """K6 on both sides of the warp regime's limit, with tied distances, all
+    visited worklists, rows with no fresh lane, pads and inactive queries:
+    the plain version's bits, one launch a call."""
+    inputs = _tail_traverse_inputs(np.random.default_rng(R * 1000 + t + B), B, R, t)
+    before = step_ops.fused_traverse.launches
+    outs = _port_traverse(inputs, eager, device=cuda)
+    assert step_ops.fused_traverse.launches == before + 1
+    _assert_same(outs, _port_traverse(inputs, eager))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("R,t,P", TAIL_RT_P)
+@pytest.mark.parametrize("B", TAIL_B)
+@pytest.mark.parametrize("eager", [True, False])
+def test_search_step_regimes_match_plain(cuda, R, t, P, B, eager):
+    """K1 with the same rows (ties from a 0/1 table): its tail on both sides
+    of the warp regime's limit, the plain version's bits."""
+    inputs = _tail_inputs(np.random.default_rng(R * 1000 + t + B + 7), B, R, t)
+    before = step_ops.fused_step.launches
+    outs = _port_step(inputs, eager, device=cuda)
+    assert step_ops.fused_step.launches == before + 1
+    _assert_same(outs, _port_step(inputs, eager))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("warps", [0, 1, 2, 4, 8])
+@pytest.mark.parametrize("R,t", [(64, 64), (31, 16), (64, 448)])
+def test_fused_traverse_block_shapes_match_plain(cuda, warps, R, t):
+    """Every queries-a-block count that chip_smoke.py times, and the block
+    regime (warps = 0) below the limit too, give the same bits."""
+    inputs = _tail_traverse_inputs(np.random.default_rng(warps + R + t), 1023, R, t)
+    dev = [torch.from_numpy(a).to(cuda) for a in inputs]
+    for eager in (True, False):
+        wl, u, a = step_ops._traverse(Worklist(*dev[2:5]), dev[0], dev[1], dev[5], eager=eager, warps=warps)
+        _assert_same([x.cpu().numpy() for x in (wl.dists, wl.ids, wl.visited, u, a)],
+                     _port_traverse(inputs, eager))
+
+
+@pytest.mark.cuda
+def test_fused_traverse_warp_regime_refuses_what_it_cannot_hold(cuda):
+    """Beyond WARP_MAX_P slots, or beyond 8 queries a block, the warp regime
+    refuses the launch."""
+    for t, warps in ((500, 4), (64, 9)):
+        inputs = _tail_traverse_inputs(np.random.default_rng(0), 4, 64, t)
+        dev = [torch.from_numpy(a).to(cuda) for a in inputs]
+        with pytest.raises(RuntimeError, match="fused_traverse"):
+            step_ops._traverse(Worklist(*dev[2:5]), dev[0], dev[1], dev[5], eager=True, warps=warps)
 
 
 @pytest.mark.cuda
