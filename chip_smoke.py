@@ -17,11 +17,13 @@ Phases, each timed; any failure exits non-zero:
      staged distances, and both of its regimes, global lookups and a shared
      table, over R: the crossover),
      K3 re-rank distances, K4 bitonic sort (also over rows a block and
-     over n, across its two regimes), K5 bitonic merge, K6 fused traverse
-     (also over queries a block and over t, across its two regimes), K7
+     over n, across its two regimes), K5 bitonic merge (also over rows a
+     block and over t, across its two regimes), K6 fused traverse (also
+     over queries a block and over t, across its two regimes), K7
      owner-shard ADC (4 shards of n/4 rows, one shard of all n, the medoid
      seed at R=1, and over the count of owned lanes a query), K8 PQ
-     distance table; and the launch floor, the device time of a one-element
+     distance table (also over queries a tile and its two grids, and its
+     general regime); and the launch floor, the device time of a one-element
      zero_(), beside every kernel's bound;
   4. the main paths on a synthetic corpus with the shape of SIFT1M (n =
      10**6, d = 128, the ANN_SIFT1M set of the BIGANN/texmex corpus;
@@ -76,7 +78,8 @@ S_K7 = 4                       # shards of the owner-shard ADC's kernel check
 ADC_SWEEP_R = (1, 2, 4, 8, 16, 24, 32, 40, 48, 64)   # K2's two regimes timed at these R: the crossover
 LANE_SWEEP = (0, 1, 4, 8, 16, 32, 48, 64)   # K1 and K7 timed at these scored lanes a query
 WARPS_SWEEP = (1, 2, 4, 8)     # K6's queries and K4's rows a block, timed at the main shape
-TRAVERSE_SWEEP_T = (16, 64, 152, 448, 500)   # K6 timed at these t (R = 64): P = 128 .. 1024
+TRAVERSE_SWEEP_T = (16, 64, 152, 448, 500)   # K6 and K5 timed at these t (R = 64): P = 128 .. 1024
+TABLE_SWEEP_QUERIES = (8, 16, 32, 64, 128)   # K8 timed at these queries a tile, each grid
 SORT_SWEEP_N = (64, 512, 513, 1000)          # K4 timed at these n: both sides of its regimes
 INTRINSIC_DIM = 16             # per-cluster subspace of the synthetic corpus
 COPIES = 4                     # input copies cycled by timed calls, at least
@@ -197,6 +200,7 @@ def check_kernels(dev) -> list[dict]:
     # The sweeps' own draws, so that every other kernel sees the inputs of
     # earlier versions of this script.
     g_sweep = torch.Generator(device=dev).manual_seed(SEED + 1)
+    g_merge = torch.Generator(device=dev).manual_seed(SEED + 2)   # K5's sweep over t
     B, C = BATCH, int(1.5 * T) + 8
     rows = []
     # The launch floor: the device time of the smallest launch, a one-element
@@ -453,14 +457,48 @@ def check_kernels(dev) -> list[dict]:
     ms = time_ms(lambda a, b, c, d, i: bitonic_ops.merge_worklist(Worklist(a, b, c), d, i), sets)
     plain_ms = time_ms(bitonic_ops.merge_ref, sets, reps=5)
     b_ms, b_by = bound_ms(B * T * 9 + B * R * 8 + B * T * 9, B * 2 * exchanges(p, False))
+    # Rows a block of the warp regime, and the block regime, at the main shape.
+    # Warm: the same inputs every call, as on the staged path, where K4 has
+    # just written the candidates and the previous merge the worklist.
+    by_rows = []
+    for w in (0,) + WARPS_SWEEP:
+        for a, b in zip(bitonic_ops._merge(wl, sd, si, rows=w), ref):
+            exact(a, b)
+
+        def merge_w(a, b, c, d, i, w=w):
+            return bitonic_ops._merge(Worklist(a, b, c), d, i, rows=w)
+
+        by_rows.append(dict(rows=w, ms=time_ms(merge_w, sets), warm_ms=time_ms(merge_w, sets[:1])))
+    log(f"[kernels] bitonic_merge at t={T}, rows a block (0: the block regime, one row a block), "
+        "cold / warm: " + ", ".join(f"{e['rows']}: {e['ms']:.4f} / {e['warm_ms']:.4f} ms" for e in by_rows)
+        + f"; the wrapper takes {bitonic_ops.merge_rows(p)}")
+    # Over t at R = 64 (p = 128 .. 1024), across the warp regime's limit;
+    # worklists sorted by (dist, id), as the merge assumes.
+    by_t = []
+    for t in TRAVERSE_SWEEP_T:
+        wlt = Worklist(*sorted_by_key(
+            torch.rand((B, t), generator=g_merge, device=dev) * 5000,
+            torch.randperm(B * t, generator=g_merge, device=dev).to(torch.int32).reshape(B, t) + N),
+            torch.rand((B, t), generator=g_merge, device=dev) > 0.5)
+        for a, b in zip(bitonic_ops.merge_worklist(wlt, sd, si), bitonic_ops.merge_ref(*wlt, sd, si)):
+            exact(a, b)
+        pt = common.next_pow2(t + R)
+        by_t.append(dict(t=t, p=pt, rows=bitonic_ops.merge_rows(pt), ms=time_ms(
+            lambda a, b, c, d, i: bitonic_ops.merge_worklist(Worklist(a, b, c), d, i),
+            copies(*wlt, sd, si)),
+            bound_ms=bound_ms(B * t * 18 + B * R * 8, B * 2 * exchanges(pt, False))[0]))
+        log(f"[kernels] bitonic_merge at t={t} (p={pt}, rows a block {by_t[-1]['rows']}): bit-equal "
+            f"to plain; {by_t[-1]['ms']:.4f} ms, bound {by_t[-1]['bound_ms']:.4f} ms")
     rows.append(dict(name="bitonic_merge", route="cuda", source="src/repro_torch/csrc/bitonic.cu",
                      replaces="src/repro/kernels/bitonic/bitonic.py:192",
                      max_abs_err=float((out[0] - ref[0]).nan_to_num().abs().max()), ms=ms,
                      plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=None,
-                     library_call=None))
+                     library_call=None, rows_a_block=bitonic_ops.merge_rows(p),
+                     by_rows_a_block=by_rows, by_t=by_t))
     log(f"[kernels] bitonic_merge (B={B}, t={T}, R={R}): bit-equal to plain (visited flags "
-        f"included); {ms:.4f} ms vs plain {plain_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}); no "
-        f"single PyTorch call merges with a payload (a sort of the concatenation is not one call)")
+        f"included); {ms:.4f} ms vs plain {plain_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}), launch "
+        f"floor {floor_ms:.4f} ms; no single PyTorch call merges with a payload (a sort of the "
+        f"concatenation is not one call)")
 
     # K6: the exact variant's hop on precomputed distances.
     for eager in (True, False):
@@ -615,13 +653,28 @@ def check_kernels(dev) -> list[dict]:
     # scaling per entry.
     b_ms, b_by = bound_ms(q_sub.numel() * 4 + cb.numel() * 4 + out.numel() * 4,
                           2 * dsub * (B * M + M * 256 + B * M * 256) + 3 * B * M * 256)
+    # Queries a tile and the two grids of the tile regime, and the general
+    # regime (0), at the main shape.
+    by_tile = []
+    for qt, pg in [(0, False)] + [(qt, pg) for qt in TABLE_SWEEP_QUERIES for pg in (False, True)]:
+        exact(table_ops._dist_table(q_sub, cb, queries=qt, persistent=pg), ref)
+        by_tile.append(dict(queries=qt, persistent=pg, ms=time_ms(
+            lambda qs, qt=qt, pg=pg: table_ops._dist_table(qs, cb, queries=qt, persistent=pg), sets)))
+    log(f"[kernels] dist_table at dsub={dsub}, queries a tile / persistent grid (0: the general "
+        "regime, one block per (query, subspace)): "
+        + ", ".join(f"{e['queries']}{'p' if e['persistent'] else ''}: {e['ms']:.4f} ms" for e in by_tile)
+        + f"; the wrapper takes {table_ops.table_queries(dsub)}"
+        + (" persistent" if table_ops.TABLE_PERSISTENT else ""))
     rows.append(dict(name="dist_table", route="cuda", source="src/repro_torch/csrc/pq_table.cu",
                      replaces="src/repro/kernels/pq_table/pq_table.py:56",
                      max_abs_err=float((out - ref).abs().max()), ms=ms, plain_ms=plain_ms,
                      bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms,
-                     library_call="torch.baddbmm over (m, B, dsub) x (m, dsub, 256), norms precomputed"))
+                     library_call="torch.baddbmm over (m, B, dsub) x (m, dsub, 256), norms precomputed",
+                     queries_a_tile=table_ops.table_queries(dsub),
+                     persistent=table_ops.TABLE_PERSISTENT, by_tile=by_tile))
     log(f"[kernels] dist_table (B={B}, m={M}, dsub={dsub}): bit-equal to plain; {ms:.4f} ms vs "
-        f"plain {plain_ms:.4f} ms, baddbmm {lib_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
+        f"plain {plain_ms:.4f} ms, baddbmm {lib_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}), launch "
+        f"floor {floor_ms:.4f} ms")
     for row in rows:
         row["launch_floor_ms"] = floor_ms
     log("[kernels] ms / bound ms / launch floor ms: " + "; ".join(
@@ -1052,6 +1105,11 @@ def profile_batch(index, queries, cfg, variant: str, kernel_mode: str,
         log(f"[profile]   {self_us(e) / 1e3:9.3f} ms  x{e.count:<6d} {e.key[:90]}")
     for e in nccl:
         log(f"[profile]   collective {self_us(e) / 1e3:9.3f} ms  x{e.count:<6d} {e.key[:90]}")
+    for e in events:
+        # The port's own kernels (csrc/*.cu); PyTorch's lie in at::.
+        if "(anonymous namespace)::" in e.key and "at::" not in e.key:
+            log(f"[profile]   port kernel {self_us(e) / 1e3:9.3f} ms  x{e.count:<6d} "
+                f"{self_us(e) / e.count / 1e3:.4f} ms a launch  {e.key[:80]}")
     return dict(busy_ms=busy_ms, nccl_ms=sum(self_us(e) for e in nccl) / 1e3,
                 nccl_events=sum(e.count for e in nccl))
 

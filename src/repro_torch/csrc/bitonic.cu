@@ -6,15 +6,14 @@
 // The Pallas kernels ran the network as reshapes and selects over (8, n)
 // tiles in VMEM; here the same compare-exchange stages run in one of two
 // regimes, chosen by the wrapper from the padded row p:
-//   * the warp regime (K4, p <= 512): one warp per row holds the row in
+//   * the warp regime (p <= 512): one warp per row holds the row in
 //     registers, lane_elems(p) elements a lane, and runs the network of
 //     warp_bitonic.cuh (register exchanges for j >= 32, shuffles below);
 //     several rows a block, loads and stores coalesced, no barrier and no
 //     shared memory;
-//   * the block regime (K4 beyond p = 512, and K5): one block per row keeps
-//     the row in shared memory and runs bitonic_network (common.cuh, shared
-//     with the fused hop's block regime), one thread per pair, a barrier
-//     after each stage.
+//   * the block regime (p > 512): one block per row keeps the row in shared
+//     memory and runs bitonic_network (common.cuh, shared with the fused
+//     hop's block regime), one thread per pair, a barrier after each stage.
 // Both run the same network, so both give the plain version's bits.
 //
 // Sort: the row is padded to p = next_pow2(n) with (+inf, INVALID) and the
@@ -26,14 +25,16 @@
 // merge phase runs (log2(p) stages), and the first t slots are kept. The
 // worklist's pads carry visited = 1, the candidates' pads 0; ties between
 // them fall where the network puts them, which the plain version
-// (kernels/bitonic/ref.py) reproduces. No slot is forced visited here.
+// (kernels/bitonic/ref.py) reproduces. No slot is forced visited here
+// (unlike the fused hop's tail). The candidates come in sorted, so merge
+// slot x >= p - R reads candidate p - 1 - x straight from global memory:
+// 32 neighbouring lanes read 32 neighbouring entries, in reverse.
 //
 // What bounds them on the H100: bytes, and far below what one launch
 // costs. At B = 1024, n = 64 the sort reads and writes 1 MB (about 0.3 us at
 // 3.35 TB/s); the merge reads 1.3 MB and writes 0.6 MB. Compare-exchanges
-// are cheap. The warp regime keeps the sort's 21 stages in registers; the
-// merge still runs its 7 stages through shared memory with a barrier after
-// each.
+// are cheap. In the warp regime the sort's 21 stages and the merge's 7 run
+// in registers, so a launch costs little above the launch itself.
 #include "common.cuh"
 #include "warp_bitonic.cuh"
 
@@ -88,6 +89,50 @@ __global__ void bitonic_sort_kernel(const float* __restrict__ dists, const int* 
   }
 }
 
+// K5, the warp regime: one warp per merge row, p = next_pow2(t + R) <= 512
+// (E = lane_elems(p)), several rows a block. Slot x of the row lives in lane
+// x % 32, register x / 32: the worklist in [0, t), list 2 reversed in
+// [t, p). Lanes past p (p < 32) hold inert pads and store nothing.
+template <int E>
+__global__ void warp_merge_kernel(const float* __restrict__ wld, const int* __restrict__ wli,
+                                  const bool* __restrict__ wlv, const float* __restrict__ cd,
+                                  const int* __restrict__ ci, float* __restrict__ owd,
+                                  int* __restrict__ owi, bool* __restrict__ owv, int B, int t,
+                                  int R, int p) {
+  const int lane = threadIdx.x & 31;
+  const int b = blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5);
+  if (b >= B) return;
+  const size_t wrow = (size_t)b * t, crow = (size_t)b * R;
+  float d[E];
+  int id[E], v[E];
+#pragma unroll
+  for (int r = 0; r < E; ++r) {
+    const int x = (r << 5) | lane;
+    const int s = p - 1 - x;  // entry of the padded list 2 held at x >= t
+    if (x < t) {
+      d[r] = wld[wrow + x];
+      id[r] = wli[wrow + x];
+      v[r] = wlv[wrow + x] ? 1 : 0;
+    } else {
+      const bool cand = s >= 0 && s < R;
+      d[r] = cand ? cd[crow + s] : CUDART_INF_F;
+      id[r] = cand ? ci[crow + s] : REPRO_INVALID;
+      v[r] = 0;
+    }
+  }
+  warp_bitonic<E, true>(d, id, v, p, false, lane);
+#pragma unroll
+  for (int r = 0; r < E; ++r) {
+    const int x = (r << 5) | lane;
+    if (x < t) {
+      owd[wrow + x] = d[r];
+      owi[wrow + x] = id[r];
+      owv[wrow + x] = v[r] != 0;
+    }
+  }
+}
+
+// K5, the block regime: one block per row, the row in shared memory.
 __global__ void bitonic_merge_kernel(const float* __restrict__ wld, const int* __restrict__ wli,
                                      const bool* __restrict__ wlv, const float* __restrict__ cd,
                                      const int* __restrict__ ci, float* __restrict__ owd,
@@ -149,15 +194,35 @@ extern "C" int repro_bitonic_sort(const void* dists, const void* ids, void* out_
   return (int)cudaGetLastError();
 }
 
+// rows = 1..8: the warp regime (p <= 512), `rows` rows a block; rows = 0:
+// the block regime, one row a block of `threads`.
 extern "C" int repro_bitonic_merge(const void* wld, const void* wli, const void* wlv,
                                    const void* cd, const void* ci,
                                    void* owd, void* owi, void* owv,
-                                   int B, int t, int R, int p, int threads, void* stream) {
-  const size_t smem = (size_t)p * 12;
-  cudaError_t err = allow_smem(bitonic_merge_kernel, smem);
-  if (err != cudaSuccess) return (int)err;
-  bitonic_merge_kernel<<<B, threads, smem, (cudaStream_t)stream>>>(
-      (const float*)wld, (const int*)wli, (const bool*)wlv, (const float*)cd, (const int*)ci,
-      (float*)owd, (int*)owi, (bool*)owv, t, R, p);
+                                   int B, int t, int R, int p, int threads, int rows,
+                                   void* stream) {
+  const cudaStream_t st = (cudaStream_t)stream;
+  if (rows == 0) {
+    const size_t smem = (size_t)p * 12;
+    cudaError_t err = allow_smem(bitonic_merge_kernel, smem);
+    if (err != cudaSuccess) return (int)err;
+    bitonic_merge_kernel<<<B, threads, smem, st>>>(
+        (const float*)wld, (const int*)wli, (const bool*)wlv, (const float*)cd, (const int*)ci,
+        (float*)owd, (int*)owi, (bool*)owv, t, R, p);
+    return (int)cudaGetLastError();
+  }
+  if (rows < 0 || rows > 8) return (int)cudaErrorInvalidValue;
+  const int blocks = (B + rows - 1) / rows;
+  switch (p > 512 ? 0 : lane_elems(p)) {
+#define REPRO_CASE(E)                                                                         \
+  case E:                                                                                     \
+    warp_merge_kernel<E><<<blocks, 32 * rows, 0, st>>>(                                       \
+        (const float*)wld, (const int*)wli, (const bool*)wlv, (const float*)cd, (const int*)ci, \
+        (float*)owd, (int*)owi, (bool*)owv, B, t, R, p);                                       \
+    break;
+    REPRO_CASE(1) REPRO_CASE(2) REPRO_CASE(4) REPRO_CASE(8) REPRO_CASE(16)
+#undef REPRO_CASE
+    default: return (int)cudaErrorInvalidValue;
+  }
   return (int)cudaGetLastError();
 }

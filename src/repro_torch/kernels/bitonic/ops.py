@@ -2,10 +2,10 @@
 their plain versions on the CPU. The staged kernel mode runs them between
 the ADC kernel and the search loop, each its own launch.
 
-K4 has two regimes, chosen here from the padded row p = next_pow2(n): up to
-`WARP_MAX_P` one warp per row sorts it in registers, `SORT_ROWS` rows a
-block; beyond it one block per row sorts it in shared memory. K5 runs one
-block per row in shared memory."""
+Each has two regimes, chosen here from the padded row p (K4: next_pow2(n),
+K5: next_pow2(t + R)): up to `WARP_MAX_P` one warp per row holds it in
+registers, `SORT_ROWS` (K4) or `MERGE_ROWS` (K5) rows a block; beyond it one
+block per row works on it in shared memory."""
 from __future__ import annotations
 
 import torch
@@ -22,6 +22,9 @@ WARP_MAX_P = 512
 # the fastest of 1, 2, 4 and 8 at the main shape (chip_smoke.py's sweep;
 # PERF.md section 6).
 SORT_ROWS = 4
+# Rows a block of K5's warp regime (the kernel takes 1 to 8), chosen the same
+# way.
+MERGE_ROWS = 4
 
 
 def _threads(p: int) -> int:
@@ -66,9 +69,26 @@ def _sort(dists: torch.Tensor, ids: torch.Tensor, *, rows: int) -> tuple[torch.T
     return out_d, out_i
 
 
+def merge_rows(p: int) -> int:
+    """Rows a block of K5 for merge rows padded to p: `MERGE_ROWS` (the warp
+    regime, one warp a row) up to `WARP_MAX_P`, else 0 (the block regime,
+    one row a block of `_threads(p)`)."""
+    return MERGE_ROWS if p <= WARP_MAX_P else 0
+
+
 def merge_worklist(wl: Worklist, cand_dists: torch.Tensor, cand_ids: torch.Tensor) -> Worklist:
     """Merge sorted (B, R) candidates, which enter unvisited, into the sorted
-    (B, t) worklist; keep the t best with their visited flags."""
+    (B, t) worklist; keep the t best with their visited flags. Both inputs
+    must be sorted by (dist, id)."""
+    p = common.next_pow2(wl.dists.shape[-1] + cand_dists.shape[-1])
+    return _merge(wl, cand_dists, cand_ids, rows=merge_rows(p))
+
+
+def _merge(wl: Worklist, cand_dists: torch.Tensor, cand_ids: torch.Tensor, *, rows: int) -> Worklist:
+    """`merge_worklist` with the kernel's block shape given (the tests and
+    chip_smoke.py check and time each): `rows` rows a block in the warp
+    regime (p <= WARP_MAX_P), or 0 for the block regime. CPU tensors take
+    the plain version."""
     tensors = (wl.dists, wl.ids, wl.visited, cand_dists, cand_ids)
     if not common.on_cuda(*tensors):
         return Worklist(*merge_ref(*tensors))
@@ -85,13 +105,14 @@ def merge_worklist(wl: Worklist, cand_dists: torch.Tensor, cand_ids: torch.Tenso
     out_d, out_i, out_v = torch.empty_like(wl.dists), torch.empty_like(wl.ids), torch.empty_like(wl.visited)
     if B and t:
         p = common.next_pow2(t + R)
-        fn = common.kernel_fn("repro_bitonic_merge", [common.PTR] * 8 + [common.INT] * 5 + [common.PTR])
+        threads = 32 * rows if rows else _threads(p)
+        fn = common.kernel_fn("repro_bitonic_merge", [common.PTR] * 8 + [common.INT] * 6 + [common.PTR])
         with torch.cuda.device(wl.dists.device):
             rc = fn(wl.dists.data_ptr(), wl.ids.data_ptr(), wl.visited.data_ptr(),
                     cand_dists.data_ptr(), cand_ids.data_ptr(),
                     out_d.data_ptr(), out_i.data_ptr(), out_v.data_ptr(),
-                    B, t, R, p, _threads(p), common.stream_of(wl.dists))
-        common.check_launch(rc, f"bitonic merge (t={t}, R={R})")
+                    B, t, R, p, threads, rows, common.stream_of(wl.dists))
+        common.check_launch(rc, f"bitonic merge (t={t}, R={R}, rows={rows})")
         merge_worklist.launches += 1
     return Worklist(out_d, out_i, out_v)
 

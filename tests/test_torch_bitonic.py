@@ -24,6 +24,14 @@ MERGE_SHAPES = [(1, 4, 4), (6, 16, 12), (3, 64, 64), (2, 33, 7)]  # tests/test_k
 # Row lengths of K4 around a warp (32), the main path's R (64) and the warp
 # regime's limit (ops.WARP_MAX_P = 512).
 SORT_N = [1, 2, 3, 31, 32, 33, 64, 100, 512, 513, 1000]
+# (t, R) of K5 with the merge row's p = next_pow2(t + R): p from 2 to 1024,
+# a partial warp at p < 32, t + R not a power of two, the main path's
+# t = R = 64, the paper's t = 152 and both sides of the warp regime's limit
+# (ops.WARP_MAX_P = 512).
+MERGE_TR_P = [(1, 1, 2), (4, 4, 8), (3, 10, 16), (33, 7, 64), (64, 64, 128), (152, 64, 256),
+              (448, 64, 512), (100, 300, 512), (500, 64, 1024), (513, 1, 1024)]
+# Batches that are and are not a multiple of K5's rows a block.
+MERGE_B = [1, 5, 1023, 1024]
 
 
 @pytest.fixture
@@ -142,6 +150,34 @@ def test_sort_regime_choice(n):
     assert ops.sort_kv.launches == before
 
 
+@pytest.mark.parametrize("t,R,p", MERGE_TR_P)
+def test_merge_regime_choice(t, R, p):
+    """K5: the warp regime, MERGE_ROWS rows a block, up to WARP_MAX_P; the
+    block regime beyond. On the CPU the wrapper runs its plain version at
+    every block shape and counts no launch. Integer-valued inputs only (no
+    random floats), sorted by (dist, id), with pads in both lists."""
+    assert next_pow2(t + R) == p
+    rows = ops.merge_rows(p)
+    assert rows == (ops.MERGE_ROWS if p <= ops.WARP_MAX_P else 0)
+    assert 1 <= ops.MERGE_ROWS <= 8
+    B = 3
+    wd = (torch.arange(B * t) % t // 2).float().reshape(B, t)
+    wi = torch.arange(B * t, dtype=torch.int32).reshape(B, t)
+    wv = (torch.arange(B * t) % 3 == 0).reshape(B, t)
+    wd[0, t // 2 :], wi[0, t // 2 :], wv[0, t // 2 :] = float("inf"), INVALID_ID, True
+    cd = (torch.arange(B * R) % R // 3).float().reshape(B, R)
+    ci = (10_000 + torch.arange(B * R, dtype=torch.int32)).reshape(B, R)
+    cd[1, R // 2 :], ci[1, R // 2 :] = float("inf"), INVALID_ID
+    wl = Worklist(wd, wi, wv)
+    want = ops.merge_ref(wd, wi, wv, cd, ci)
+    before = ops.merge_worklist.launches
+    for got in (ops.merge_worklist(wl, cd, ci), ops._merge(wl, cd, ci, rows=0),
+                ops._merge(wl, cd, ci, rows=rows)):
+        for a, b in zip(got, want):
+            assert torch.equal(a, b)
+    assert ops.merge_worklist.launches == before
+
+
 # ------------------------------------------------------ CUDA kernels (card)
 @pytest.mark.cuda
 @pytest.mark.parametrize("B,n", SORT_SHAPES + [(1024, 64)])
@@ -208,3 +244,73 @@ def test_sort_warp_regime_refuses_what_it_cannot_hold(cuda):
         d = torch.zeros((2, n), device=cuda)
         with pytest.raises(RuntimeError, match="bitonic sort"):
             ops._sort(d, torch.zeros((2, n), dtype=torch.int32, device=cuda), rows=rows)
+
+
+def _merge_case_inputs(rng, B, t, R):
+    """Sorted worklists and candidates whose rows cycle through the cases
+    K5 must keep to the plain version's bits. Row b % 5 == 0: random; 1:
+    distances from a few values, tied within and across the two lists, ids
+    distinct; 2: a worklist all visited; 3: pads ending both lists; 4: rows
+    mostly pads, so the kept slots hold pads of both lists. Worklist pads
+    are (+inf, INVALID, visited), candidate pads (+inf, INVALID). Both lists
+    are sorted by (dist, id), as the merge assumes."""
+    kind = np.arange(B) % 5
+    wd = rng.integers(0, 5000, (B, t)).astype(np.float32)
+    cd = rng.integers(0, 5000, (B, R)).astype(np.float32)
+    wd[kind == 1] = rng.integers(0, 4, (int((kind == 1).sum()), t))
+    cd[kind == 1] = rng.integers(0, 4, (int((kind == 1).sum()), R))
+    ids = np.stack([rng.permutation(10 * (t + R))[: t + R] for _ in range(B)]).astype(np.int32)
+    wi, ci = ids[:, :t].copy(), ids[:, t:].copy()
+    wv = rng.random((B, t)) > 0.5
+    wv[kind == 2] = True
+    for b in np.flatnonzero(kind >= 3):
+        most = kind[b] == 4
+        w = int(rng.integers(0, t // 4 + 1 if most else t + 1))
+        c = int(rng.integers(0, R // 4 + 1 if most else R + 1))
+        wd[b, w:], wi[b, w:], wv[b, w:] = np.inf, INVALID_ID, True
+        cd[b, c:], ci[b, c:] = np.inf, INVALID_ID
+    wo, co = np.lexsort((wi, wd), axis=-1), np.lexsort((ci, cd), axis=-1)
+    wd, wi, wv = (np.take_along_axis(x, wo, -1) for x in (wd, wi, wv))
+    cd, ci = (np.take_along_axis(x, co, -1) for x in (cd, ci))
+    return wd, wi, wv, cd, ci
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("t,R,p", MERGE_TR_P)
+@pytest.mark.parametrize("B", MERGE_B)
+def test_merge_regimes_match_plain(cuda, t, R, p, B):
+    """K5 on both sides of the warp regime's limit, B a multiple of the rows
+    a block and not: the plain version's bits, visited flags of pad slots
+    included, one launch a call."""
+    inputs = _merge_case_inputs(np.random.default_rng(t * 7 + R + B), B, t, R)
+    before = ops.merge_worklist.launches
+    outs = _port_merge(inputs, device=cuda)
+    assert ops.merge_worklist.launches == before + 1
+    for o, r in zip(outs, _port_merge(inputs)):
+        np.testing.assert_array_equal(o, r)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows", [0, 1, 2, 4, 8])
+@pytest.mark.parametrize("t,R", [(4, 4), (33, 7), (64, 64), (448, 64)])
+def test_merge_block_shapes_match_plain(cuda, rows, t, R):
+    """Every rows-a-block count that chip_smoke.py times, and the block
+    regime (rows = 0) below the limit too, give the same bits."""
+    inputs = _merge_case_inputs(np.random.default_rng(rows + t + R), 1023, t, R)
+    wd, wi, wv, cd, ci = (torch.from_numpy(a) for a in inputs)
+    out = ops._merge(Worklist(wd.to(cuda), wi.to(cuda), wv.to(cuda)), cd.to(cuda), ci.to(cuda),
+                     rows=rows)
+    for o, r in zip(out, ops.merge_ref(wd, wi, wv, cd, ci)):
+        assert torch.equal(o.cpu(), r)
+
+
+@pytest.mark.cuda
+def test_merge_warp_regime_refuses_what_it_cannot_hold(cuda):
+    """Beyond WARP_MAX_P, or beyond 8 rows a block, the warp regime refuses
+    the launch."""
+    for t, R, rows in ((500, 64, 4), (64, 64, 9)):
+        wl = Worklist(torch.zeros((2, t), device=cuda), torch.zeros((2, t), dtype=torch.int32, device=cuda),
+                      torch.zeros((2, t), dtype=torch.bool, device=cuda))
+        with pytest.raises(RuntimeError, match="bitonic merge"):
+            ops._merge(wl, torch.zeros((2, R), device=cuda),
+                       torch.zeros((2, R), dtype=torch.int32, device=cuda), rows=rows)

@@ -93,7 +93,20 @@ def test_chip_smoke_phases_on_cpu(smoke):
     assert [e["warps"] for e in trav["by_warps_a_block"]] == [0, *smoke.WARPS_SWEEP]
     assert [(e["t"], e["P"], e["warps"] > 0) for e in trav["by_t"]] == [
         (16, 128, True), (64, 128, True), (152, 256, True), (448, 512, True), (500, 1024, False)]
-    assert all(e["ms"] > 0 and e["bound_ms"] > 0 for e in sort["by_n"] + trav["by_t"])
+    merge = rows[4]
+    assert [e["rows"] for e in merge["by_rows_a_block"]] == [0, *smoke.WARPS_SWEEP]
+    assert all(e["ms"] > 0 and e["warm_ms"] > 0 for e in merge["by_rows_a_block"])
+    assert [(e["t"], e["p"], e["rows"] > 0) for e in merge["by_t"]] == [
+        (16, 128, True), (64, 128, True), (152, 256, True), (448, 512, True), (500, 1024, False)]
+    assert merge["rows_a_block"] == bitonic_ops.MERGE_ROWS
+    assert all(e["ms"] > 0 and e["bound_ms"] > 0
+               for e in sort["by_n"] + trav["by_t"] + merge["by_t"])
+    # K8's tiles and grids, and its general regime (queries 0).
+    table = rows[7]
+    assert [(e["queries"], e["persistent"]) for e in table["by_tile"]] == [(0, False)] + [
+        (q, pg) for q in smoke.TABLE_SWEEP_QUERIES for pg in (False, True)]
+    assert all(e["ms"] > 0 for e in table["by_tile"])
+    assert table["queries_a_tile"] == table_ops.TABLE_QUERIES
     assert all(r["launch_floor_ms"] > 0 for r in rows)
     assert rows[6]["shards"]["S"] == 4 and 0 < rows[6]["shards"]["bound_ms"] < rows[6]["bound_ms"]
     assert rows[7]["library_ms"] > 0 and rows[6]["library_ms"] is None

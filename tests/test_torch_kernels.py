@@ -11,6 +11,8 @@ plain versions on the card. They need an NVIDIA GPU and skip elsewhere; the
 JAX package is imported lazily so that this file also runs where JAX is not
 installed: `python -m pytest -q -m cuda tests/test_torch_kernels.py`.
 """
+import functools
+
 import numpy as np
 import pytest
 import torch
@@ -37,6 +39,12 @@ RERANK_SHAPES = [(1, 1, 8), (5, 19, 37), (4, 200, 128), (2, 7, 129)]
 # a quarter of n = 10**6 rows.
 LOCAL_ADC_SHAPES = [(5, 13, 9, 120), (1, 1, 4, 1), (64, 64, 32, 250_000)]
 TABLE_SHAPES = [(1, 1, 4), (7, 6, 11), (13, 8, 16), (4, 74, 2)]   # tests/test_kernels.py:39
+# Subspace widths of K8 on both sides of its tile regime's limit
+# (table_ops.TILE_MAX_DSUB = 16): the main path's 4, the shapes above, and
+# d = 32 and 128 at m = 1.
+TABLE_DSUB = [1, 2, 4, 11, 16, 32, 128]
+# K8's tiles and grids (queries a tile, persistent), and its general regime.
+TABLE_TILES = [(0, False)] + [(qt, pg) for qt in (8, 16, 32, 64, 128) for pg in (False, True)]
 # Card-only shapes of K2's two regimes (global lookups below
 # adc_ops.SHARED_TABLE_MIN_R candidates, a shared table from it on): R on
 # both sides of the crossover and at it, m a multiple of 8 and not.
@@ -304,6 +312,28 @@ def test_rerank_l2_ref_matches_pallas_and_reference_oracle(B, C, d):
                 np.testing.assert_array_equal(out, ref)
             else:
                 np.testing.assert_allclose(out, ref, rtol=RTOL, atol=ATOL)
+
+
+# --------------------------------------------------------------- K8 (CPU)
+@pytest.mark.parametrize("dsub", TABLE_DSUB)
+def test_table_regime_choice(dsub):
+    """K8: the tile regime, TABLE_QUERIES queries a tile, up to TILE_MAX_DSUB;
+    the general regime beyond. On the CPU the wrapper runs its plain version
+    at every tile and grid and counts no launch. Integer-valued inputs only
+    (no random floats)."""
+    queries = table_ops.table_queries(dsub)
+    assert queries == (table_ops.TABLE_QUERIES if dsub <= table_ops.TILE_MAX_DSUB else 0)
+    assert table_ops.TILE_MAX_DSUB == 16 and table_ops.TABLE_QUERIES >= 1
+    B, m = 5, 3
+    q = ((torch.arange(B * m * dsub) % 11) - 5).float().reshape(B, m, dsub)
+    cb = ((torch.arange(m * 256 * dsub) % 13) - 6).float().reshape(m, 256, dsub)
+    want = table_ops.dist_table_ref(q, cb)
+    before = table_ops.dist_table.launches
+    outs = [table_ops.dist_table(q, cb), table_ops._dist_table(q, cb, queries=0, persistent=False)]
+    outs += [table_ops._dist_table(q, cb, queries=queries or 1, persistent=pg) for pg in (False, True)]
+    for got in outs:
+        assert torch.equal(got, want)
+    assert table_ops.dist_table.launches == before
 
 
 def test_wrappers_reject_mixed_devices_and_bad_dtypes():
@@ -592,6 +622,21 @@ def test_kernels_take_unaligned_inputs(cuda):
     _assert_same([x.cpu().numpy() for x in (wl.dists, wl.ids, wl.visited, u, a)], _port_step(inputs, True))
     out = step_ops.local_adc(*dev[:4])
     np.testing.assert_array_equal(out.cpu().numpy(), step_ops.local_adc_ref(tb, rows, nbrs, fresh).numpy())
+    # K5 in both regimes: rows off a 4-byte (flags) and 16-byte boundary.
+    from repro_torch.kernels.bitonic import ops as bitonic_ops
+
+    cd = torch.from_numpy(np.sort(rng.integers(0, 5000, (B, R)).astype(np.float32), axis=-1))
+    ci = torch.from_numpy(np.arange(B * R, dtype=np.int32).reshape(B, R) + 10_000)
+    for per_block in (0, bitonic_ops.MERGE_ROWS):
+        out = bitonic_ops._merge(Worklist(*dev[4:7]), shifted(cd), shifted(ci), rows=per_block)
+        for o, r in zip(out, bitonic_ops.merge_ref(wd, wi, wv, cd, ci)):
+            assert torch.equal(o.cpu(), r)
+    # K8 in both regimes: query and codebook rows off a 16-byte boundary.
+    for dsub in (4, 32):
+        qs = torch.from_numpy(rng.standard_normal((B, m, dsub)).astype(np.float32))
+        cb = torch.from_numpy(rng.standard_normal((m, 256, dsub)).astype(np.float32))
+        out = table_ops.dist_table(shifted(qs), shifted(cb))
+        np.testing.assert_array_equal(out.cpu().numpy(), table_ops.dist_table_ref(qs, cb).numpy())
 
 
 @pytest.mark.cuda
@@ -672,3 +717,31 @@ def test_dist_table_kernel_matches_plain(cuda, B, m, dsub):
     out = table_ops.dist_table(q.to(cuda), cb.to(cuda))
     assert table_ops.dist_table.launches == before + 1
     np.testing.assert_array_equal(out.cpu().numpy(), table_ops.dist_table_ref(q, cb).numpy())
+
+
+@functools.cache
+def _table_case(dsub):
+    """K8's inputs at dsub and their plain table, made once for every tile:
+    B = 1031, not a multiple of any tile, and m = 256 / dsub subspaces, so
+    that the persistent grid loops over several tiles a block."""
+    B, m = 1031, max(1, 256 // dsub)
+    rng = np.random.default_rng(dsub)
+    q = torch.from_numpy(rng.standard_normal((B, m, dsub)).astype(np.float32))
+    cb = torch.from_numpy(rng.standard_normal((m, 256, dsub)).astype(np.float32))
+    return q, cb, table_ops.dist_table_ref(q, cb)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dsub", TABLE_DSUB)
+@pytest.mark.parametrize("queries,persistent", TABLE_TILES)
+def test_dist_table_regimes_match_plain(cuda, dsub, queries, persistent):
+    """K8 at every tile and grid chip_smoke.py times and in its general
+    regime: the plain version's bits. Beyond TILE_MAX_DSUB the tile regime
+    refuses the launch."""
+    q, cb, want = _table_case(dsub)
+    if queries and dsub > table_ops.TILE_MAX_DSUB:
+        with pytest.raises(RuntimeError, match="pq_table"):
+            table_ops._dist_table(q.to(cuda), cb.to(cuda), queries=queries, persistent=persistent)
+        return
+    out = table_ops._dist_table(q.to(cuda), cb.to(cuda), queries=queries, persistent=persistent)
+    assert torch.equal(out.cpu(), want)
