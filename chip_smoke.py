@@ -79,7 +79,7 @@ ADC_SWEEP_R = (1, 2, 4, 8, 16, 24, 32, 40, 48, 64)   # K2's two regimes timed at
 LANE_SWEEP = (0, 1, 4, 8, 16, 32, 48, 64)   # K1 and K7 timed at these scored lanes a query
 WARPS_SWEEP = (1, 2, 4, 8)     # K6's queries and K4's rows a block, timed at the main shape
 TRAVERSE_SWEEP_T = (16, 64, 152, 448, 500)   # K6 and K5 timed at these t (R = 64): P = 128 .. 1024
-TABLE_SWEEP_QUERIES = (8, 16, 32, 64, 128)   # K8 timed at these queries a tile, each grid
+TABLE_SWEEP_QUERIES = (8, 16, 32, 64, 128)   # K8 timed at these queries a tile
 SORT_SWEEP_N = (64, 512, 513, 1000)          # K4 timed at these n: both sides of its regimes
 INTRINSIC_DIM = 16             # per-cluster subspace of the synthetic corpus
 COPIES = 4                     # input copies cycled by timed calls, at least
@@ -100,16 +100,32 @@ def card_line() -> str:
     ).stdout.strip().splitlines()[0]
 
 
+_FLUSH: list = []   # the buffer flush_l2 reads, made at its first call
+
+
+def flush_l2() -> None:
+    """Read a buffer of twice the L2, so that no tensor an earlier call
+    touched is left in L2 (and no dirty line is left to write back)."""
+    import torch
+
+    if not _FLUSH:
+        _FLUSH.append(torch.zeros(2 * L2_BYTES // 4, device="cuda"))
+    _FLUSH[0].sum()
+
+
 def time_ms(fn, arg_sets: list[tuple], reps: int = 20) -> float:
     """Device ms of one call of `fn`: CUDA events around `reps` calls, after
-    a warm-up. Call i takes the arguments `arg_sets[i % len(arg_sets)]`, so
-    copies of the inputs that together exceed L2 make every call read them
-    from memory. A spin kernel holds the device while the host queues the
-    calls, so the events time the device's work and not the host's Python
-    between launches."""
+    an L2 flush and a warm-up. Call i takes the arguments
+    `arg_sets[i % len(arg_sets)]`, so copies of the inputs that together
+    exceed L2 make every call read them from memory; the flush keeps the
+    copies an earlier `time_ms` read from being found in L2 (one argument
+    set: the warm-up brings it in, so the calls are timed warm). A spin
+    kernel holds the device while the host queues the calls, so the events
+    time the device's work and not the host's Python between launches."""
     import torch
 
     args = itertools.cycle(arg_sets)
+    flush_l2()
     fn(*next(args))
     torch.cuda.synchronize()
     a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
@@ -432,17 +448,16 @@ def check_kernels(dev) -> list[dict]:
         for a, b in zip(bitonic_ops.sort_kv(d, i), bitonic_ops.sort_kv_ref(d, i)):
             exact(a, b)
         pn = common.next_pow2(n)
-        by_n.append(dict(n=n, rows=bitonic_ops.sort_rows(pn),
-                         ms=time_ms(bitonic_ops.sort_kv, copies(d, i)),
+        by_n.append(dict(n=n, ms=time_ms(bitonic_ops.sort_kv, copies(d, i)),
                          bound_ms=bound_ms(2 * B * n * 8, B * 2 * exchanges(pn, True))[0]))
-        log(f"[kernels] bitonic_sort at n={n} (rows a block {by_n[-1]['rows']}): bit-equal to plain; "
-            f"{by_n[-1]['ms']:.4f} ms, bound {by_n[-1]['bound_ms']:.4f} ms")
+        log(f"[kernels] bitonic_sort at n={n} (rows a block {bitonic_ops.sort_rows(pn)}): bit-equal to "
+            f"plain; {by_n[-1]['ms']:.4f} ms, bound {by_n[-1]['bound_ms']:.4f} ms")
     rows.append(dict(name="bitonic_sort", route="cuda", source="src/repro_torch/csrc/bitonic.cu",
                      replaces="src/repro/kernels/bitonic/bitonic.py:147",
                      max_abs_err=float((out[0] - ref[0]).nan_to_num().abs().max()), ms=ms,
                      plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms,
                      library_call="torch.sort(stable=True) of the distances",
-                     rows_a_block=bitonic_ops.sort_rows(rp), by_rows_a_block=by_rows, by_n=by_n))
+                     by_rows_a_block=by_rows, by_n=by_n))
     log(f"[kernels] bitonic_sort (B={B}, n={R}): bit-equal to plain; {ms:.4f} ms vs plain "
         f"{plain_ms:.4f} ms, torch.sort {lib_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}), launch floor "
         f"{floor_ms:.4f} ms")
@@ -483,18 +498,17 @@ def check_kernels(dev) -> list[dict]:
         for a, b in zip(bitonic_ops.merge_worklist(wlt, sd, si), bitonic_ops.merge_ref(*wlt, sd, si)):
             exact(a, b)
         pt = common.next_pow2(t + R)
-        by_t.append(dict(t=t, p=pt, rows=bitonic_ops.merge_rows(pt), ms=time_ms(
+        by_t.append(dict(t=t, p=pt, ms=time_ms(
             lambda a, b, c, d, i: bitonic_ops.merge_worklist(Worklist(a, b, c), d, i),
             copies(*wlt, sd, si)),
             bound_ms=bound_ms(B * t * 18 + B * R * 8, B * 2 * exchanges(pt, False))[0]))
-        log(f"[kernels] bitonic_merge at t={t} (p={pt}, rows a block {by_t[-1]['rows']}): bit-equal "
-            f"to plain; {by_t[-1]['ms']:.4f} ms, bound {by_t[-1]['bound_ms']:.4f} ms")
+        log(f"[kernels] bitonic_merge at t={t} (p={pt}, rows a block {bitonic_ops.merge_rows(pt)}): "
+            f"bit-equal to plain; {by_t[-1]['ms']:.4f} ms, bound {by_t[-1]['bound_ms']:.4f} ms")
     rows.append(dict(name="bitonic_merge", route="cuda", source="src/repro_torch/csrc/bitonic.cu",
                      replaces="src/repro/kernels/bitonic/bitonic.py:192",
                      max_abs_err=float((out[0] - ref[0]).nan_to_num().abs().max()), ms=ms,
                      plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=None,
-                     library_call=None, rows_a_block=bitonic_ops.merge_rows(p),
-                     by_rows_a_block=by_rows, by_t=by_t))
+                     library_call=None, by_rows_a_block=by_rows, by_t=by_t))
     log(f"[kernels] bitonic_merge (B={B}, t={T}, R={R}): bit-equal to plain (visited flags "
         f"included); {ms:.4f} ms vs plain {plain_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}), launch "
         f"floor {floor_ms:.4f} ms; no single PyTorch call merges with a payload (a sort of the "
@@ -539,20 +553,19 @@ def check_kernels(dev) -> list[dict]:
             torch.rand((B, t), generator=g_sweep, device=dev) > 0.5)
         check_traverse(wlt)
         pt = step_ops.merge_slots(R, t)
-        by_t.append(dict(t=t, P=pt, warps=step_ops.traverse_warps(pt), ms=time_ms(
+        by_t.append(dict(t=t, P=pt, ms=time_ms(
             lambda d, i, a, b, c: step_ops.fused_traverse(Worklist(a, b, c), d, i, active),
             copies(cand_d, cand_i, *wlt)),
             bound_ms=bound_ms(B * R * 8 + B * t * 18 + B * 6,
                               B * 2 * (cmp_sort + exchanges(pt, False)))[0]))
-        log(f"[kernels] fused_traverse at t={t} (P={pt}, queries a block {by_t[-1]['warps']}): "
+        log(f"[kernels] fused_traverse at t={t} (P={pt}, queries a block {step_ops.traverse_warps(pt)}): "
             f"bit-equal to plain, eager and lazy; {by_t[-1]['ms']:.4f} ms, bound "
             f"{by_t[-1]['bound_ms']:.4f} ms")
     rows.append(dict(name="fused_traverse", route="cuda", source="src/repro_torch/csrc/search_step.cu",
                      replaces="src/repro/kernels/search_step/search_step.py:458",
                      max_abs_err=float((kern[0].dists - plain[0]).nan_to_num().abs().max()), ms=ms,
                      plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=None,
-                     library_call=None,
-                     warps_a_block=step_ops.traverse_warps(p), by_warps_a_block=by_warps, by_t=by_t))
+                     library_call=None, by_warps_a_block=by_warps, by_t=by_t))
     log(f"[kernels] fused_traverse (B={B}, R={R}, t={T}, eager+lazy): bit-equal to plain; "
         f"{ms:.4f} ms vs plain {plain_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}), launch floor "
         f"{floor_ms:.4f} ms; no single PyTorch call does sort, select and merge")
@@ -653,25 +666,23 @@ def check_kernels(dev) -> list[dict]:
     # scaling per entry.
     b_ms, b_by = bound_ms(q_sub.numel() * 4 + cb.numel() * 4 + out.numel() * 4,
                           2 * dsub * (B * M + M * 256 + B * M * 256) + 3 * B * M * 256)
-    # Queries a tile and the two grids of the tile regime, and the general
-    # regime (0), at the main shape.
+    # Queries a tile of the tile regime, and the general regime (0), at the
+    # main shape.
     by_tile = []
-    for qt, pg in [(0, False)] + [(qt, pg) for qt in TABLE_SWEEP_QUERIES for pg in (False, True)]:
-        exact(table_ops._dist_table(q_sub, cb, queries=qt, persistent=pg), ref)
-        by_tile.append(dict(queries=qt, persistent=pg, ms=time_ms(
-            lambda qs, qt=qt, pg=pg: table_ops._dist_table(qs, cb, queries=qt, persistent=pg), sets)))
-    log(f"[kernels] dist_table at dsub={dsub}, queries a tile / persistent grid (0: the general "
-        "regime, one block per (query, subspace)): "
-        + ", ".join(f"{e['queries']}{'p' if e['persistent'] else ''}: {e['ms']:.4f} ms" for e in by_tile)
-        + f"; the wrapper takes {table_ops.table_queries(dsub)}"
-        + (" persistent" if table_ops.TABLE_PERSISTENT else ""))
+    for qt in (0,) + TABLE_SWEEP_QUERIES:
+        exact(table_ops._dist_table(q_sub, cb, queries=qt), ref)
+        by_tile.append(dict(queries=qt, ms=time_ms(
+            lambda qs, qt=qt: table_ops._dist_table(qs, cb, queries=qt), sets)))
+    log(f"[kernels] dist_table at dsub={dsub}, queries a tile (0: the general regime, one block "
+        "per (query, subspace)): "
+        + ", ".join(f"{e['queries']}: {e['ms']:.4f} ms" for e in by_tile)
+        + f"; the wrapper takes {table_ops.table_queries(dsub)}")
     rows.append(dict(name="dist_table", route="cuda", source="src/repro_torch/csrc/pq_table.cu",
                      replaces="src/repro/kernels/pq_table/pq_table.py:56",
                      max_abs_err=float((out - ref).abs().max()), ms=ms, plain_ms=plain_ms,
                      bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms,
                      library_call="torch.baddbmm over (m, B, dsub) x (m, dsub, 256), norms precomputed",
-                     queries_a_tile=table_ops.table_queries(dsub),
-                     persistent=table_ops.TABLE_PERSISTENT, by_tile=by_tile))
+                     by_tile=by_tile))
     log(f"[kernels] dist_table (B={B}, m={M}, dsub={dsub}): bit-equal to plain; {ms:.4f} ms vs "
         f"plain {plain_ms:.4f} ms, baddbmm {lib_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}), launch "
         f"floor {floor_ms:.4f} ms")

@@ -27,10 +27,10 @@
 //     16-byte store, a warp 512 contiguous bytes. Output row (b, j) starts at
 //     a multiple of 1 KB of the wrapper's buffer, so the stores are aligned;
 //     the inputs are read with scalar loads, so they need no alignment. The
-//     grid is m x ceil(B / queries) blocks, or, persistent, m x as many as
-//     fit the card beside each other, each looping over its tiles with its
-//     codebook rows kept. The codebook is read m x (grid's y) times 1 KB *
-//     dsub, not B * m times as one block per (query, subspace) would;
+//     grid is m x ceil(B / queries) blocks (capped at 65,535 in y, a block
+//     then looping over several tiles with its codebook rows kept), so each
+//     subspace's codebook slice is read ceil(B / queries) times, not B times
+//     as one block per (query, subspace) would;
 //   * the general regime (dsub > 16, whose rows the registers cannot hold):
 //     one block per (query, subspace), one thread per centroid, each thread
 //     reading its codebook row and writing 4 bytes.
@@ -117,30 +117,21 @@ __global__ void pq_table_kernel(const float* __restrict__ q, const float* __rest
 
 template <int DS>
 cudaError_t launch_tile(const float* q, const float* cb, float* out, int B, int m, int dsub,
-                        int queries, int persistent, cudaStream_t st) {
+                        int queries, cudaStream_t st) {
   const size_t smem = (size_t)queries * dsub * 4;
-  cudaError_t err = allow_smem(pq_table_tile_kernel<DS>, smem);
+  const cudaError_t err = allow_smem(pq_table_tile_kernel<DS>, smem);
   if (err != cudaSuccess) return err;
-  int grid_y = min((B + queries - 1) / queries, 65535);
-  if (persistent) {
-    int dev = 0, sms = 0, per_sm = 0;
-    err = cudaGetDevice(&dev);
-    if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    if (err == cudaSuccess)
-      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, pq_table_tile_kernel<DS>, 64, smem);
-    if (err != cudaSuccess) return err;
-    grid_y = max(1, min(grid_y, sms * max(per_sm, 1) / m));
-  }
+  const int grid_y = min((B + queries - 1) / queries, 65535);
   pq_table_tile_kernel<DS><<<dim3(m, grid_y), 64, smem, st>>>(q, cb, out, B, m, dsub, queries);
   return cudaGetLastError();
 }
 
 }  // namespace
 
-// queries >= 1: the tile regime (dsub <= 16), `queries` queries a tile, the
-// grid persistent or not; queries = 0: the general regime.
+// queries >= 1: the tile regime (dsub <= 16), `queries` queries a tile;
+// queries = 0: the general regime.
 extern "C" int repro_pq_table(const void* q, const void* cb, void* out, int B, int m, int dsub,
-                              int queries, int persistent, void* stream) {
+                              int queries, void* stream) {
   const cudaStream_t st = (cudaStream_t)stream;
   const float* qf = (const float*)q;
   const float* cbf = (const float*)cb;
@@ -151,7 +142,7 @@ extern "C" int repro_pq_table(const void* q, const void* cb, void* out, int B, i
     return (int)cudaGetLastError();
   }
   if (queries < 0 || dsub > TILE_MAX_DSUB) return (int)cudaErrorInvalidValue;
-  if (dsub <= 4) return (int)launch_tile<4>(qf, cbf, of, B, m, dsub, queries, persistent, st);
-  if (dsub <= 8) return (int)launch_tile<8>(qf, cbf, of, B, m, dsub, queries, persistent, st);
-  return (int)launch_tile<16>(qf, cbf, of, B, m, dsub, queries, persistent, st);
+  if (dsub <= 4) return (int)launch_tile<4>(qf, cbf, of, B, m, dsub, queries, st);
+  if (dsub <= 8) return (int)launch_tile<8>(qf, cbf, of, B, m, dsub, queries, st);
+  return (int)launch_tile<16>(qf, cbf, of, B, m, dsub, queries, st);
 }

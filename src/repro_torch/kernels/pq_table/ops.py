@@ -25,11 +25,9 @@ from .ref import dist_table_ref
 # The tile regime's widest subspace: a thread holds 4 codebook rows of up to
 # 16 floats in registers (csrc/pq_table.cu).
 TILE_MAX_DSUB = 16
-# Queries a tile of the tile regime, and whether its grid is persistent: the
-# fastest of the tiles and grids that chip_smoke.py sweeps at the main shape
-# (PERF.md section 6).
+# Queries a tile of the tile regime: the fastest of the tiles that
+# chip_smoke.py sweeps at the main shape (PERF.md section 6).
 TABLE_QUERIES = 32
-TABLE_PERSISTENT = False
 
 
 def table_queries(dsub: int) -> int:
@@ -41,16 +39,14 @@ def table_queries(dsub: int) -> int:
 
 def dist_table(q_sub: torch.Tensor, codebooks: torch.Tensor) -> torch.Tensor:
     """q_sub (B, m, dsub) f32, codebooks (m, 256, dsub) f32 -> (B, m, 256) f32."""
-    return _dist_table(q_sub, codebooks, queries=table_queries(q_sub.shape[-1]),
-                       persistent=TABLE_PERSISTENT)
+    return _dist_table(q_sub, codebooks, queries=table_queries(q_sub.shape[-1]))
 
 
-def _dist_table(q_sub: torch.Tensor, codebooks: torch.Tensor, *, queries: int,
-                persistent: bool) -> torch.Tensor:
-    """`dist_table` with the kernel's tile and grid given (the tests and
+def _dist_table(q_sub: torch.Tensor, codebooks: torch.Tensor, *, queries: int) -> torch.Tensor:
+    """`dist_table` with the kernel's tile given (the tests and
     chip_smoke.py check and time each): `queries` queries a tile in the tile
-    regime (dsub <= TILE_MAX_DSUB), its grid persistent or not, or 0 for
-    the general regime. CPU tensors take the plain version."""
+    regime (dsub <= TILE_MAX_DSUB), or 0 for the general regime. CPU tensors
+    take the plain version."""
     if not common.on_cuda(q_sub, codebooks):
         return dist_table_ref(q_sub, codebooks)
     B, m, dsub = q_sub.shape
@@ -58,10 +54,10 @@ def _dist_table(q_sub: torch.Tensor, codebooks: torch.Tensor, *, queries: int,
     common.check(codebooks, "codebooks", torch.float32, (m, 256, dsub))
     out = torch.empty((B, m, 256), dtype=torch.float32, device=q_sub.device)
     if B and m:
-        fn = common.kernel_fn("repro_pq_table", [common.PTR] * 3 + [common.INT] * 5 + [common.PTR])
+        fn = common.kernel_fn("repro_pq_table", [common.PTR] * 3 + [common.INT] * 4 + [common.PTR])
         with torch.cuda.device(q_sub.device):
             rc = fn(q_sub.data_ptr(), codebooks.data_ptr(), out.data_ptr(), B, m, dsub, queries,
-                    int(persistent), common.stream_of(q_sub))
+                    common.stream_of(q_sub))
         common.check_launch(rc, f"pq_table (m={m}, dsub={dsub}, queries={queries})")
         dist_table.launches += 1
     return out

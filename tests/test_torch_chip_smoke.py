@@ -16,6 +16,7 @@ from pathlib import Path
 import pytest
 import torch
 
+from repro_torch.kernels import common
 from repro_torch.kernels.bitonic import ops as bitonic_ops
 from repro_torch.kernels.pq_adc import ops as adc_ops
 from repro_torch.kernels.pq_table import ops as table_ops
@@ -88,25 +89,30 @@ def test_chip_smoke_phases_on_cpu(smoke):
     # and the launch floor beside every bound.
     sort, trav = rows[3], rows[5]
     assert [e["rows"] for e in sort["by_rows_a_block"]] == [0, *smoke.WARPS_SWEEP]
-    assert [(e["n"], e["rows"] > 0) for e in sort["by_n"]] == [(64, True), (512, True), (513, False),
-                                                                (1000, False)]
+    assert [(e["n"], bitonic_ops.sort_rows(common.next_pow2(e["n"])) > 0) for e in sort["by_n"]] == [
+        (64, True), (512, True), (513, False), (1000, False)]
     assert [e["warps"] for e in trav["by_warps_a_block"]] == [0, *smoke.WARPS_SWEEP]
-    assert [(e["t"], e["P"], e["warps"] > 0) for e in trav["by_t"]] == [
+    assert [(e["t"], e["P"], step_ops.traverse_warps(e["P"]) > 0) for e in trav["by_t"]] == [
         (16, 128, True), (64, 128, True), (152, 256, True), (448, 512, True), (500, 1024, False)]
     merge = rows[4]
     assert [e["rows"] for e in merge["by_rows_a_block"]] == [0, *smoke.WARPS_SWEEP]
     assert all(e["ms"] > 0 and e["warm_ms"] > 0 for e in merge["by_rows_a_block"])
-    assert [(e["t"], e["p"], e["rows"] > 0) for e in merge["by_t"]] == [
+    assert [(e["t"], e["p"], bitonic_ops.merge_rows(e["p"]) > 0) for e in merge["by_t"]] == [
         (16, 128, True), (64, 128, True), (152, 256, True), (448, 512, True), (500, 1024, False)]
-    assert merge["rows_a_block"] == bitonic_ops.MERGE_ROWS
+    assert bitonic_ops.MERGE_ROWS in smoke.WARPS_SWEEP
     assert all(e["ms"] > 0 and e["bound_ms"] > 0
                for e in sort["by_n"] + trav["by_t"] + merge["by_t"])
-    # K8's tiles and grids, and its general regime (queries 0).
+    # K8's tiles, and its general regime (queries 0).
     table = rows[7]
-    assert [(e["queries"], e["persistent"]) for e in table["by_tile"]] == [(0, False)] + [
-        (q, pg) for q in smoke.TABLE_SWEEP_QUERIES for pg in (False, True)]
+    assert [e["queries"] for e in table["by_tile"]] == [0, *smoke.TABLE_SWEEP_QUERIES]
     assert all(e["ms"] > 0 for e in table["by_tile"])
-    assert table["queries_a_tile"] == table_ops.TABLE_QUERIES
+    assert table_ops.TABLE_QUERIES in smoke.TABLE_SWEEP_QUERIES
+    # The line carries measured numbers: the wrappers' block shapes and tiles
+    # are constants, printed in the log only.
+    for r in rows:
+        entries = [r, *r.get("by_n", []), *r.get("by_t", [])]
+        assert not any({"rows", "warps", "rows_a_block", "warps_a_block", "queries_a_tile",
+                        "persistent"} & e.keys() for e in entries)
     assert all(r["launch_floor_ms"] > 0 for r in rows)
     assert rows[6]["shards"]["S"] == 4 and 0 < rows[6]["shards"]["bound_ms"] < rows[6]["bound_ms"]
     assert rows[7]["library_ms"] > 0 and rows[6]["library_ms"] is None

@@ -43,8 +43,8 @@ TABLE_SHAPES = [(1, 1, 4), (7, 6, 11), (13, 8, 16), (4, 74, 2)]   # tests/test_k
 # (table_ops.TILE_MAX_DSUB = 16): the main path's 4, the shapes above, and
 # d = 32 and 128 at m = 1.
 TABLE_DSUB = [1, 2, 4, 11, 16, 32, 128]
-# K8's tiles and grids (queries a tile, persistent), and its general regime.
-TABLE_TILES = [(0, False)] + [(qt, pg) for qt in (8, 16, 32, 64, 128) for pg in (False, True)]
+# K8's tiles (queries a tile), and its general regime (0).
+TABLE_TILES = [0, 8, 16, 32, 64, 128]
 # Card-only shapes of K2's two regimes (global lookups below
 # adc_ops.SHARED_TABLE_MIN_R candidates, a shared table from it on): R on
 # both sides of the crossover and at it, m a multiple of 8 and not.
@@ -319,7 +319,7 @@ def test_rerank_l2_ref_matches_pallas_and_reference_oracle(B, C, d):
 def test_table_regime_choice(dsub):
     """K8: the tile regime, TABLE_QUERIES queries a tile, up to TILE_MAX_DSUB;
     the general regime beyond. On the CPU the wrapper runs its plain version
-    at every tile and grid and counts no launch. Integer-valued inputs only
+    at every tile and counts no launch. Integer-valued inputs only
     (no random floats)."""
     queries = table_ops.table_queries(dsub)
     assert queries == (table_ops.TABLE_QUERIES if dsub <= table_ops.TILE_MAX_DSUB else 0)
@@ -329,8 +329,8 @@ def test_table_regime_choice(dsub):
     cb = ((torch.arange(m * 256 * dsub) % 13) - 6).float().reshape(m, 256, dsub)
     want = table_ops.dist_table_ref(q, cb)
     before = table_ops.dist_table.launches
-    outs = [table_ops.dist_table(q, cb), table_ops._dist_table(q, cb, queries=0, persistent=False)]
-    outs += [table_ops._dist_table(q, cb, queries=queries or 1, persistent=pg) for pg in (False, True)]
+    outs = [table_ops.dist_table(q, cb), table_ops._dist_table(q, cb, queries=0),
+            table_ops._dist_table(q, cb, queries=queries or 1)]
     for got in outs:
         assert torch.equal(got, want)
     assert table_ops.dist_table.launches == before
@@ -722,8 +722,7 @@ def test_dist_table_kernel_matches_plain(cuda, B, m, dsub):
 @functools.cache
 def _table_case(dsub):
     """K8's inputs at dsub and their plain table, made once for every tile:
-    B = 1031, not a multiple of any tile, and m = 256 / dsub subspaces, so
-    that the persistent grid loops over several tiles a block."""
+    B = 1031, not a multiple of any tile, and m = 256 / dsub subspaces."""
     B, m = 1031, max(1, 256 // dsub)
     rng = np.random.default_rng(dsub)
     q = torch.from_numpy(rng.standard_normal((B, m, dsub)).astype(np.float32))
@@ -733,15 +732,15 @@ def _table_case(dsub):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dsub", TABLE_DSUB)
-@pytest.mark.parametrize("queries,persistent", TABLE_TILES)
-def test_dist_table_regimes_match_plain(cuda, dsub, queries, persistent):
-    """K8 at every tile and grid chip_smoke.py times and in its general
+@pytest.mark.parametrize("queries", TABLE_TILES)
+def test_dist_table_regimes_match_plain(cuda, dsub, queries):
+    """K8 at every tile chip_smoke.py times and in its general
     regime: the plain version's bits. Beyond TILE_MAX_DSUB the tile regime
     refuses the launch."""
     q, cb, want = _table_case(dsub)
     if queries and dsub > table_ops.TILE_MAX_DSUB:
         with pytest.raises(RuntimeError, match="pq_table"):
-            table_ops._dist_table(q.to(cuda), cb.to(cuda), queries=queries, persistent=persistent)
+            table_ops._dist_table(q.to(cuda), cb.to(cuda), queries=queries)
         return
-    out = table_ops._dist_table(q.to(cuda), cb.to(cuda), queries=queries, persistent=persistent)
+    out = table_ops._dist_table(q.to(cuda), cb.to(cuda), queries=queries)
     assert torch.equal(out.cpu(), want)
