@@ -45,17 +45,27 @@ Phases, each timed; any failure exits non-zero:
      every K1 launch (K1's time grows with it). K8, which no
      search path runs, is driven through its own entry point
      (`kernels.pq_table.ops.build_dist_table`) on every batch;
-  5. a small corpus searched on the card and on the CPU, ids equal.
+  5. the Vamana cell: `BangIndex.build` over VAMANA_N points of the same
+     draw's shape (d = 128, m = 32, R = 64, L_build = 128, alpha = 1.2):
+     PQ trained and encoded on the card, the Vamana graph built on the
+     host, each timed; then 1,000 held-out queries through inmem, base and
+     exact (fused, t = 64), each with its launch counts set to 0 just
+     before it: recall@10 against brute force, mean hops, n_iters, QPS and
+     the idle share. Checks: fused ids equal kernel_mode="reference" ids on
+     every variant, base ids and distances equal inmem's;
+  6. a small corpus searched on the card and on the CPU, ids equal.
 
 Kernel times are taken cold: the timed calls cycle through copies of the
 inputs that together exceed twice the H100's 50 MB L2. Bounds count the bytes the function needs for this run's
 data (the 32-byte sectors of the tables that the codes look up, not whole
 tables).
 
-The graph is a harness graph built here on the card (per point the R/2
-exact nearest neighbours and R/2 seeded random ids): the port's Vamana build
-is a later slice. The last two lines of output are the card's name and power
-limit, then {"ok": true, "device": {...}}.
+Phase 4's graph is a harness graph built here on the card (per point the
+R/2 exact nearest neighbours and R/2 seeded random ids): the Vamana build is
+a sequential host loop that cannot build n = 10**6 within the run, so the
+real graph is phase 5's, at the largest n whose build keeps the script
+within about five minutes. The last two lines of output are the card's name
+and power limit, then {"ok": true, "device": {...}}.
 """
 from __future__ import annotations
 
@@ -82,6 +92,11 @@ TRAVERSE_SWEEP_T = (16, 64, 152, 448, 500)   # K6 and K5 timed at these t (R = 6
 TABLE_SWEEP_QUERIES = (8, 16, 32, 64, 128)   # K8 timed at these queries a tile
 SORT_SWEEP_N = (64, 512, 513, 1000)          # K4 timed at these n: both sides of its regimes
 INTRINSIC_DIM = 16             # per-cluster subspace of the synthetic corpus
+# The Vamana cell (phase 5): the largest n whose host build keeps the whole
+# script within about five minutes (3.6 ms a point and pass at n = 10**4,
+# R = 64, L = 128 on the H100 machine's host).
+VAMANA_N, VAMANA_QUERIES = 15_000, 1_000
+VAMANA_R, VAMANA_L, VAMANA_ALPHA = 64, 128, 1.2
 COPIES = 4                     # input copies cycled by timed calls, at least
 L2_BYTES = 50 * 2**20          # H100 L2; the copies together exceed twice this
 SECTOR = 32                    # bytes: the unit in which the card reads memory
@@ -748,6 +763,9 @@ PATH_KERNELS = {
     "sharded": ("local_adc", "fused_traverse", "rerank_l2"),
     "sharded-base": ("local_adc", "fused_traverse", "rerank_l2"),
     "pq_table": ("dist_table",),
+    "vamana-inmem": ("search_step", "pq_adc", "rerank_l2"),
+    "vamana-base": ("search_step", "pq_adc", "rerank_l2"),
+    "vamana-exact": ("fused_traverse",),
 }
 
 
@@ -1079,6 +1097,85 @@ def table_path(index, queries) -> dict:
     return dict(launches=launches, n_batches=n_batches, max_abs_diff=err, wall_ms=walls)
 
 
+# --------------------------------------------------------------- phase 5
+def vamana_cell(dev, card: str) -> dict:
+    """The Vamana cell: `BangIndex.build` (PQ on `dev`, the graph on the
+    host) over VAMANA_N points of the phase-4 draw's shape, then
+    VAMANA_QUERIES held-out queries through `index.search` on inmem, base
+    and exact (fused, t = 64), each run with every launch count set to 0
+    just before it. Checks: fused ids equal kernel_mode="reference" ids on
+    every variant, base ids and distances equal inmem's. Returns the build
+    and each path's measurements, keyed as the paths are named."""
+    import torch
+
+    from repro_torch import BangIndex, SearchConfig, brute_force_knn
+    from repro_torch.core import bang as bang_mod
+    from repro_torch.core import pq
+    from repro_torch.data import gaussian_mixture
+
+    both = gaussian_mixture(VAMANA_N + VAMANA_QUERIES, D, seed=SEED, intrinsic_dim=INTRINSIC_DIM)
+    data, queries = both[:VAMANA_N], both[VAMANA_N:]
+    # Time the graph inside `BangIndex.build`: the PQ work queued on the
+    # card before it is waited for first, so the split is PQ / graph / rest.
+    real_build, marks = bang_mod.build_vamana, {}
+
+    def timed_build(*args, **kwargs):
+        torch.cuda.synchronize()
+        marks["graph_start"] = time.perf_counter()
+        g = real_build(*args, **kwargs)
+        marks["graph_end"] = time.perf_counter()
+        return g
+
+    bang_mod.build_vamana = timed_build
+    try:
+        t0 = time.perf_counter()
+        index = BangIndex.build(data, m=M, R=VAMANA_R, L_build=VAMANA_L, alpha=VAMANA_ALPHA, seed=SEED,
+                                device=dev)
+        torch.cuda.synchronize()
+        t_end = time.perf_counter()
+    finally:
+        bang_mod.build_vamana = real_build
+    build = dict(pq_s=marks["graph_start"] - t0, graph_s=marks["graph_end"] - marks["graph_start"],
+                 index_s=t_end - marks["graph_end"], total_s=t_end - t0)
+    mean_deg, max_deg = index.graph.degree_stats()
+    build.update(mean_degree=mean_deg, max_degree=max_deg, medoid=index.graph.medoid,
+                 pq_error=pq.quantization_error(index.codec, index.data_dev))
+    log(f"[vamana] BangIndex.build n={VAMANA_N} d={D} m={M} R={VAMANA_R} L_build={VAMANA_L} "
+        f"alpha={VAMANA_ALPHA} (gaussian_mixture seed {SEED}, intrinsic_dim {INTRINSIC_DIM}): "
+        f"{build['total_s']:.3f} s = PQ on the card {build['pq_s']:.3f} s + graph on the host "
+        f"{build['graph_s']:.3f} s ({build['graph_s'] / (2 * VAMANA_N) * 1e3:.3f} ms a point and pass) "
+        f"+ index {build['index_s']:.3f} s; degree mean {mean_deg:.4f}, max {max_deg}, medoid "
+        f"{index.graph.medoid}; PQ error (mean squared reconstruction) {build['pq_error']:.6g}")
+
+    gt = brute_force_knn(data, queries, K, device=dev)
+    cfg = SearchConfig()
+    paths = {}
+    for variant in ("inmem", "base", "exact"):
+        name = f"vamana-{variant}"
+        # Warm-up batch (first-use allocations), not counted.
+        index.search(queries[:BATCH], K, cfg=cfg, variant=variant, kernel_mode="fused")
+        torch.cuda.synchronize()
+        res = run_path(name, index, queries, gt, cfg, variant, "fused", 1, card)
+        ref_ids, _, ref_st = index.search(queries, K, cfg=cfg, variant=variant, kernel_mode="reference",
+                                          return_stats=True)
+        check_same(f"{name} fused vs reference ids", [ref_ids], res["ids"])
+        # The plain mode's hops equal the kernels' (bit-exact search).
+        res["p95_hops"] = ref_st.p95_hops
+        set_profile(res, profile_batch(index, queries, cfg, variant, "fused", res["batch_wall_ms"][0]))
+        busy = res["device_busy_ms_per_batch"]
+        idle = "not measured" if busy is None else f"{100 * (1 - busy / res['batch_wall_ms'][0]):.1f}%"
+        log(f"[{name}] fused ids equal kernel_mode='reference' ids; p95 hops per query "
+            f"{res['p95_hops']:.2f} (cap {cfg.iters() - 1}); idle share {idle}")
+        paths[name] = res
+    check_same("vamana base vs inmem ids", paths["vamana-base"]["ids"], paths["vamana-inmem"]["ids"])
+    check_same("vamana base vs inmem distances", paths["vamana-base"]["dists"],
+               paths["vamana-inmem"]["dists"])
+    log("[check] vamana: base ids and distances equal inmem's")
+    for res in paths.values():
+        del res["ids"], res["dists"]
+    return dict(build=build, paths=paths)
+
+
 def profile_batch(index, queries, cfg, variant: str, kernel_mode: str,
                   batch_wall_ms: float) -> dict | None:
     """Device time by kernel over one batch (torch.profiler). Returns the
@@ -1185,6 +1282,12 @@ def main() -> int:
     t0 = time.perf_counter()
     res = main_path(dev, card)
     paths = res["paths"]
+    log(f"[main] phase: {time.perf_counter() - t0:.1f} s")
+
+    t0 = time.perf_counter()
+    vamana = vamana_cell(dev, card)
+    paths.update(vamana["paths"])
+    log(f"[vamana] phase: {time.perf_counter() - t0:.1f} s")
     rows[0]["fresh_lanes_inmem"] = res["fresh_lanes"]
     for row in rows:
         # A kernel's launches are those of the path that runs it; the counts
@@ -1198,7 +1301,6 @@ def main() -> int:
         row["launches"] = paths[primary]["launches"][row["name"]]
         row["launches_per_batch"] = paths[primary]["launches_per_batch"][row["name"]]
         row["launches_by_path"] = {p: r["launches"][row["name"]] for p, r in paths.items()}
-    log(f"[main] phase: {time.perf_counter() - t0:.1f} s")
 
     t0 = time.perf_counter()
     small = small_vs_cpu(dev)
@@ -1209,14 +1311,14 @@ def main() -> int:
             "host_gather_ms_per_batch", "host_gather_share", "collective_ms_per_batch",
             "collective_events_per_batch", "all_reduces_per_hop", "allreduce_ms",
             "allreduce_host_ms_per_batch",
-            "exchange_bytes_per_hop", "k7_k6_launches_per_batch")
+            "exchange_bytes_per_hop", "k7_k6_launches_per_batch", "p95_hops")
     summary = {p: {k: r[k] for k in keys if k in r} for p, r in paths.items()}
     for r in summary.values():
         busy = r["device_busy_ms_per_batch"]
         r["idle_share"] = None if busy is None else 1.0 - busy / float(np.mean(r["batch_wall_ms"]))
     log(f"[total] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": rows, "main_path": summary, "nn_contrast": res["nn_contrast"],
-                      "small_recall_at_10": small, "card": card}))
+                      "vamana_build": vamana["build"], "small_recall_at_10": small, "card": card}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

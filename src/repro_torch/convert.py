@@ -1,7 +1,9 @@
 """State carried across from the reference package.
 
-`index_from_reference` takes an index built by the JAX package, handed over
-as numpy arrays, and returns the port's `BangIndex` over the same state::
+The port builds its own indexes (`BangIndex.build`); an index the reference
+package has built need not be built again. `index_from_reference` takes it,
+handed over as numpy arrays, and returns the port's `BangIndex` over the
+same state::
 
     arrays = {
         "codebooks": np.asarray(idx.codec.codebooks),  # (m, 256, dsub) f32

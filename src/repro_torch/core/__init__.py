@@ -1,7 +1,7 @@
 # BANG core, ported to PyTorch:
 #   kmeans / pq        -- PQ codec + PQDistTable (stage 1)
 #   bloom              -- visited-set bloom filter (§4.4)
-#   vamana             -- the graph container the search reads
+#   vamana             -- Vamana graph construction (host numpy) + the graph container
 #   worklist / search  -- Algorithm 2 batched greedy search (stage 2)
 #   hostrows           -- host tables (pinned) whose rows go to the device (base)
 #   rerank             -- exact-distance re-ranking (stage 3, §4.9)

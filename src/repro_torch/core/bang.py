@@ -14,11 +14,13 @@ modes: "fused" (the hop in one kernel), "staged" (one kernel per stage) and
 `kernel_mode` a search on a CUDA index runs "fused", one on a CPU index
 "reference".
 
-An index serves one device, CUDA unless the caller asks for the CPU. The
-adjacency and the full vectors are kept in host memory (pinned for a CUDA
-index) as BANG Base reads them; the vectors also on the device unless
-`keep_device_data=False`, and the adjacency goes to the device the first
-time an "inmem" or "exact" executor needs it.
+An index serves one device, CUDA unless the caller asks for the CPU. It is
+built with `BangIndex.build` (PQ codebooks trained and the codes encoded on
+the device, the Vamana graph built on the host) or assembled from arrays
+with `BangIndex.from_arrays`. The adjacency and the full vectors are kept in
+host memory (pinned for a CUDA index) as BANG Base reads them; the vectors
+also on the device unless `keep_device_data=False`, and the adjacency goes
+to the device the first time an "inmem" or "exact" executor needs it.
 """
 from __future__ import annotations
 
@@ -30,7 +32,7 @@ import torch
 
 from . import pq as pqlib
 from .search import SearchConfig
-from .vamana import VamanaGraph
+from .vamana import VamanaGraph, build_vamana
 from ..kernels.common import resolve_device
 
 
@@ -67,6 +69,40 @@ class BangIndex:
     _executors: dict[str, Any] = dataclasses.field(
         default_factory=dict, repr=False, compare=False,
     )
+
+    @classmethod
+    def build(
+        cls,
+        data: np.ndarray | torch.Tensor,
+        *,
+        m: int = 16,
+        R: int = 32,
+        L_build: int = 64,
+        alpha: float = 1.2,
+        kmeans_iters: int = 12,
+        seed: int = 0,
+        keep_device_data: bool = True,
+        graph: VamanaGraph | None = None,
+        device: str | torch.device = "cuda",
+    ) -> "BangIndex":
+        """Build an index over (n, d) vectors: PQ codebooks trained and the
+        codes encoded on `device` (plain torch), the Vamana graph built on
+        the host (`build_vamana(data, R, L_build, alpha, seed=seed)`) unless
+        `graph` is given. The rest is `from_arrays`: its checks, and the
+        host tables pinned for a CUDA index. Raises when `device` is CUDA
+        and no card exists."""
+        dev = resolve_device(device)
+        if isinstance(data, torch.Tensor):
+            data = data.detach().cpu().numpy()
+        data = np.asarray(data, np.float32)
+        x = torch.from_numpy(data).to(dev)
+        codec = pqlib.train_pq(x, m, iters=kmeans_iters)
+        codes = pqlib.pq_encode(codec, x)
+        del x
+        if graph is None:
+            graph = build_vamana(data, R=R, L=L_build, alpha=alpha, seed=seed)
+        return cls.from_arrays(codec.codebooks, codes, graph.adjacency, graph.medoid, data,
+                               device=dev, keep_device_data=keep_device_data)
 
     @classmethod
     def from_arrays(

@@ -31,11 +31,42 @@ def _lloyd_iter(x: torch.Tensor, centroids: torch.Tensor) -> torch.Tensor:
     return torch.where((counts == 0)[..., None], far_pt, new_c)
 
 
+def _lloyd(x: torch.Tensor, centroids: torch.Tensor, iters: int) -> torch.Tensor:
+    """`iters` Lloyd iterations over (m, n, d) points from (m, k, d) centroids."""
+    for _ in range(iters):
+        centroids = _lloyd_iter(x, centroids)
+    return centroids
+
+
+def _strided_init(n: int, k: int, device) -> torch.Tensor:
+    """The reference's deterministic initialisation: k strided row ids."""
+    return (torch.arange(k, device=device) * max(n // k, 1)) % n
+
+
+def kmeans(
+    x: torch.Tensor, k: int, iters: int = 12, *, generator: torch.Generator | None = None
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Lloyd's k-means on (n, d) data: (centroids (k, d), assignment (n,)).
+
+    Initialisation: the deterministic strided sample of the data when
+    `generator` is None (n >= k assumed; if n < k the extra centroids
+    coincide and empty-cluster repair spreads them), else k rows drawn with
+    `generator` (without replacement while n >= k). The reference draws them
+    with a JAX key; only the strided initialisation gives its centroids.
+    """
+    n = x.shape[0]
+    if generator is None:
+        idx = _strided_init(n, k, x.device)
+    elif n >= k:
+        idx = torch.randperm(n, generator=generator, device=generator.device)[:k].to(x.device)
+    else:
+        idx = torch.randint(0, n, (k,), generator=generator, device=generator.device).to(x.device)
+    centroids = _lloyd(x[None], x[idx][None], iters)[0]
+    assign = torch.argmin(_pairwise_sq_dists(x, centroids), dim=-1)
+    return centroids, assign
+
+
 def kmeans_per_subspace(x_sub: torch.Tensor, k: int, iters: int = 12) -> torch.Tensor:
     """k-means independently per subspace: (m, n, dsub) -> codebooks (m, k, dsub)."""
-    n = x_sub.shape[1]
-    idx = (torch.arange(k, device=x_sub.device) * max(n // k, 1)) % n
-    c = x_sub[:, idx]
-    for _ in range(iters):
-        c = _lloyd_iter(x_sub, c)
-    return c
+    idx = _strided_init(x_sub.shape[1], k, x_sub.device)
+    return _lloyd(x_sub, x_sub[:, idx], iters)

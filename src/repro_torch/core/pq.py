@@ -118,3 +118,10 @@ def adc_distance(table: torch.Tensor, codes: torch.Tensor) -> torch.Tensor:
     )[..., 0]
     return adc_sum(gathered)
 
+
+def quantization_error(codec: PQCodec, data: torch.Tensor) -> float:
+    """Mean squared reconstruction error (codec quality diagnostic)."""
+    data = data.to(torch.float32)
+    rec = pq_decode(codec, pq_encode(codec, data))
+    d = data.shape[1]
+    return float(((rec[:, :d] - data) ** 2).sum(-1).mean())

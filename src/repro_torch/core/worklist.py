@@ -68,6 +68,39 @@ def merge_worklist(wl: Worklist, cand_dists: torch.Tensor, cand_ids: torch.Tenso
     )
 
 
+def merge_path_reference(
+    d1: torch.Tensor, i1: torch.Tensor, d2: torch.Tensor, i2: torch.Tensor
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Merge-path merge of two lists sorted by (dist, id) (paper §4.8, Green
+    et al. [21]): the host oracle of the bitonic merge.
+
+    Each element's output slot is its own position plus its rank in the
+    other list: list-1 elements count the list-2 keys strictly below them,
+    list-2 elements the list-1 keys at or below them, so the slots are a
+    permutation. Batched over the leading axis: (B, n1) and (B, n2) in,
+    merged (B, n1 + n2) dists and ids out.
+    """
+
+    def rank(dq, iq, dref, iref, strict: bool) -> torch.Tensor:
+        # Elements of ref that precede each (dq, iq): (B, nq).
+        dr, ir = dref[:, None, :], iref[:, None, :]
+        dq, iq = dq[:, :, None], iq[:, :, None]
+        lt = (dr < dq) | ((dr == dq) & (ir < iq))
+        if not strict:
+            lt = lt | ((dr == dq) & (ir == iq))
+        return lt.sum(-1)
+
+    B, n1 = d1.shape
+    n2 = d2.shape[1]
+    pos1 = torch.arange(n1, device=d1.device) + rank(d1, i1, d2, i2, strict=True)
+    pos2 = torch.arange(n2, device=d1.device) + rank(d2, i2, d1, i1, strict=False)
+    out_d = torch.zeros((B, n1 + n2), dtype=d1.dtype, device=d1.device)
+    out_i = torch.zeros((B, n1 + n2), dtype=i1.dtype, device=d1.device)
+    out_d.scatter_(1, pos1, d1).scatter_(1, pos2, d2)
+    out_i.scatter_(1, pos1, i1).scatter_(1, pos2, i2)
+    return out_d, out_i
+
+
 def first_unvisited(wl: Worklist) -> tuple[torch.Tensor, torch.Tensor]:
     """First unvisited entry per query (Algorithm 2 line 15).
 

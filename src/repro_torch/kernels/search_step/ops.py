@@ -15,6 +15,13 @@ kernel gathers code rows straight from global memory at any n. `tile_rows`
 is accepted and validated so configurations carry over, and changes no bit
 of the result. `local_adc` likewise serves both `local_adc_pallas` and
 `local_adc_dma_pallas`.
+
+The card has no VMEM to budget, so the reference's placement decision
+(`resolve_codes_tiling`, `vmem_budget_bytes` and its `REPRO_VMEM_BUDGET`
+knob) has no counterpart here. What stays is the traffic model
+(`hbm_candidate_roundtrips_per_hop`, `hbm_intermediate_bytes_per_hop`,
+`hbm_codes_stream_bytes_per_hop`), counted from this port's code: the hop
+kernels here and the staged step of `repro_torch.core.search`.
 """
 from __future__ import annotations
 
@@ -225,4 +232,61 @@ fused_step.launches = 0
 fused_traverse.launches = 0
 local_adc.launches = 0
 
-__all__ = ["fused_step", "fused_traverse", "local_adc", "local_adc_ref", "step_ref", "traverse_ref"]
+
+# ---------------------------------------------------------------- accounting
+def hbm_candidate_roundtrips_per_hop(mode: str) -> int:
+    """How many times one hop's (B, R) candidate tile crosses device memory.
+
+    fused: K1 takes the neighbour ids in and scores, sorts and merges the
+    tile in registers and shared memory, so it crosses once. staged
+    (`StagedStep`): K2 writes the distances, K4 reads them and writes the
+    sorted tile, K5 reads it -- four crossings. reference: the same four
+    stage boundaries at least; eager PyTorch also materialises every op
+    between them.
+    """
+    return {"fused": 1, "staged": 4, "reference": 4}[mode]
+
+
+def hbm_intermediate_bytes_per_hop(mode: str, batch: int, R: int, m: int, t: int) -> int:
+    """Device-memory bytes of the intermediates one hop writes between its
+    stages (not the loop state the hop reads: neighbour ids, fresh mask,
+    worklist). `t` does not enter: the worklist is loop state.
+
+    fused: none (K1 keeps the gather, the distances and the sorted tile on
+    chip). staged and reference, as `StagedStep.step` and its PQ distance
+    function write them, per (query, lane): the safe ids (`zeros_like`, the
+    int32 `where` and its int64 copy, 4 + 4 + 8 bytes), the gathered code
+    rows (m bytes of uint8), the distances (4), the candidate ids
+    (`full_like` and `where`, 4 + 4) and the sorted tile (4 + 4).
+    """
+    if mode == "fused":
+        return 0
+    return batch * R * (4 + 4 + 8 + m + 4 + 4 + 4 + 8)
+
+
+def hbm_codes_stream_bytes_per_hop(
+    mode: str, batch: int, n: int, m: int, tile_rows: int = 0, *, R: int
+) -> int:
+    """Bytes of code rows the fused hop kernel reads a hop, at most.
+
+    K1 gathers from global memory the (m-byte) code row of each fresh lane
+    only, at any n: at most B·R rows a hop, whatever the size of the codes
+    block (n) and `tile_rows` (validated, no effect). The TPU kernel read
+    the whole (n, m) block instead. A lane that the bloom filter or the
+    worklist ruled out reads nothing, so the hop's real figure is the fresh
+    lanes times m. staged and reference gather the same rows in PyTorch
+    before the ADC kernel, counted as the gathered tile of
+    `hbm_intermediate_bytes_per_hop`, so this lane reports 0 for them.
+    """
+    if int(tile_rows) != tile_rows or tile_rows < 0:
+        raise ValueError(f"tile_rows must be an integer >= 0, got {tile_rows}")
+    if mode != "fused":
+        return 0
+    return batch * R * m
+
+
+__all__ = [
+    "fused_step", "fused_traverse", "local_adc", "local_adc_ref", "step_ref", "traverse_ref",
+    "hbm_candidate_roundtrips_per_hop", "hbm_intermediate_bytes_per_hop",
+    "hbm_codes_stream_bytes_per_hop",
+]

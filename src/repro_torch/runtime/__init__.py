@@ -1,4 +1,16 @@
-# Serving runtime of the port: the single-device executor (inmem, base and
-# exact variants) and the mesh executor (sharded, sharded-base).
+# Serving runtime of the port:
+#   executor    -- the single-device executor (inmem, base and exact variants)
+#   sharded     -- the mesh executor (sharded, sharded-base)
+#   resilience  -- fault injection + fault-handling policy for the host tier
+#   telemetry   -- metrics registry + exporters, request tracing (Chrome
+#                  trace JSON), per-hop profiling, fault flight recorder
 from .executor import SearchExecutor, SearchHandle, bucket_size, pad_batch  # noqa: F401
+from .resilience import FaultInjector, FaultSpec, ResilienceConfig  # noqa: F401
 from .sharded import SHARDED_VARIANTS, ShardedSearchExecutor  # noqa: F401
+from .telemetry import (  # noqa: F401
+    FlightRecorder,
+    HopProfiler,
+    MetricsRegistry,
+    Telemetry,
+    Tracer,
+)

@@ -20,6 +20,13 @@ through `dispatch` / `finish`:
   * **Kernel mode.** A configuration without `kernel_mode` runs "fused" on
     a CUDA device and "reference" on the CPU; the mode is resolved here,
     before the cache key is formed.
+  * **Telemetry.** `set_telemetry` attaches a
+    `repro_torch.runtime.telemetry.Telemetry` bundle as executor state: a
+    pipeline build on a cache miss adds its seconds to
+    `bang_serve_compile_seconds_total` (and a `compile` span to an attached
+    tracer), and with a profiler attached each dispatch stamps its kernel
+    metadata and runs inside a `bang_dispatch:<mode>:b<bucket>` profiler
+    range. The bundle never enters a cache key and changes no result.
 
 Variants, as the reference's `_compile` dispatches them:
 
@@ -136,8 +143,10 @@ class SearchExecutor:
             if data is None:
                 self.host_data = HostRows(host_data, self.device)
         self._dim = int((data if data is not None else host_data).shape[1])
+        self.R = int((adjacency if adjacency is not None else host_adjacency).shape[1])
         self._cache: dict[Any, Any] = {}
         self.trace_counts: dict[Any, int] = {}
+        self.telemetry = None
 
     @classmethod
     def from_index(cls, index, variant: str = "inmem") -> "SearchExecutor":
@@ -162,6 +171,13 @@ class SearchExecutor:
     def _bucket_for(self, batch: int) -> int:
         return bucket_size(batch)
 
+    def set_telemetry(self, telemetry) -> "SearchExecutor":
+        """Attach (or detach, with None) a telemetry bundle. Host-side
+        state only: the pipeline cache, its keys and every result are the
+        same with or without it."""
+        self.telemetry = telemetry
+        return self
+
     # -------------------------------------------------------------- building
     def _pipeline(self, bucket: int, d: int, k: int, rerank: bool, cfg: SearchConfig):
         """Cached pipeline for the key, and the seconds its set-up took.
@@ -171,6 +187,26 @@ class SearchExecutor:
         if fn is not None:
             return fn, 0.0
         t0 = time.perf_counter()
+        fn = self._build_pipeline(k, rerank, cfg)
+        t1 = time.perf_counter()
+        self._cache[key] = fn
+        self.trace_counts[key] = self.trace_counts.get(key, 0) + 1
+        tel = self.telemetry
+        if tel is not None:
+            tel.registry.counter(
+                "bang_serve_compile_seconds_total",
+                "wall seconds spent building search pipelines (cache misses)",
+            ).inc(t1 - t0)
+            if tel.tracer is not None:
+                tr = tel.tracer
+                tr.complete("compile", tr.at_us(t0), tr.at_us(t1), track="serve",
+                            bucket=bucket, k=k, kernel_mode=cfg.kernel_mode)
+        return fn, t1 - t0
+
+    def _build_pipeline(self, k: int, rerank: bool, cfg: SearchConfig):
+        """The pipeline for one cache key (subclass hook): a function of the
+        padded (bucket, d) queries on the device that returns (ids, dists,
+        n_hops, n_iters)."""
         use_kernels = cfg.kernel_mode != "reference"
         variant = self.variant
 
@@ -200,9 +236,7 @@ class SearchExecutor:
                 ids, dists = res.worklist.ids[:, :k], res.worklist.dists[:, :k]
             return ids, dists, res.n_hops, res.n_iters
 
-        self._cache[key] = pipeline
-        self.trace_counts[key] = self.trace_counts.get(key, 0) + 1
-        return pipeline, time.perf_counter() - t0
+        return pipeline
 
     # -------------------------------------------------------------- serving
     def dispatch(
@@ -237,7 +271,17 @@ class SearchExecutor:
         pipeline, compile_s = self._pipeline(bucket, d, k, rerank, cfg)
         q_dev = torch.from_numpy(pad_batch(q, bucket)).to(self.device)
         t0 = time.perf_counter()
-        ids, dists, n_hops, n_iters = pipeline(q_dev)
+        tel = self.telemetry
+        if tel is not None and tel.profiler is not None:
+            # Kernel metadata for the codes-stream model, and a named
+            # profiler range around the batch's kernels.
+            n_block, m = self._codes.shape
+            tel.profiler.set_kernel_info(kernel_mode=cfg.kernel_mode, batch=bucket, n=n_block,
+                                         m=m, R=self.R, tile_rows=cfg.codes_tile_rows)
+            with tel.profiler.annotate(f"bang_dispatch:{cfg.kernel_mode}:b{bucket}"):
+                ids, dists, n_hops, n_iters = pipeline(q_dev)
+        else:
+            ids, dists, n_hops, n_iters = pipeline(q_dev)
         done = None
         if self.device.type == "cuda":
             done = torch.cuda.Event()

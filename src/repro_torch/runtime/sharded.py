@@ -39,8 +39,6 @@ Typical use, one process per rank (`torchrun --nproc-per-node=N`)::
 """
 from __future__ import annotations
 
-import time
-
 import torch
 
 from repro_torch.core import pq as pqlib
@@ -128,6 +126,7 @@ class ShardedSearchExecutor(SearchExecutor):
             self._adjacency = adjacency.to(self.device)
         self._cache = {}
         self.trace_counts = {}
+        self.telemetry = None
 
     @classmethod
     def from_index(cls, index, mesh, **kw) -> "ShardedSearchExecutor":
@@ -145,14 +144,9 @@ class ShardedSearchExecutor(SearchExecutor):
         return b if b % D == 0 else -(-b // D) * D
 
     # -------------------------------------------------------------- building
-    def _pipeline(self, bucket: int, d: int, k: int, rerank: bool, cfg: SearchConfig):
-        """Cached pipeline for the key, and the seconds its set-up took.
-        `cfg.kernel_mode` is resolved."""
-        key = (bucket, d, k, rerank, cfg)
-        fn = self._cache.get(key)
-        if fn is not None:
-            return fn, 0.0
-        t0 = time.perf_counter()
+    def _build_pipeline(self, k: int, rerank: bool, cfg: SearchConfig):
+        """The mesh pipeline: this rank's slice of the queries searched over
+        the model group, the slices gathered over the data group."""
 
         def pipeline(queries: torch.Tensor):
             q = data_slice(queries, self.mesh)
@@ -172,9 +166,7 @@ class ShardedSearchExecutor(SearchExecutor):
             return (whole[:, :k], whole[:, k : 2 * k].contiguous().view(torch.float32),
                     whole[:, 2 * k], whole[:, 2 * k + 1].max())
 
-        self._cache[key] = pipeline
-        self.trace_counts[key] = self.trace_counts.get(key, 0) + 1
-        return pipeline, time.perf_counter() - t0
+        return pipeline
 
     # ------------------------------------------------------------ accounting
     def exchange_bytes_per_hop(self, batch: int) -> dict:

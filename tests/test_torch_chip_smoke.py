@@ -5,7 +5,7 @@ checks (base ids equal to inmem's, staged ids equal to fused ids, exact
 fused ids equal to its reference mode's, exact re-rank distances, the mesh
 paths equal to inmem and base on a one-rank gloo group, the distance-table
 entry point, card vs CPU ids) at n = 3,000, d = 32, m = 8 instead of the
-card's sizes. Nothing
+card's sizes, and the Vamana cell at n = 800, R = 16, L_build = 32. Nothing
 launches on the CPU, so the wrappers are counted by stand-ins, times come
 from the host clock, and the device profile is left out.
 """
@@ -16,6 +16,7 @@ from pathlib import Path
 import pytest
 import torch
 
+from repro_torch import SearchConfig
 from repro_torch.kernels import common
 from repro_torch.kernels.bitonic import ops as bitonic_ops
 from repro_torch.kernels.pq_adc import ops as adc_ops
@@ -50,6 +51,7 @@ def smoke(monkeypatch):
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
     for name, value in (("N", 3000), ("D", 32), ("M", 8), ("N_QUERIES", 80), ("BATCH", 32),
+                        ("VAMANA_N", 800), ("VAMANA_QUERIES", 30), ("VAMANA_R", 16), ("VAMANA_L", 32),
                         ("PATH_BATCHES", {"inmem": 3, "base": 2, "exact": 2, "sharded": 3,
                                           "sharded-base": 2}),
                         ("time_ms", _host_time_ms)):
@@ -160,3 +162,31 @@ def test_chip_smoke_refuses_without_a_card(smoke, capsys):
         pytest.skip("a CUDA device is present")
     assert smoke.main() != 0
     assert '"ok"' not in capsys.readouterr().out
+
+
+def test_chip_smoke_vamana_cell_on_cpu(smoke):
+    from repro_torch.core.vamana import build_vamana
+    from repro_torch.data import gaussian_mixture
+
+    res = smoke.vamana_cell(torch.device("cpu"), "cpu")
+    build, paths = res["build"], res["paths"]
+    assert build["total_s"] >= build["pq_s"] + build["graph_s"] > 0
+    # The cell's graph is the host build of the same data and parameters.
+    data = gaussian_mixture(smoke.VAMANA_N + smoke.VAMANA_QUERIES, smoke.D, seed=smoke.SEED,
+                            intrinsic_dim=smoke.INTRINSIC_DIM)[: smoke.VAMANA_N]
+    g = build_vamana(data, R=16, L=32, alpha=smoke.VAMANA_ALPHA, seed=smoke.SEED)
+    assert (build["mean_degree"], build["max_degree"]) == g.degree_stats()
+    assert build["medoid"] == g.medoid and build["pq_error"] > 0
+    assert list(paths) == ["vamana-inmem", "vamana-base", "vamana-exact"]
+    for name, r in paths.items():
+        assert r["n_batches"] == 1 and 0.5 < r["recall_at_10"] <= 1.0
+        assert 0 < r["mean_hops"] <= r["n_iters"][0] < SearchConfig().iters()
+        assert 0 < r["p95_hops"] <= r["n_iters"][0]
+        assert r["device_busy_ms_per_batch"] is None
+    inmem, base, exact = paths.values()
+    hops = inmem["n_iters"][0]
+    assert inmem["launches"]["search_step"] == hops and inmem["launches"]["pq_adc"] == 1
+    assert inmem["launches"]["rerank_l2"] == 1 and inmem["launches"]["fused_traverse"] == 0
+    assert base["launches"] == inmem["launches"] and base["recall_at_10"] == inmem["recall_at_10"]
+    assert exact["launches"]["fused_traverse"] == exact["n_iters"][0]
+    assert exact["launches"]["search_step"] == exact["launches"]["rerank_l2"] == 0

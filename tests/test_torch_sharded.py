@@ -270,6 +270,32 @@ def test_sharded_compile_cache_and_buckets(one_rank, port_index):
     assert ex.autotune_shape() == (idx.graph.adjacency.shape[1], idx.codes.shape[1], idx.codes.shape[0])
 
 
+@pytest.mark.parametrize("variant", SHARDED_VARIANTS)
+def test_sharded_set_telemetry_changes_no_key_and_no_result(one_rank, port_index, variant):
+    """The mesh executor inherits the telemetry seams: the build is counted
+    and traced, the dispatch stamped with the per-shard codes block, and
+    keys, build counts and results stay those of a detached executor."""
+    from repro_torch.runtime.telemetry import Telemetry
+
+    data, idx, arrays, _ = port_index
+    tidx = index_from_reference(arrays, device="cpu")
+    q = uniform_queries(data, 6, seed=5)
+    cfg = SearchConfig(t=16, bloom_z=4096)
+    off = ShardedSearchExecutor.from_index(tidx, one_rank, variant=variant)
+    on = ShardedSearchExecutor.from_index(tidx, one_rank, variant=variant)
+    tel = Telemetry.create(trace=True, profile=True)
+    assert off.telemetry is None and on.set_telemetry(tel) is on
+    ids_off, d_off = off.search(q, K, cfg=cfg, kernel_mode="fused")
+    ids_on, d_on = on.search(q, K, cfg=cfg, kernel_mode="fused")
+    assert torch.equal(ids_on, ids_off) and torch.equal(d_on, d_off)
+    assert list(on._cache) == list(off._cache) and on.trace_counts == off.trace_counts
+    assert tel.registry.counter("bang_serve_compile_seconds_total").value > 0
+    assert [e["args"]["kernel_mode"] for e in tel.tracer.events() if e["name"] == "compile"] == ["fused"]
+    R, m, n_block = on.autotune_shape()
+    assert tel.profiler.summary()["kernel_info"] == {
+        "kernel_mode": "fused", "batch": 8, "n": n_block, "m": m, "R": R, "tile_rows": 0}
+
+
 def test_sharded_base_link_bytes_and_exchange_accounting(one_rank, port_index):
     """Sharded base on one rank: the frontier down and the rows up,
     (B + B*R)*4 bytes a hop, equal to `exchange_bytes_per_hop`; ids and
