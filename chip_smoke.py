@@ -45,6 +45,21 @@ Phases, each timed; any failure exits non-zero:
      every K1 launch (K1's time grows with it). K8, which no
      search path runs, is driven through its own entry point
      (`kernels.pq_table.ops.build_dist_table`) on every batch;
+  4b. host I/O and serving, on phase 4's index and queries: base (fused)
+     through the host-I/O subsystem in three configurations (one worker,
+     the service's synchronous path; four workers with the prefetched
+     exchange; and that with 65,536 hot adjacency rows pinned on the card),
+     and sharded-base with the last on the one-rank NCCL mesh, ten batches
+     each: ids and distances equal to the plain path's on every batch, K1
+     (or K7 and K6) on every hop, no prefetch miss, hedge or degraded lane;
+     QPS, idle share, overlap fraction, hot-cache hit rate, host-link bytes,
+     the service's mean latency, and each hop's host time split into the
+     wait for the device, the host gather and the copy up (also for phase
+     4's inline base hop). Then `ServePipeline` over inmem and over
+     host-I/O base: every query with its ground truth in micro-batches of
+     1,024 (QPS, p50/p95 latency, recall equal to the plain path's, ids
+     equal), and the first 1,024 again, served bit-identically from the
+     result cache;
   5. the Vamana cell: `BangIndex.build` over VAMANA_N points of the same
      draw's shape (d = 128, m = 32, R = 64, L_build = 128, alpha = 1.2):
      PQ trained and encoded on the card, the Vamana graph built on the
@@ -52,7 +67,9 @@ Phases, each timed; any failure exits non-zero:
      exact (fused, t = 64), each with its launch counts set to 0 just
      before it: recall@10 against brute force, mean hops, n_iters, QPS and
      the idle share. Checks: fused ids equal kernel_mode="reference" ids on
-     every variant, base ids and distances equal inmem's;
+     every variant, base ids and distances equal inmem's; and one batch of
+     host-I/O base (four workers, 1,500 hot rows, prefetch), ids and
+     distances equal base's, with the hot cache's hit rate on this graph;
   6. a small corpus searched on the card and on the CPU, ids equal.
 
 Kernel times are taken cold: the timed calls cycle through copies of the
@@ -766,14 +783,22 @@ PATH_KERNELS = {
     "vamana-inmem": ("search_step", "pq_adc", "rerank_l2"),
     "vamana-base": ("search_step", "pq_adc", "rerank_l2"),
     "vamana-exact": ("fused_traverse",),
+    "base-hostio-w1": ("search_step", "pq_adc", "rerank_l2"),
+    "base-hostio-w4-p": ("search_step", "pq_adc", "rerank_l2"),
+    "base-hostio-w4-c64k-p": ("search_step", "pq_adc", "rerank_l2"),
+    "sharded-base-hostio": ("local_adc", "fused_traverse", "rerank_l2"),
+    "serve-inmem": ("search_step", "pq_adc", "rerank_l2"),
+    "serve-base-hostio": ("search_step", "pq_adc", "rerank_l2"),
+    "vamana-base-hostio": ("search_step", "pq_adc", "rerank_l2"),
 }
 
 
 def run_path(name: str, index, queries, gt, cfg, variant: str, kernel_mode: str, n_batches: int,
-             card: str) -> dict:
-    """Drive one path through `BangIndex.search`, with every launch count set
-    to 0 just before and read just after. Returns its measurements, the ids
-    and distances of every batch, and the launches."""
+             card: str, hostio=None) -> dict:
+    """Drive one path through `BangIndex.search` (with `hostio`, through the
+    host-I/O subsystem), with every launch count set to 0 just before and
+    read just after. Returns its measurements, the ids and distances of
+    every batch, and the launches."""
     import torch
 
     from repro_torch import recall_at_k
@@ -783,7 +808,7 @@ def run_path(name: str, index, queries, gt, cfg, variant: str, kernel_mode: str,
     t_all = time.perf_counter()
     for b in range(n_batches):
         ids, dists, st = index.search(queries[b * BATCH : (b + 1) * BATCH], K, cfg=cfg, variant=variant,
-                                      kernel_mode=kernel_mode, return_stats=True)
+                                      kernel_mode=kernel_mode, return_stats=True, hostio=hostio)
         ids_all.append(ids)
         dists_all.append(dists)
         walls.append(st.wall_s)
@@ -804,8 +829,8 @@ def run_path(name: str, index, queries, gt, cfg, variant: str, kernel_mode: str,
                batch_wall_ms=[w * 1e3 for w in walls], launches=launches,
                launches_per_batch={k: v / n_batches for k, v in launches.items()},
                ids=ids_all, dists=dists_all, total_s=total_s)
-    log(f"[{name}] {variant} {kernel_mode}, SearchConfig(t={cfg.t}, bloom_z={cfg.bloom_z}, "
-        f"eager={cfg.eager}), k={K}, {nq} queries / {n_batches} batches on {card}: recall@10 "
+    log(f"[{name}] {variant} {kernel_mode}{'' if hostio is None else f', {hostio}'}, SearchConfig(t={cfg.t}, "
+        f"bloom_z={cfg.bloom_z}, eager={cfg.eager}), k={K}, {nq} queries / {n_batches} batches on {card}: recall@10 "
         f"{rec:.5f}, QPS {res['qps']:.1f}, n_iters {iters} (cap {cfg.iters() - 1}), mean hops per "
         f"query {res['mean_hops']:.2f}, batch wall ms {[round(w * 1e3, 2) for w in walls]}")
     log(f"[{name}] launches in the path's run: {launches}")
@@ -883,13 +908,15 @@ def main_path(dev, card: str) -> dict:
             # the host seconds their gathers take.
             nbr, vec = index.executor("base").neighbors, index.executor("base").host_data
             before = (nbr.frontier_bytes, nbr.rows.bytes_sent, nbr.rows.seconds, vec.bytes_sent,
-                      vec.seconds)
+                      vec.seconds, nbr.wait_s, nbr.rows.gather_s, nbr.rows.send_s)
         res = run_path(variant, index, queries, gt, cfg, variant, "fused", PATH_BATCHES[variant], card)
         if variant == "base":
-            down, up, adj_s, vec_bytes, vec_s = (
+            down, up, adj_s, vec_bytes, vec_s, wait_s, gather_s, send_s = (
                 a - b for a, b in zip((nbr.frontier_bytes, nbr.rows.bytes_sent, nbr.rows.seconds,
-                                       vec.bytes_sent, vec.seconds), before))
+                                       vec.bytes_sent, vec.seconds, nbr.wait_s, nbr.rows.gather_s,
+                                       nbr.rows.send_s), before))
             nb = res["n_batches"]
+            res["hop_split_ms"] = hop_split(wait_s, gather_s, send_s, sum(res["n_iters"]))
             res["link_bytes_per_hop"] = (down + up) / sum(res["n_iters"])
             res["rerank_bytes_per_batch"] = vec_bytes / nb
             res["host_gather_ms_per_batch"] = {"adjacency": adj_s * 1e3 / nb, "vectors": vec_s * 1e3 / nb}
@@ -898,7 +925,8 @@ def main_path(dev, card: str) -> dict:
                 f"{(BATCH + BATCH * R) * 4}); re-rank vectors per batch "
                 f"{res['rerank_bytes_per_batch'] / 2**20:.1f} MiB; host gathers per batch: adjacency "
                 f"rows {adj_s * 1e3 / nb:.2f} ms, re-rank vectors {vec_s * 1e3 / nb:.2f} ms, "
-                f"{100 * res['host_gather_share']:.1f}% of the batch wall")
+                f"{100 * res['host_gather_share']:.1f}% of the batch wall; the inline hop's host ms "
+                f"(host clocks): {fmt_split(res['hop_split_ms'])}")
         set_profile(res, profile_batch(index, q0, cfg, variant, "fused",
                                        float(np.mean(res["batch_wall_ms"]))))
         paths[variant] = res
@@ -943,10 +971,15 @@ def main_path(dev, card: str) -> dict:
     log(f"[check] index.search(q) with no kernel_mode launched search_step {k1} times and "
         f"returned the fused path's ids")
 
+    # What the host-I/O phase reuses: the index, the queries, and each
+    # twin path's ids and distances.
+    ctx = dict(index=index, queries=queries, gt=gt, cfg=cfg,
+               twins={p: (paths[p]["ids"], paths[p]["dists"], paths[p]["recall_at_10"])
+                      for p in ("inmem", "base", "sharded-base")})
     for res in paths.values():
         del res["ids"], res["dists"]
     return dict(paths=paths, nn_contrast=contrast, pq_table=table_path(index, queries),
-                fresh_lanes=fresh)
+                fresh_lanes=fresh, ctx=ctx)
 
 
 def fresh_lanes(index, q0, cfg) -> dict:
@@ -1097,6 +1130,206 @@ def table_path(index, queries) -> dict:
     return dict(launches=launches, n_batches=n_batches, max_abs_diff=err, wall_ms=walls)
 
 
+# ------------------------------------------------------------ phase 4b
+# The host-I/O configurations of the base paths: the service's synchronous
+# path, the prefetched exchange, and the prefetched exchange with 65,536 hot
+# rows pinned on the card (65,536 x 64 x 4 bytes + the n x 4 slot map: about
+# 21 MB).
+HOSTIO_CONFIGS = (("base-hostio-w1", dict(workers=1)),
+                  ("base-hostio-w4-p", dict(workers=4, prefetch=True)),
+                  ("base-hostio-w4-c64k-p", dict(workers=4, hot_cache_rows=65_536, prefetch=True)))
+HOSTIO_FULL = dict(workers=4, hot_cache_rows=65_536, prefetch=True)
+VAMANA_HOSTIO = dict(workers=4, hot_cache_rows=1_500, prefetch=True)
+
+
+def hop_split(wait_s: float, gather_s: float, send_s: float, hops: int) -> dict:
+    """A hop's host ms in three parts: the wait for the device (the frontier's
+    copy down), the host gather (for the service: what of it the search
+    thread waited for), the copy up (issuing it and merging the rows)."""
+    return {"wait_ms": wait_s * 1e3 / hops, "gather_ms": gather_s * 1e3 / hops,
+            "send_ms": send_s * 1e3 / hops, "total_ms": (wait_s + gather_s + send_s) * 1e3 / hops}
+
+
+def fmt_split(sp: dict) -> str:
+    return (f"wait for the device {sp['wait_ms']:.4f} + host gather {sp['gather_ms']:.4f} + copy up "
+            f"{sp['send_ms']:.4f} = {sp['total_ms']:.4f} ms a hop")
+
+
+def healthy(name: str, stats: dict) -> None:
+    """A healthy run takes no miss, no hedge and no degraded lane."""
+    bad = {k: stats[k] for k in ("prefetch_misses", "hedged_gathers", "degraded_lanes") if stats[k]}
+    if bad:
+        raise AssertionError(f"{name}: a healthy run counted {bad}")
+
+
+def hostio_run(name: str, ctx: dict, variant: str, hio, card: str, n_batches: int) -> dict:
+    """One host-I/O path: a warm-up batch, then `run_path` with the service's
+    counters and the exchange's split reset just before; ids and distances
+    held equal to the twin path's on every batch."""
+    import torch
+
+    index, queries, gt, cfg = ctx["index"], ctx["queries"], ctx["gt"], ctx["cfg"]
+    index.search(queries[:BATCH], K, cfg=cfg, variant=variant, kernel_mode="fused", hostio=hio)
+    torch.cuda.synchronize()
+    ex = index.executor(variant, hostio=hio)
+    svc, nbr = ex.hostio_service, ex.neighbors
+    svc.reset_stats()
+    before = nbr.split()
+    res = run_path(name, index, queries, gt, cfg, variant, "fused", n_batches, card, hostio=hio)
+    split = {k: v - before[k] for k, v in nbr.split().items()}
+    twin_ids, twin_dists, _ = ctx["twins"][variant]
+    for b in range(n_batches):
+        check_same(f"{name} batch {b} ids", [res["ids"][b]], [twin_ids[b]])
+        check_same(f"{name} batch {b} distances", [res["dists"][b]], [twin_dists[b]])
+    stats = ex.hostio_runtime.stats()
+    healthy(name, stats)
+    hops = sum(res["n_iters"])
+    if split["hops"] != hops:
+        raise AssertionError(f"{name}: {split['hops']} exchanges for {hops} hops")
+    res["hop_split_ms"] = hop_split(split["wait_s"], split["gather_s"], split["send_s"], hops)
+    res["link_bytes_per_hop"] = (split["frontier_bytes"] + split["rows_bytes"]) / hops
+    res["exchange_bytes_per_hop"] = ex.exchange_bytes_per_hop(BATCH)
+    res["hostio"] = {k: stats[k] for k in (
+        "requests", "rows_gathered", "host_miss_lanes", "cache_hit_lanes", "prefetch_issued",
+        "prefetch_hits", "prefetch_misses", "prefetch_lane_mismatches", "hedged_gathers",
+        "degraded_lanes", "max_queue_depth", "mean_latency_ms", "cache_hit_rate",
+        "overlap_fraction", "hot_cache_rows", "hot_cache_device_bytes")}
+    for k in ("overlap_fraction", "cache_hit_rate", "mean_latency_ms"):
+        res[k] = stats[k]
+    res["host_link_bytes"] = res["exchange_bytes_per_hop"]["host_link_bytes"]
+    # The pinned staging ring on the card: its slots, each pinned.
+    res["staging_slots"] = len(nbr._ring)
+    if nbr.device.type == "cuda" and not all(s.rows.is_pinned() and s.frontier.is_pinned() for s in nbr._ring):
+        raise AssertionError(f"{name}: a staging slot is not pinned")
+    log(f"[{name}] ids and distances equal {variant}'s on {n_batches} batches; no miss, hedge or "
+        f"degraded lane; overlap_fraction {stats['overlap_fraction']:.4f}, cache_hit_rate "
+        f"{stats['cache_hit_rate']:.4f}, host_link_bytes per hop {res['host_link_bytes']} (copied "
+        f"{res['link_bytes_per_hop']:.0f}), service mean latency {stats['mean_latency_ms']:.4f} ms, "
+        f"max queue depth {stats['max_queue_depth']}, {res['staging_slots']} staging slots; "
+        f"{fmt_split(res['hop_split_ms'])}")
+    return res
+
+
+def hostio_phase(dev, card: str, ctx: dict) -> dict:
+    """Phase 4b: phase 4's index and queries through the host-I/O subsystem.
+
+    base (fused) in the three HOSTIO_CONFIGS, sharded-base with HOSTIO_FULL
+    on the one-rank NCCL mesh, ten batches each, ids and distances equal to
+    the plain path's on every batch, K1 (or K7 and K6) on every hop; then
+    `ServePipeline` over inmem and over host-I/O base: every query with
+    ground truth in batches of up to 1,024, ids equal to the plain path's,
+    and a repeat of the first 1,024 served from the result cache,
+    bit-identical. Returns each path's measurements."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.distributed import default_mesh
+    from repro_torch.runtime.hostio import HostIOConfig
+
+    index, queries, cfg = ctx["index"], ctx["queries"], ctx["cfg"]
+    paths = {}
+    for name, kw in HOSTIO_CONFIGS:
+        hio = HostIOConfig(**kw)
+        res = hostio_run(name, ctx, "base", hio, card, PATH_BATCHES["base"])
+        lk, nb = res["launches"], res["n_batches"]
+        if (lk["search_step"], lk["pq_adc"], lk["rerank_l2"]) != (sum(res["n_iters"]), nb, nb):
+            raise AssertionError(f"{name}: launches {lk} for {sum(res['n_iters'])} hops in {nb} batches")
+        set_profile(res, profile_batch(index, queries[:BATCH], cfg, "base", "fused",
+                                       float(np.mean(res["batch_wall_ms"])), hostio=hio))
+        index.executor("base", hostio=hio).hostio_runtime.stop()
+        paths[name] = res
+
+    made = not dist.is_initialized()
+    mesh = default_mesh(dev)
+    hio = HostIOConfig(**HOSTIO_FULL)
+    try:
+        res = hostio_run("sharded-base-hostio", ctx, "sharded-base", hio, card, PATH_BATCHES["sharded-base"])
+        lk, nb, hops = res["launches"], res["n_batches"], sum(res["n_iters"])
+        if lk["local_adc"] != hops + nb or lk["fused_traverse"] != hops or lk["search_step"]:
+            raise AssertionError(f"sharded-base-hostio: launches {lk} for {hops} hops in {nb} batches")
+        set_profile(res, profile_batch(index, queries[:BATCH], cfg, "sharded-base", "fused",
+                                       float(np.mean(res["batch_wall_ms"])), hostio=hio))
+        index.executor("sharded-base", mesh=mesh, hostio=hio).hostio_runtime.stop()
+        paths["sharded-base-hostio"] = res
+    finally:
+        if made and dist.is_initialized():
+            dist.destroy_process_group()
+
+    for name, variant, hio in (("serve-inmem", "inmem", None),
+                               ("serve-base-hostio", "base", HostIOConfig(**HOSTIO_FULL))):
+        paths[name] = serve_path(name, ctx, variant, hio, card)
+    return paths
+
+
+def serve_path(name: str, ctx: dict, variant: str, hio, card: str) -> dict:
+    """`ServePipeline` over one executor: every query with its ground truth,
+    micro-batches of BATCH, then the first BATCH queries again, served from
+    the result cache."""
+    import torch
+
+    from repro_torch import recall_at_k
+    from repro_torch.runtime import ServePipeline
+
+    index, queries, gt, cfg = ctx["index"], ctx["queries"], ctx["gt"], ctx["cfg"]
+    twin_ids, twin_dists, twin_recall = ctx["twins"]["inmem"]
+    ex = index.executor(variant, hostio=hio)
+    n = min(len(queries), PATH_BATCHES["inmem"] * BATCH)
+    # The same batches one at a time on this thread, just before: the
+    # pipeline's yardstick in the same phase (the host's speed drifts
+    # between phases).
+    ex.search(queries[:BATCH], K, cfg=cfg, kernel_mode="fused")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for s in range(0, n, BATCH):
+        ex.search(queries[s : min(s + BATCH, n)], K, cfg=cfg, kernel_mode="fused")
+    torch.cuda.synchronize()
+    seq_qps = n / (time.perf_counter() - t0)
+    with ServePipeline(ex, k=K, cfg=cfg, max_batch=BATCH, kernel_mode="fused",
+                       result_cache_size=n) as pipe:
+        reset_launches()
+        pipe.submit(queries[:n], gt_ids=gt[:n])
+        ids, dists, st = pipe.drain()
+        launches = read_launches()
+        torch.cuda.synchronize()
+        plain = torch.cat(twin_ids).cpu().numpy()[:n]
+        if not np.array_equal(ids, plain) or not np.array_equal(dists, torch.cat(twin_dists).cpu().numpy()[:n]):
+            raise AssertionError(f"{name}: drain() results differ from the plain inmem path's")
+        rec = recall_at_k(ids, gt[:n])
+        # The pipeline's recall is a row-weighted mean of batch recalls: the
+        # same count of hits, summed in another order.
+        if rec != twin_recall or abs(st.mean_recall - twin_recall) > 1e-12:
+            raise AssertionError(f"{name}: recall {st.mean_recall} against the plain path's {twin_recall}")
+        for kname in PATH_KERNELS[name]:
+            if launches[kname] <= 0:
+                raise AssertionError(f"the {name} path launched no {kname} kernel")
+        pipe.submit(queries[:BATCH])
+        ids2, dists2, st2 = pipe.drain()
+        if not (np.array_equal(ids2, ids[:BATCH]) and np.array_equal(dists2, dists[:BATCH])
+                and st2.result_cache_hits == BATCH and st2.result_cache_hit_rate == 1.0 and st2.batches == 0):
+            raise AssertionError(f"{name}: the repeat of {BATCH} queries was not served bit-identically "
+                                 f"from the result cache ({st2.result_cache_hits} hits)")
+        hostio = st.hostio
+    if hostio is not None:
+        healthy(name, hostio)
+    res = dict(qps=st.qps, one_at_a_time_qps=seq_qps, p50_ms=st.p50_ms, p95_ms=st.p95_ms,
+               mean_recall=st.mean_recall,
+               recall_at_10=rec, n_batches=st.batches, wall_s=st.wall_s, launches=launches,
+               launches_per_batch={k: v / st.batches for k, v in launches.items()},
+               cache_repeat_hit_rate=st2.result_cache_hit_rate, cache_repeat_p50_ms=st2.p50_ms)
+    if hostio is not None:
+        for k in ("overlap_fraction", "cache_hit_rate", "mean_latency_ms"):
+            res[k] = hostio[k]
+    log(f"[{name}] ServePipeline(max_batch={BATCH}, kernel_mode='fused') over {variant}"
+        f"{'' if hio is None else f' {hio}'} on {card}: {n} queries in {st.batches} batches, QPS "
+        f"{st.qps:.1f} (one batch at a time just before: {seq_qps:.1f}), p50 {st.p50_ms:.2f} ms, p95 {st.p95_ms:.2f} ms (enqueue -> ready, all queued at "
+        f"once), mean_recall {st.mean_recall:.5f} (plain {twin_recall:.5f}), ids and distances equal "
+        f"the plain path's; repeat of {BATCH}: {st2.result_cache_hits} result-cache hits, bit-identical"
+        + ("" if hostio is None else f"; overlap_fraction {hostio['overlap_fraction']:.4f}, "
+           f"cache_hit_rate {hostio['cache_hit_rate']:.4f}"))
+    log(f"[{name}] launches in the pipeline's run: {launches}")
+    return res
+
+
 # --------------------------------------------------------------- phase 5
 def vamana_cell(dev, card: str) -> dict:
     """The Vamana cell: `BangIndex.build` (PQ on `dev`, the graph on the
@@ -1171,13 +1404,32 @@ def vamana_cell(dev, card: str) -> dict:
     check_same("vamana base vs inmem distances", paths["vamana-base"]["dists"],
                paths["vamana-inmem"]["dists"])
     log("[check] vamana: base ids and distances equal inmem's")
+    # One batch of host-I/O base: the hot cache's hit rate on a real graph's
+    # hub skew.
+    from repro_torch.runtime.hostio import HostIOConfig
+
+    hio = HostIOConfig(**VAMANA_HOSTIO)
+    res = run_path("vamana-base-hostio", index, queries, gt, cfg, "base", "fused", 1, card, hostio=hio)
+    check_same("vamana host-I/O base vs base ids", res["ids"], paths["vamana-base"]["ids"])
+    check_same("vamana host-I/O base vs base distances", res["dists"], paths["vamana-base"]["dists"])
+    rt = index.executor("base", hostio=hio).hostio_runtime
+    stats = rt.stats()
+    rt.stop()
+    healthy("vamana-base-hostio", stats)
+    for k in ("overlap_fraction", "cache_hit_rate", "mean_latency_ms"):
+        res[k] = stats[k]
+    log(f"[vamana-base-hostio] {hio}: ids and distances equal base's; hot-cache hit rate "
+        f"{stats['cache_hit_rate']:.4f} ({stats['cache_hit_lanes']} of "
+        f"{stats['cache_hit_lanes'] + stats['host_miss_lanes']} lanes), overlap_fraction "
+        f"{stats['overlap_fraction']:.4f}")
+    paths["vamana-base-hostio"] = res
     for res in paths.values():
         del res["ids"], res["dists"]
     return dict(build=build, paths=paths)
 
 
 def profile_batch(index, queries, cfg, variant: str, kernel_mode: str,
-                  batch_wall_ms: float) -> dict | None:
+                  batch_wall_ms: float, hostio=None) -> dict | None:
     """Device time by kernel over one batch (torch.profiler). Returns the
     device's busy ms and the collectives' (NCCL) device ms and event count,
     or None where the profiler saw no device time.
@@ -1193,7 +1445,7 @@ def profile_batch(index, queries, cfg, variant: str, kernel_mode: str,
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        index.search(queries, K, cfg=cfg, variant=variant, kernel_mode=kernel_mode)
+        index.search(queries, K, cfg=cfg, variant=variant, kernel_mode=kernel_mode, hostio=hostio)
         torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t0) * 1e3
     def self_us(e) -> float:   # the name differs across torch versions
@@ -1285,6 +1537,10 @@ def main() -> int:
     log(f"[main] phase: {time.perf_counter() - t0:.1f} s")
 
     t0 = time.perf_counter()
+    paths.update(hostio_phase(dev, card, res.pop("ctx")))
+    log(f"[hostio] phase: {time.perf_counter() - t0:.1f} s")
+
+    t0 = time.perf_counter()
     vamana = vamana_cell(dev, card)
     paths.update(vamana["paths"])
     log(f"[vamana] phase: {time.perf_counter() - t0:.1f} s")
@@ -1311,10 +1567,12 @@ def main() -> int:
             "host_gather_ms_per_batch", "host_gather_share", "collective_ms_per_batch",
             "collective_events_per_batch", "all_reduces_per_hop", "allreduce_ms",
             "allreduce_host_ms_per_batch",
-            "exchange_bytes_per_hop", "k7_k6_launches_per_batch", "p95_hops")
+            "exchange_bytes_per_hop", "k7_k6_launches_per_batch", "p95_hops", "hop_split_ms",
+            "overlap_fraction", "cache_hit_rate", "mean_latency_ms", "host_link_bytes", "hostio",
+            "p50_ms", "p95_ms", "mean_recall", "one_at_a_time_qps")
     summary = {p: {k: r[k] for k in keys if k in r} for p, r in paths.items()}
     for r in summary.values():
-        busy = r["device_busy_ms_per_batch"]
+        busy = r.get("device_busy_ms_per_batch")
         r["idle_share"] = None if busy is None else 1.0 - busy / float(np.mean(r["batch_wall_ms"]))
     log(f"[total] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": rows, "main_path": summary, "nn_contrast": res["nn_contrast"],

@@ -155,14 +155,21 @@ class BangIndex:
     def n(self) -> int:
         return self.codes.shape[0]
 
-    def executor(self, variant: str = "inmem", *, mesh=None):
+    def executor(self, variant: str = "inmem", *, mesh=None, hostio=None):
         """The cached executor serving this index for `variant`.
 
         `variant="sharded"` or `"sharded-base"` returns a
         `ShardedSearchExecutor` over `mesh` (a `repro_torch.distributed`
         mesh; by default (1, every rank of the default process group), or a
-        one-rank group when there is none). Executors are cached per
-        (variant, mesh), so the two sharded variants never share state.
+        one-rank group when there is none).
+
+        `hostio=HostIOConfig(...)` (`repro_torch.runtime.hostio`; the
+        host-graph variants "base" and "sharded-base" only) serves the graph
+        through the host-I/O subsystem -- multi-worker neighbour service,
+        device-resident hot-adjacency cache, prefetched frontier exchange --
+        instead of the inline gather. Executors are cached per
+        (variant, mesh, hostio), so the two sharded variants never share
+        state and differently-configured services never share worker pools.
         """
         if variant in ("sharded", "sharded-base"):
             if mesh is None:
@@ -171,17 +178,22 @@ class BangIndex:
                 mesh = default_mesh(self.device)
         elif mesh is not None:
             raise ValueError(f"mesh= only applies to the sharded variants, got {variant!r}")
-        key = (variant, mesh)
+        if hostio is not None and variant not in ("base", "sharded-base"):
+            raise ValueError(
+                "hostio= only applies to the host-resident-graph variants "
+                f"('base', 'sharded-base'), got {variant!r}"
+            )
+        key = (variant, mesh, hostio)
         ex = self._executors.get(key)
         if ex is None:
             if mesh is not None:
                 from repro_torch.runtime.sharded import ShardedSearchExecutor
 
-                ex = ShardedSearchExecutor.from_index(self, mesh, variant=variant)
+                ex = ShardedSearchExecutor.from_index(self, mesh, variant=variant, hostio=hostio)
             else:
                 from repro_torch.runtime.executor import SearchExecutor
 
-                ex = SearchExecutor.from_index(self, variant=variant)
+                ex = SearchExecutor.from_index(self, variant=variant, hostio=hostio)
             self._executors[key] = ex
         return ex
 
@@ -197,10 +209,13 @@ class BangIndex:
         cfg: SearchConfig | None = None,
         return_stats: bool = False,
         kernel_mode: str | None = None,
+        hostio=None,
     ):
         """Batched k-NN search. Returns (ids (B, k), dists (B, k)) on the
-        index's device, plus `SearchStats` with `return_stats=True`."""
-        return self.executor(variant, mesh=mesh).search(
+        index's device, plus `SearchStats` with `return_stats=True`.
+        `hostio=HostIOConfig(...)` serves the host-graph variants through
+        the host-I/O subsystem, bit-exact vs the inline gather."""
+        return self.executor(variant, mesh=mesh, hostio=hostio).search(
             queries, k, t=t, cfg=cfg, rerank=rerank,
             return_stats=return_stats, kernel_mode=kernel_mode,
         )

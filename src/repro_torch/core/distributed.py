@@ -141,8 +141,7 @@ class HostShardNeighborFn(HostNeighborFn):
         self.n_loc = int(partition.shape[0])
 
     def fetch(self, u: torch.Tensor, active: torch.Tensor) -> torch.Tensor | None:
-        lanes = torch.where(active, u, torch.full_like(u, self.INACTIVE)).cpu()
-        self.frontier_bytes += lanes.numel() * lanes.element_size()
+        lanes = self._frontier(u, active)
         live = lanes != self.INACTIVE
         if not bool(live.any()):
             return None
@@ -247,8 +246,9 @@ def sharded_bang_search_block(
     or `neighbor_fn` (`host_shard_neighbor_fn` for the sharded base
     variant, with `adjacency_local=None`). `cfg.kernel_mode` must be
     resolved. The fused mode runs K7 for the distances and the fused
-    traverse kernel (K6) on the all-reduced rows. `prefetch_fn` and
-    `tombstone_fn` come with later slices (`bang_search` raises).
+    traverse kernel (K6) on the all-reduced rows. `prefetch_fn` is the
+    host-I/O exchange's issue (with that exchange as `neighbor_fn`);
+    `tombstone_fn` comes with a later slice (`bang_search` raises).
 
     Returns (ids (B_loc, k), dists (B_loc, k), n_hops (B_loc,), n_iters),
     identical on every rank of the model group.

@@ -22,7 +22,10 @@ class HostRows:
     """A (n, width) host table whose rows are sent to `device` on demand.
 
     `seconds` and `bytes_sent` add up the host time spent gathering and
-    the bytes copied to the device, for the caller's accounting.
+    sending and the bytes copied to the device, for the caller's
+    accounting; `seconds` splits into `gather_s` (selecting the rows into
+    the staging buffer) and `send_s` (waiting for the buffer's last copy to
+    pass, then issuing the copy up).
     """
 
     def __init__(self, table: torch.Tensor, device: torch.device | str) -> None:
@@ -34,6 +37,8 @@ class HostRows:
         self._buf: torch.Tensor | None = None
         self._copied: torch.cuda.Event | None = None
         self.seconds = 0.0
+        self.gather_s = 0.0
+        self.send_s = 0.0
         self.bytes_sent = 0
 
     @property
@@ -59,18 +64,25 @@ class HostRows:
         on the host into `out`, a host tensor of that shape (the pinned
         staging buffer on a CUDA device)."""
         t0 = time.perf_counter()
-        if self.device.type != "cuda":
-            out = torch.empty((n, self.width), dtype=self.table.dtype)
-            rows(out)
-        else:
+        on_card = self.device.type == "cuda"
+        if on_card:
             if self._copied is not None:
                 self._copied.synchronize()
             if self._buf is None or self._buf.shape[0] != n:
                 self._buf = torch.empty((n, self.width), dtype=self.table.dtype, pin_memory=True)
-            rows(self._buf)
+            out = self._buf
+        else:
+            out = torch.empty((n, self.width), dtype=self.table.dtype)
+        t1 = time.perf_counter()
+        rows(out)
+        t2 = time.perf_counter()
+        if on_card:
             out = self._buf.to(self.device, non_blocking=True)
             self._copied = torch.cuda.Event()
             self._copied.record(torch.cuda.current_stream(self.device))
-        self.seconds += time.perf_counter() - t0
+        t3 = time.perf_counter()
+        self.gather_s += t2 - t1
+        self.send_s += (t1 - t0) + (t3 - t2)
+        self.seconds += t3 - t0
         self.bytes_sent += out.numel() * out.element_size()
         return out

@@ -31,6 +31,7 @@ Variants (paper §5):
 from __future__ import annotations
 
 import dataclasses
+import time
 from typing import Callable, NamedTuple
 
 import torch
@@ -100,6 +101,8 @@ class SearchResult(NamedTuple):
 
 NeighborFn = Callable[[torch.Tensor], torch.Tensor]           # (B,) -> (B, R), on the device
 DistanceFn = Callable[[torch.Tensor, torch.Tensor], torch.Tensor]
+# (u_pred (B,), active (B,)) -> a ticket the next hop's fetch redeems
+PrefetchFn = Callable[[torch.Tensor, torch.Tensor], object]
 
 
 class StepFn:
@@ -109,6 +112,14 @@ class StepFn:
     `step(wl, nbrs, fresh, active)` consumes the bloom-filtered neighbour
     tile and returns `(worklist', u_next, active')` with the §4.6 selection
     applied and the selected slot already marked visited.
+
+    `step_with_prefetch` is the async-fetch seam for the host-I/O subsystem
+    (`repro_torch.runtime.hostio`): it also calls `prefetch_fn(u_pred,
+    active')` with the expected next frontier and returns the resulting
+    ticket, which the search loop hands to the next hop's fetch. The
+    default issues after the whole step; steps whose eager selection is
+    known before the merge (ReferenceStep, StagedStep) issue *between
+    selection and merge*, so the host gather overlaps the merge.
     """
 
     eager: bool = True
@@ -118,6 +129,11 @@ class StepFn:
 
     def step(self, wl: Worklist, nbrs: torch.Tensor, fresh: torch.Tensor, active: torch.Tensor):
         raise NotImplementedError
+
+    def step_with_prefetch(self, wl: Worklist, nbrs: torch.Tensor, fresh: torch.Tensor,
+                           active: torch.Tensor, prefetch_fn: PrefetchFn):
+        wl, u_next, active = self.step(wl, nbrs, fresh, active)
+        return wl, u_next, active, prefetch_fn(u_next, active)
 
 
 class ReferenceStep(StepFn):
@@ -136,10 +152,12 @@ class ReferenceStep(StepFn):
     def _merge(self, wl: Worklist, sd: torch.Tensor, si: torch.Tensor) -> Worklist:
         return merge_worklist(wl, sd, si)
 
-    def step(self, wl: Worklist, nbrs: torch.Tensor, fresh: torch.Tensor, active: torch.Tensor):
+    def _body(self, wl: Worklist, nbrs: torch.Tensor, fresh: torch.Tensor, active: torch.Tensor,
+              prefetch_fn: PrefetchFn | None = None):
         d = self.distance_fn(nbrs, fresh)
         cand_ids = torch.where(fresh, nbrs, torch.full_like(nbrs, INVALID_ID))
         sd, si = self._sort(d, cand_ids)
+        tok = None
         if self.eager:
             # §4.6: best of {first unvisited of the pre-merge worklist,
             # nearest fresh neighbour} -- known before the merge.
@@ -149,13 +167,29 @@ class ReferenceStep(StepFn):
             wl_d = torch.where(wl_found, wl_d, inf[:, 0])
             u_next = torch.where(sd[:, 0] < wl_d, si[:, 0], wl_u)
             found = wl_found | (si[:, 0] != INVALID_ID)
+            if prefetch_fn is not None:
+                # The expected frontier is known before the merge, so hop
+                # k+1's host gather is issued here and runs while the merge
+                # is launched. It is the frontier before the convergence
+                # mask; the fetch re-gathers any lane that differs.
+                tok = prefetch_fn(u_next, active & found)
             wl = self._merge(wl, sd, si)
         else:
             wl = self._merge(wl, sd, si)
             u_next, found = first_unvisited(wl)
         active = active & found
         u_next = torch.where(active, u_next, torch.full_like(u_next, INVALID_ID))
-        return mark_visited(wl, u_next), u_next, active
+        if prefetch_fn is not None and tok is None:
+            tok = prefetch_fn(u_next, active)        # lazy selection: after the merge
+        return mark_visited(wl, u_next), u_next, active, tok
+
+    def step(self, wl: Worklist, nbrs: torch.Tensor, fresh: torch.Tensor, active: torch.Tensor):
+        wl, u_next, active, _ = self._body(wl, nbrs, fresh, active)
+        return wl, u_next, active
+
+    def step_with_prefetch(self, wl: Worklist, nbrs: torch.Tensor, fresh: torch.Tensor,
+                           active: torch.Tensor, prefetch_fn: PrefetchFn):
+        return self._body(wl, nbrs, fresh, active, prefetch_fn)
 
 
 class StagedStep(ReferenceStep):
@@ -324,7 +358,10 @@ class HostNeighborFn:
 
     `bang_search` calls `fetch(u, active)`, which takes the hop's one
     device-to-host copy: the frontier with the inactive lanes marked, from
-    which the host reads both the ids and the stop test.
+    which the host reads both the ids and the stop test. `wait_s` adds up
+    the host seconds that copy takes (it waits for the device to finish the
+    hop before it); `rows.gather_s` and `rows.send_s` the gather and the
+    copy up.
     """
 
     INACTIVE = -2     # never an id: ids lie in [0, n) or are INVALID
@@ -332,11 +369,18 @@ class HostNeighborFn:
     def __init__(self, rows: HostRows) -> None:
         self.rows = rows
         self.frontier_bytes = 0      # frontier ids copied to the host
+        self.wait_s = 0.0
+
+    def _frontier(self, u: torch.Tensor, active: torch.Tensor) -> torch.Tensor:
+        t0 = time.perf_counter()
+        lanes = torch.where(active, u, torch.full_like(u, self.INACTIVE)).cpu()
+        self.wait_s += time.perf_counter() - t0
+        self.frontier_bytes += lanes.numel() * lanes.element_size()
+        return lanes
 
     def fetch(self, u: torch.Tensor, active: torch.Tensor) -> torch.Tensor | None:
         """Adjacency rows of the frontier, or None once no lane is active."""
-        lanes = torch.where(active, u, torch.full_like(u, self.INACTIVE)).cpu()
-        self.frontier_bytes += lanes.numel() * lanes.element_size()
+        lanes = self._frontier(u, active)
         live = lanes != self.INACTIVE
         if not bool(live.any()):
             return None
@@ -364,14 +408,21 @@ def bang_search(
     A host loop with the reference's stop test, `any(active) & it < C-1`, so
     `n_iters` and `n_hops` match the reference. Reading `any(active)` each
     hop synchronises the host with the device once per hop; with a host
-    neighbour source that one copy also brings the frontier to the host.
+    neighbour source (one with `fetch(u, active[, ticket])`:
+    `HostNeighborFn`, or the host-I/O exchange) that one copy also brings
+    the frontier to the host.
 
-    `prefetch_fn` (the host-I/O double-buffered exchange) and `tombstone_fn`
-    (streaming deletes) keep their places in the signature; they come with
-    later slices of the port and raise NotImplementedError until then.
+    With `prefetch_fn` (the host-I/O prefetched exchange, whose neighbour
+    source is that exchange's `fetch`) each hop's `step_with_prefetch`
+    issues the next hop's expected gather and the fetch redeems the ticket
+    the hop before issued; a warm-start ticket on the medoid serves the
+    first hop. The ticket's frontier copy carries the stop test, so a hop
+    still synchronises once. Results are bit-exact vs the synchronous path.
+
+    `tombstone_fn` (streaming deletes) keeps its place in the signature; it
+    comes with a later slice of the port and raises NotImplementedError
+    until then.
     """
-    if prefetch_fn is not None:
-        raise NotImplementedError("prefetch_fn comes with the host-I/O slice of the port")
     if tombstone_fn is not None:
         raise NotImplementedError("tombstone_fn comes with the mutability slice of the port")
     B = queries.shape[0]
@@ -391,13 +442,20 @@ def bang_search(
     u = med
     active = torch.ones((B,), dtype=torch.bool, device=dev)
     rows = torch.arange(B, device=dev)
-    on_host = isinstance(neighbor_fn, HostNeighborFn)
+    fetch = getattr(neighbor_fn, "fetch", None)
+    tok = None
+    if prefetch_fn is not None:
+        if fetch is None:
+            raise ValueError("prefetch_fn needs a host neighbour source (one with fetch)")
+        # Warm-start ticket: the first hop's medoid fetch redeems a gather
+        # issued before the loop.
+        tok = prefetch_fn(med, active)
 
     it = 0
     while it < C - 1:
         # 1. Fetch neighbours of the pending candidate.
-        if on_host:
-            nbrs = neighbor_fn.fetch(u, active)                 # (B, R)
+        if fetch is not None:
+            nbrs = fetch(u, active) if prefetch_fn is None else fetch(u, active, tok)  # (B, R)
             if nbrs is None:
                 break
         else:
@@ -407,8 +465,12 @@ def bang_search(
         valid = (nbrs >= 0) & active[:, None]
         # 2. Bloom filter: drop already-seen neighbours, insert fresh ones.
         fresh, filt = bloomlib.bloom_query_and_set(filt, nbrs, valid)
-        # 3-5. Distances + sort + select + merge behind the StepFn.
-        wl, u, active = step_fn.step(wl, nbrs, fresh, active)
+        # 3-5. Distances + sort + select + merge behind the StepFn; with
+        # prefetch it also issues the next hop's gather.
+        if prefetch_fn is None:
+            wl, u, active = step_fn.step(wl, nbrs, fresh, active)
+        else:
+            wl, u, active, tok = step_fn.step_with_prefetch(wl, nbrs, fresh, active, prefetch_fn)
         # 6. Record the expansion for re-ranking.
         pos = torch.clamp(hist_len, max=C - 1).long()
         hist[rows, pos] = torch.where(active, u, hist[rows, pos])
@@ -445,15 +507,19 @@ def search_base(
     neighbor_fn: HostNeighborFn,
     medoid: int,
     cfg: SearchConfig,
+    *,
+    prefetch_fn: PrefetchFn | None = None,
 ) -> SearchResult:
     """BANG Base: PQ codes on the device, the graph in host RAM behind
-    `neighbor_fn` (`host_neighbor_fn`)."""
+    `neighbor_fn` (`host_neighbor_fn`, or the host-I/O subsystem's exchange
+    with its `prefetch_fn`) -- bit-exact either way."""
     return bang_search(
         queries,
         neighbor_fn=neighbor_fn,
         step_fn=_adc_step_fn(table, codes, cfg),
         medoid=medoid,
         cfg=cfg,
+        prefetch_fn=prefetch_fn,
     )
 
 

@@ -26,7 +26,13 @@ through `dispatch` / `finish`:
     `bang_serve_compile_seconds_total` (and a `compile` span to an attached
     tracer), and with a profiler attached each dispatch stamps its kernel
     metadata and runs inside a `bang_dispatch:<mode>:b<bucket>` profiler
-    range. The bundle never enters a cache key and changes no result.
+    range. It is forwarded to the host-I/O runtime where there is one. The
+    bundle never enters a cache key and changes no result.
+  * **Host I/O.** `hostio=HostIOConfig(...)` ("base" only) serves the
+    adjacency through `repro_torch.runtime.hostio`: a multi-worker
+    neighbour service, an optional device-resident hot-adjacency cache and
+    an optional prefetched frontier exchange, bit-exact vs the inline
+    gather. The config joins the pipeline cache key.
 
 Variants, as the reference's `_compile` dispatches them:
 
@@ -53,6 +59,8 @@ from repro_torch.core import search as searchlib
 from repro_torch.core.bang import SearchStats
 from repro_torch.core.hostrows import HostRows
 from repro_torch.core.search import SearchConfig
+
+from .hostio import HostIOConfig, HostIORuntime
 
 VARIANTS = ("inmem", "base", "exact")
 
@@ -109,12 +117,19 @@ class SearchExecutor:
         data: torch.Tensor | None = None,
         host_adjacency: torch.Tensor | None = None,
         host_data: torch.Tensor | None = None,
+        hostio: HostIOConfig | None = None,
     ) -> None:
         """`adjacency`/`data` are the device copies ("inmem", "exact"),
         `host_adjacency`/`host_data` the host ones ("base"; "inmem" re-ranks
-        from `host_data` when it has no device vectors)."""
+        from `host_data` when it has no device vectors). `hostio` serves
+        "base"'s adjacency through the host-I/O subsystem."""
         if variant not in VARIANTS:
             raise ValueError(f"unknown variant {variant!r}, expected one of {VARIANTS}")
+        if hostio is not None and variant != "base":
+            raise ValueError(
+                "hostio= only applies to the host-resident-graph variant "
+                f"'base', got {variant!r}"
+            )
         self.variant = variant
         self.device = codes.device
         self._codec = codec
@@ -123,13 +138,24 @@ class SearchExecutor:
         self._adjacency = None
         self._data = None
         # Host sources ("base"; "inmem" without device vectors), public for
-        # their byte and time counters.
-        self.neighbors: searchlib.HostNeighborFn | None = None
+        # their byte and time counters: the inline `HostNeighborFn`, or the
+        # host-I/O runtime's exchange.
+        self.neighbors = None
         self.host_data: HostRows | None = None
+        self._hostio = hostio
+        self.hostio_runtime: HostIORuntime | None = None
+        self._prefetch_fn = None
         if variant == "base":
             if host_adjacency is None or host_data is None:
                 raise ValueError("the base variant needs host_adjacency and host_data")
-            self.neighbors = searchlib.host_neighbor_fn(host_adjacency, self.device)
+            if hostio is None:
+                self.neighbors = searchlib.host_neighbor_fn(host_adjacency, self.device)
+            else:
+                self.hostio_runtime = HostIORuntime(
+                    hostio, [host_adjacency], host_adjacency, medoid=self._medoid,
+                    name="hostio-base", device=self.device,
+                )
+                self.neighbors, self._prefetch_fn = self.hostio_runtime.base_exchange()
             self.host_data = HostRows(host_data, self.device)
         else:
             if adjacency is None:
@@ -149,12 +175,15 @@ class SearchExecutor:
         self.telemetry = None
 
     @classmethod
-    def from_index(cls, index, variant: str = "inmem") -> "SearchExecutor":
+    def from_index(cls, index, variant: str = "inmem", *, hostio: HostIOConfig | None = None
+                   ) -> "SearchExecutor":
         if variant == "base":
             return cls(index.codec, index.codes, index.graph.medoid, variant=variant,
-                       host_adjacency=index.graph.adjacency, host_data=index.data_host)
+                       host_adjacency=index.graph.adjacency, host_data=index.data_host,
+                       hostio=hostio)
         return cls(index.codec, index.codes, index.graph.medoid, variant=variant,
-                   adjacency=index.adjacency_dev(), data=index.data_dev, host_data=index.data_host)
+                   adjacency=index.adjacency_dev(), data=index.data_dev, host_data=index.data_host,
+                   hostio=hostio)
 
     @property
     def n_traces(self) -> int:
@@ -171,18 +200,31 @@ class SearchExecutor:
     def _bucket_for(self, batch: int) -> int:
         return bucket_size(batch)
 
+    @property
+    def hostio_service(self):
+        """The live NeighborService (None unless hostio is configured)."""
+        rt = self.hostio_runtime
+        return None if rt is None else rt.service
+
     def set_telemetry(self, telemetry) -> "SearchExecutor":
-        """Attach (or detach, with None) a telemetry bundle. Host-side
-        state only: the pipeline cache, its keys and every result are the
-        same with or without it."""
+        """Attach (or detach, with None) a telemetry bundle, forwarded to
+        the host-I/O runtime when there is one, so host-I/O counters, gather
+        spans and fault postmortems report through the same bundle.
+        Host-side state only: the pipeline cache, its keys and every result
+        are the same with or without it."""
         self.telemetry = telemetry
+        rt = self.hostio_runtime
+        if rt is not None:
+            rt.set_telemetry(telemetry)
         return self
 
     # -------------------------------------------------------------- building
     def _pipeline(self, bucket: int, d: int, k: int, rerank: bool, cfg: SearchConfig):
         """Cached pipeline for the key, and the seconds its set-up took.
-        `cfg.kernel_mode` is resolved."""
-        key = (bucket, d, k, rerank, cfg)
+        `cfg.kernel_mode` is resolved. The host-I/O config rides the key: it
+        is fixed at construction, but keying it keeps pipelines from being
+        confused across executors whose caches are merged."""
+        key = (bucket, d, k, rerank, cfg, self._hostio)
         fn = self._cache.get(key)
         if fn is not None:
             return fn, 0.0
@@ -226,6 +268,7 @@ class SearchExecutor:
             else:
                 res = searchlib.search_base(
                     queries, table, self._codes, self.neighbors, self._medoid, cfg,
+                    prefetch_fn=self._prefetch_fn,
                 )
             if rerank:
                 ids, dists = rr.rerank(
@@ -237,6 +280,60 @@ class SearchExecutor:
             return ids, dists, res.n_hops, res.n_iters
 
         return pipeline
+
+    # ------------------------------------------------------------ accounting
+    def _hot_cache_fields(self, host_rows_in: int) -> dict:
+        """Hot-adjacency-cache accounting shared by both executor classes.
+
+        `hot_cache_hit_rate` is the *measured* service-side hit rate (0.0
+        before any traffic); `host_bytes_saved_per_hop` scales the rows-back
+        leg by it -- the host-link bytes the device-resident cache absorbed.
+        `host_link_bytes` in the caller is reduced by the saving, so with no
+        cache (or no traffic yet) host_link == ids_out + rows_in exactly.
+        """
+        rt = self.hostio_runtime
+        if rt is None or rt.cache is None:
+            return {
+                "hot_cache_rows": 0,
+                "hot_cache_hit_rate": 0.0,
+                "host_bytes_saved_per_hop": 0,
+            }
+        rate = rt.service.cache_hit_rate()
+        return {
+            "hot_cache_rows": rt.cache.n_rows,
+            "hot_cache_hit_rate": rate,
+            "host_bytes_saved_per_hop": int(host_rows_in * rate),
+        }
+
+    def exchange_bytes_per_hop(self, batch: int) -> dict:
+        """Logical link bytes one hop moves, in the sharded executor's schema.
+
+        A single device pays no collectives; "base" pays the paper's host
+        link each hop -- (bucket,) int32 frontier ids down and (bucket, R)
+        int32 adjacency rows up (§4.1/§4.3). Device-resident-graph variants
+        move nothing. With the host-I/O hot cache,
+        `host_bytes_saved_per_hop` (measured hit rate x the rows-up leg) is
+        subtracted from `host_link_bytes`: hit rows never cross the link.
+        """
+        bucket = self._bucket_for(batch)
+        base = self.variant == "base"
+        host_ids_out = bucket * 4 if base else 0
+        host_rows_in = bucket * self.R * 4 if base else 0
+        hot = self._hot_cache_fields(host_rows_in)
+        return {
+            "payload_bytes": 0,
+            "collective_bytes": 0,
+            "ring_bytes_per_device": 0,
+            "host_ids_out_bytes": host_ids_out,
+            "host_rows_in_bytes": host_rows_in,
+            "host_link_bytes": host_ids_out + host_rows_in - hot["host_bytes_saved_per_hop"],
+            "model_shards": 1,
+            "data_shards": 1,
+            # Streaming mutability's fields: the frozen index's identity.
+            "tombstone_fraction": 0.0,
+            "delta_points": 0,
+            **hot,
+        }
 
     # -------------------------------------------------------------- serving
     def dispatch(

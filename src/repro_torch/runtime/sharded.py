@@ -22,7 +22,11 @@ then the data group all-gathers the slices, so every rank returns the whole
                     memory and is never uploaded: per hop the host link
                     carries the (B_loc,) frontier down and (B_loc, R) rows up
                     (`exchange_bytes_per_hop()["host_link_bytes"]`). Codes
-                    and re-rank vectors stay on the device.
+                    and re-rank vectors stay on the device. With
+                    `hostio=HostIOConfig(...)` the block is served by this
+                    rank's host-I/O service (one partition per model rank,
+                    worker pool, replicated hot cache, prefetched exchange),
+                    bit-exact vs the inline gather.
 
 Every rank of a model group computes identical worklists from the summed
 rows, so results equal the single-device executor's on the same index. The
@@ -47,6 +51,7 @@ from repro_torch.core.distributed import (
     data_slice,
     host_shard_neighbor_fn,
     local_rows,
+    pad_to_multiple,
     sharded_bang_search_block,
 )
 from repro_torch.core.search import SearchConfig
@@ -54,6 +59,7 @@ from repro_torch.core.vamana import VamanaGraph
 from repro_torch.distributed import AXES
 
 from .executor import SearchExecutor, bucket_size
+from .hostio import HostIOConfig, HostIORuntime
 
 SHARDED_VARIANTS = ("sharded", "sharded-base")
 
@@ -70,7 +76,7 @@ class ShardedSearchExecutor(SearchExecutor):
         *,
         data: torch.Tensor,
         variant: str = "sharded",
-        hostio=None,
+        hostio: HostIOConfig | None = None,
         with_tombstones: bool = False,
     ) -> None:
         """`codes` (n, m) on this rank's device, `graph.adjacency` (n, R) in
@@ -84,15 +90,10 @@ class ShardedSearchExecutor(SearchExecutor):
             raise ValueError(f"mesh axes {tuple(mesh.shape)} must be {AXES}")
         if data is None:
             raise ValueError("sharded executor needs full vectors (re-rank source)")
-        if hostio is not None:
-            if variant != "sharded-base":
-                raise ValueError(
-                    "hostio= only applies to the host-resident-graph variant "
-                    f"'sharded-base', got {variant!r}"
-                )
-            raise NotImplementedError(
-                "hostio= (the host-I/O service per shard) comes with the host-I/O slice "
-                "of the port"
+        if hostio is not None and variant != "sharded-base":
+            raise ValueError(
+                "hostio= only applies to the host-resident-graph variant "
+                f"'sharded-base', got {variant!r}"
             )
         if with_tombstones:
             raise NotImplementedError("with_tombstones=True comes with the mutability slice of the port")
@@ -117,11 +118,25 @@ class ShardedSearchExecutor(SearchExecutor):
         self.R = int(adjacency.shape[1])
         self._dim = int(data.shape[1])
         # The host source of "sharded-base"'s adjacency block, public for
-        # its byte and time counters.
+        # its byte and time counters: the inline `HostShardNeighborFn`, or
+        # this rank's host-I/O exchange.
         self.neighbors = None
+        self._hostio = hostio
+        self.hostio_runtime = None
+        self._prefetch_fn = None
         if variant == "sharded-base":
             self._adjacency = None
-            self.neighbors = host_shard_neighbor_fn(adjacency, self._model, self.device)
+            if hostio is None:
+                self.neighbors = host_shard_neighbor_fn(adjacency, self._model, self.device)
+            else:
+                # One partition per model rank: this rank's block. The hot
+                # cache ranks the whole padded graph, replicated on every
+                # rank, as the reference's does.
+                self.hostio_runtime = HostIORuntime(
+                    hostio, [adjacency], pad_to_multiple(graph.adjacency, S, -1),
+                    medoid=self._medoid, name=f"hostio-shard{s}", device=self.device,
+                )
+                self.neighbors, self._prefetch_fn = self.hostio_runtime.shard_exchange(self._model)
         else:
             self._adjacency = adjacency.to(self.device)
         self._cache = {}
@@ -154,6 +169,7 @@ class ShardedSearchExecutor(SearchExecutor):
             ids, dists, hops, n_iters = sharded_bang_search_block(
                 q, table, self._codes, self._adjacency, self._data, self._medoid, k, cfg,
                 self._model, rerank=rerank, neighbor_fn=self.neighbors,
+                prefetch_fn=self._prefetch_fn,
             )
             # One all-gather over the data group carries every output of the
             # slice: ids, the distances' bits, hops and this slice's n_iters.
@@ -179,8 +195,10 @@ class ShardedSearchExecutor(SearchExecutor):
         rank (2 (S-1)/S x payload); one shard exchanges nothing.
 
         Host link ("sharded-base"): the (B_loc,) int32 frontier down to this
-        rank's host block and the (B_loc, R) int32 rows back. The hot-cache
-        fields are 0: the host-I/O service's cache is not ported yet.
+        rank's host block and the (B_loc, R) int32 rows back. With the
+        host-I/O hot cache, `host_bytes_saved_per_hop` (this rank's measured
+        hit rate x the rows-back leg) is subtracted: hit rows are served from
+        the replicated device cache and cross no rank's host link.
         """
         bucket = self._bucket_for(batch)
         b_loc = bucket // self.n_data_shards
@@ -190,18 +208,17 @@ class ShardedSearchExecutor(SearchExecutor):
         base = self.variant == "sharded-base"
         host_ids_out = b_loc * 4 if base else 0
         host_rows_in = b_loc * self.R * 4 if base else 0
+        hot = self._hot_cache_fields(host_rows_in)
         return {
             "payload_bytes": payload,
             "collective_bytes": payload,
             "ring_bytes_per_device": ring,
             "host_ids_out_bytes": host_ids_out,
             "host_rows_in_bytes": host_rows_in,
-            "host_link_bytes": host_ids_out + host_rows_in,
+            "host_link_bytes": host_ids_out + host_rows_in - hot["host_bytes_saved_per_hop"],
             "model_shards": S,
             "data_shards": self.n_data_shards,
             "tombstone_fraction": 0.0,
             "delta_points": 0,
-            "hot_cache_rows": 0,
-            "hot_cache_hit_rate": 0.0,
-            "host_bytes_saved_per_hop": 0,
+            **hot,
         }

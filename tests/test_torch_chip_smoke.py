@@ -54,16 +54,18 @@ def smoke(monkeypatch):
                         ("VAMANA_N", 800), ("VAMANA_QUERIES", 30), ("VAMANA_R", 16), ("VAMANA_L", 32),
                         ("PATH_BATCHES", {"inmem": 3, "base": 2, "exact": 2, "sharded": 3,
                                           "sharded-base": 2}),
+                        # A tenth of the rehearsal graph's 800 rows, as 1,500 of 15,000.
+                        ("VAMANA_HOSTIO", dict(mod.VAMANA_HOSTIO, hot_cache_rows=80)),
                         ("time_ms", _host_time_ms)):
         monkeypatch.setattr(mod, name, value)
     # On the CPU the sharded re-rank follows XLA:CPU's order outside the
     # re-rank kernel's wrapper (it launches K3 on the card only).
     kernels = dict(mod.PATH_KERNELS)
-    for name in ("sharded", "sharded-base"):
+    for name in ("sharded", "sharded-base", "sharded-base-hostio"):
         kernels[name] = tuple(k for k in kernels[name] if k != "rerank_l2")
     monkeypatch.setattr(mod, "PATH_KERNELS", kernels)
     # Device tracing has nothing to trace here (and takes seconds on the host).
-    monkeypatch.setattr(mod, "profile_batch", lambda *args: None)
+    monkeypatch.setattr(mod, "profile_batch", lambda *args, **kwargs: None)
     monkeypatch.setattr(torch.cuda, "synchronize", lambda *a, **k: None)
     for ops, name in WRAPPERS:
         monkeypatch.setattr(ops, name, _counted(getattr(ops, name)))
@@ -177,16 +179,61 @@ def test_chip_smoke_vamana_cell_on_cpu(smoke):
     g = build_vamana(data, R=16, L=32, alpha=smoke.VAMANA_ALPHA, seed=smoke.SEED)
     assert (build["mean_degree"], build["max_degree"]) == g.degree_stats()
     assert build["medoid"] == g.medoid and build["pq_error"] > 0
-    assert list(paths) == ["vamana-inmem", "vamana-base", "vamana-exact"]
+    assert list(paths) == ["vamana-inmem", "vamana-base", "vamana-exact", "vamana-base-hostio"]
+    hostio = paths.pop("vamana-base-hostio")
     for name, r in paths.items():
         assert r["n_batches"] == 1 and 0.5 < r["recall_at_10"] <= 1.0
         assert 0 < r["mean_hops"] <= r["n_iters"][0] < SearchConfig().iters()
         assert 0 < r["p95_hops"] <= r["n_iters"][0]
         assert r["device_busy_ms_per_batch"] is None
     inmem, base, exact = paths.values()
+    # Host-I/O base on the same graph: base's recall and launches, and a hot
+    # cache that some lanes hit.
+    assert hostio["launches"] == base["launches"] and hostio["recall_at_10"] == base["recall_at_10"]
+    assert 0.0 < hostio["cache_hit_rate"] < 1.0
     hops = inmem["n_iters"][0]
     assert inmem["launches"]["search_step"] == hops and inmem["launches"]["pq_adc"] == 1
     assert inmem["launches"]["rerank_l2"] == 1 and inmem["launches"]["fused_traverse"] == 0
     assert base["launches"] == inmem["launches"] and base["recall_at_10"] == inmem["recall_at_10"]
     assert exact["launches"]["fused_traverse"] == exact["n_iters"][0]
     assert exact["launches"]["search_step"] == exact["launches"]["rerank_l2"] == 0
+
+
+def test_chip_smoke_hostio_phase_on_cpu(smoke, monkeypatch):
+    """Phase 4b at the rehearsal's size: the host-I/O paths equal their plain
+    twins, launch K1 (or K7 and K6) every hop, count no miss, hedge or
+    degraded lane, and split each hop in three; the pipelines' ids and recall
+    equal the plain path's and their repeats hit the result cache."""
+    cpu = torch.device("cpu")
+    # 200 hot rows of the 3,000: the card's 65,536 would cache the whole graph.
+    configs = tuple((name, {**kw, "hot_cache_rows": 200} if kw.get("hot_cache_rows") else kw)
+                    for name, kw in smoke.HOSTIO_CONFIGS)
+    monkeypatch.setattr(smoke, "HOSTIO_CONFIGS", configs)
+    monkeypatch.setattr(smoke, "HOSTIO_FULL", dict(smoke.HOSTIO_FULL, hot_cache_rows=200))
+    res = smoke.main_path(cpu, "cpu")
+    base = res["paths"]["base"]
+    assert base["hop_split_ms"]["total_ms"] > 0 and base["hop_split_ms"]["wait_ms"] > 0
+    paths = smoke.hostio_phase(cpu, "cpu", res["ctx"])
+    assert not torch.distributed.is_initialized()
+    assert list(paths) == [name for name, _ in configs] + ["sharded-base-hostio", "serve-inmem",
+                                                           "serve-base-hostio"]
+    for name, _ in configs:
+        r = paths[name]
+        hops = sum(r["n_iters"])
+        assert r["launches"]["search_step"] == hops and r["launches"]["rerank_l2"] == r["n_batches"] == 2
+        assert r["hostio"]["requests"] == hops and r["hostio"]["prefetch_misses"] == 0
+        assert r["hop_split_ms"]["total_ms"] > 0 and r["recall_at_10"] == base["recall_at_10"]
+        assert r["host_link_bytes"] == r["exchange_bytes_per_hop"]["host_link_bytes"]
+    assert paths["base-hostio-w1"]["hostio"]["prefetch_issued"] == 0
+    full = paths["base-hostio-w4-c64k-p"]["hostio"]
+    assert full["prefetch_hits"] == full["requests"] and 0 < full["cache_hit_rate"] < 1
+    assert full["hot_cache_rows"] == 200 and 0.0 < full["overlap_fraction"] <= 1.0
+    sb = paths["sharded-base-hostio"]
+    hops = sum(sb["n_iters"])
+    assert sb["launches"]["local_adc"] == hops + 2 and sb["launches"]["fused_traverse"] == hops
+    for name in ("serve-inmem", "serve-base-hostio"):
+        r = paths[name]
+        assert r["recall_at_10"] == res["paths"]["inmem"]["recall_at_10"]
+        assert r["cache_repeat_hit_rate"] == 1.0 and 0 < r["p50_ms"] <= r["p95_ms"]
+        assert r["launches"]["search_step"] > 0 and r["qps"] > 0
+    assert "overlap_fraction" in paths["serve-base-hostio"]

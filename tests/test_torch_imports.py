@@ -52,6 +52,13 @@ EIGHTH_SLICE = {
     "repro_torch.runtime.telemetry.flightrecorder", "repro_torch.runtime.telemetry.profile",
 }
 
+# Modules of the ninth slice: the host-I/O subsystem and the serve pipeline.
+NINTH_SLICE = {
+    "repro_torch.runtime.hostio", "repro_torch.runtime.hostio.service",
+    "repro_torch.runtime.hostio.cache", "repro_torch.runtime.hostio.prefetch",
+    "repro_torch.runtime.serving",
+}
+
 
 def test_every_module_imports_without_jax_or_reference():
     env = dict(os.environ, PYTHONPATH=str(SRC))
@@ -61,7 +68,7 @@ def test_every_module_imports_without_jax_or_reference():
     )
     assert res.returncode == 0, res.stderr
     names = set(res.stdout.split())
-    assert len(names) >= 39 and SECOND_SLICE | THIRD_SLICE | EIGHTH_SLICE <= names   # every module was walked
+    assert len(names) >= 44 and SECOND_SLICE | THIRD_SLICE | EIGHTH_SLICE | NINTH_SLICE <= names   # every module was walked
 
 
 def test_from_arrays_defaults_to_cuda():
@@ -85,3 +92,19 @@ def test_from_arrays_defaults_to_cuda():
     assert idx.codes.device.type == "cpu" and idx.graph.medoid == 0
     with pytest.raises(ValueError, match="medoid"):
         BangIndex.from_arrays(*args[:3], 10, args[4], device="cpu")
+
+
+def test_hostio_entry_points_default_to_cuda():
+    import numpy as np
+    from repro_torch.runtime.hostio import HostIOConfig, HostIORuntime, HotAdjacencyCache
+
+    adj = np.zeros((4, 2), np.int32)
+    if torch.cuda.is_available():
+        assert HotAdjacencyCache(adj, 2).device.type == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match="CUDA"):
+            HotAdjacencyCache(adj, 2)
+        with pytest.raises(RuntimeError, match="CUDA"):
+            HostIORuntime(HostIOConfig(), [adj], adj)
+    rt = HostIORuntime(HostIOConfig(hot_cache_rows=2), [adj], adj, device="cpu")
+    assert rt.cache.device.type == "cpu" and not rt.service.started

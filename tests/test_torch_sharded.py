@@ -45,7 +45,8 @@ from repro_torch.core.worklist import INVALID_ID
 from repro_torch.distributed import make_mesh
 from repro_torch.kernels.pq_table import ops as table_ops
 from repro_torch.kernels.search_step import ops as step_ops
-from repro_torch.runtime import SHARDED_VARIANTS, ShardedSearchExecutor
+from repro_torch.runtime import SHARDED_VARIANTS, ServePipeline, ShardedSearchExecutor
+from repro_torch.runtime.hostio import HostIOConfig
 
 SRC = Path(__file__).resolve().parents[1] / "src"
 K = 5
@@ -321,11 +322,23 @@ def test_sharded_base_link_bytes_and_exchange_accounting(one_rank, port_index):
 
 
 def test_unsupported_options_raise(one_rank, port_index):
-    _, _, _, tidx = port_index
-    with pytest.raises(NotImplementedError, match="host-I/O slice"):
-        ShardedSearchExecutor.from_index(tidx, one_rank, variant="sharded-base", hostio=object())
+    data, _, _, tidx = port_index
+    # sharded-base takes hostio= (the host-I/O service of this rank's block).
+    ex = ShardedSearchExecutor.from_index(tidx, one_rank, variant="sharded-base",
+                                          hostio=HostIOConfig(workers=2))
+    try:
+        q = uniform_queries(data, 6, seed=76)
+        cfg = SearchConfig(t=16, bloom_z=4096)
+        a, da = ex.search(q, K, cfg=cfg)
+        b, db = tidx.search(q, K, cfg=cfg, variant="sharded-base", mesh=one_rank)
+        assert torch.equal(a, b) and torch.equal(da, db)
+        assert ex.hostio_service.stats()["requests"] > 0
+    finally:
+        ex.hostio_runtime.stop()
     with pytest.raises(ValueError, match="hostio"):
-        ShardedSearchExecutor.from_index(tidx, one_rank, variant="sharded", hostio=object())
+        ShardedSearchExecutor.from_index(tidx, one_rank, variant="sharded", hostio=HostIOConfig())
+    with pytest.raises(ValueError, match="hostio"):
+        tidx.executor("sharded", mesh=one_rank, hostio=HostIOConfig())
     with pytest.raises(NotImplementedError, match="mutability slice"):
         ShardedSearchExecutor.from_index(tidx, one_rank, with_tombstones=True)
     with pytest.raises(ValueError, match="variant"):
@@ -333,6 +346,64 @@ def test_unsupported_options_raise(one_rank, port_index):
     with pytest.raises(ValueError, match="ranks"):
         make_mesh((1, 2), ("data", "model"), "cpu")
     assert make_mesh((1, 1), ("data", "model"), "cpu") is one_rank
+
+
+@pytest.mark.parametrize("mode", ["reference", "fused"])
+def test_sharded_base_hostio_bit_exact(one_rank, port_index, mode):
+    """sharded-base with the host-I/O service (worker pool, replicated hot
+    cache, prefetched exchange) on the one-rank gloo group equals
+    sharded-base without it, ids and distances, and its ids equal the
+    reference executor's with the same config."""
+    from repro.runtime.hostio import HostIOConfig as JHostIOConfig
+
+    data, idx, _, tidx = port_index
+    q = uniform_queries(data, 16, seed=77)
+    cfg = SearchConfig(t=32, bloom_z=4096)
+    ex = tidx.executor("sharded-base", mesh=one_rank,
+                       hostio=HostIOConfig(workers=2, hot_cache_rows=64, prefetch=True))
+    try:
+        ids, d = ex.search(q, K, cfg=cfg, kernel_mode=mode)
+        p_ids, p_d = tidx.search(q, K, cfg=cfg, variant="sharded-base", mesh=one_rank,
+                                 kernel_mode=mode)
+        assert torch.equal(ids, p_ids) and torch.equal(d, p_d)
+        s = ex.hostio_runtime.stats()
+        assert s["prefetch_hits"] > 0 and s["prefetch_misses"] == 0 and s["cache_hit_rate"] > 0
+        x = ex.exchange_bytes_per_hop(16)
+        assert x["hot_cache_rows"] == 64 and x["hot_cache_hit_rate"] == s["cache_hit_rate"]
+        assert x["host_link_bytes"] == (x["host_ids_out_bytes"] + x["host_rows_in_bytes"]
+                                        - x["host_bytes_saved_per_hop"]) > 0
+    finally:
+        ex.hostio_runtime.stop()
+    jex = JShardedSearchExecutor.from_index(
+        idx, jmake_mesh((1, 1), ("data", "model")), variant="sharded-base",
+        hostio=JHostIOConfig(workers=2, hot_cache_rows=64, prefetch=True))
+    try:
+        jids, _ = jex.search(q, K, cfg=JSearchConfig(t=32, bloom_z=4096), kernel_mode=mode)
+    finally:
+        jex.hostio_runtime.stop()
+    np.testing.assert_array_equal(ids.numpy(), np.asarray(jids))
+
+
+def test_serve_pipeline_over_sharded_base_hostio(one_rank, port_index):
+    """The pipeline drives the mesh executor unchanged: drain()'s ids equal
+    the executor's own, and the hits of a repeat drain are bit-identical."""
+    data, _, arrays, _ = port_index
+    tidx = index_from_reference(arrays, device="cpu")
+    q = uniform_queries(data, 20, seed=78)
+    cfg = SearchConfig(t=16, bloom_z=4096)
+    ex = tidx.executor("sharded-base", mesh=one_rank, hostio=HostIOConfig(workers=2, prefetch=True))
+    with ServePipeline(ex, k=K, cfg=cfg, max_batch=8, result_cache_size=32) as pipe:
+        ids_direct, _ = ex.search(q, K, cfg=cfg)
+        pipe.submit(q)
+        ids, dists, st = pipe.drain()
+        np.testing.assert_array_equal(ids, ids_direct.numpy())
+        assert st.batches == 3 and st.hostio["requests"] > 0
+        pipe.submit(q)
+        ids2, dists2, st2 = pipe.drain()
+        np.testing.assert_array_equal(ids2, ids)
+        np.testing.assert_array_equal(dists2, dists)
+        assert st2.result_cache_hits == 20 and st2.batches == 0
+    assert not ex.hostio_service.started
 
 
 def test_pad_to_multiple_and_local_rows():
@@ -367,13 +438,15 @@ dist.init_process_group("gloo", init_method=f"file://{work}/group", rank=rank, w
 from repro_torch.convert import index_from_reference
 from repro_torch.core import SearchConfig
 from repro_torch.distributed import make_mesh
+from repro_torch.runtime.hostio import HostIOConfig
 
 index = index_from_reference(dict(np.load(f"{work}/index.npz")), device="cpu")
 mesh = make_mesh((D, S), ("data", "model"), "cpu")
 queries = np.load(f"{work}/queries.npy")
 cfg = SearchConfig(t=32, bloom_z=4096)
-for variant in ("sharded", "sharded-base"):
-    ex = index.executor(variant, mesh=mesh)
+hio = HostIOConfig(workers=2, hot_cache_rows=64, prefetch=True)
+for variant, hostio in (("sharded", None), ("sharded-base", None), ("sharded-base", hio)):
+    ex = index.executor(variant, mesh=mesh, hostio=hostio)
     assert ex.n_data_shards == D and ex.n_model_shards == S
     for mode in ("fused", "reference"):
         ref = np.load(f"{work}/{mode}.npz")
@@ -383,6 +456,10 @@ for variant in ("sharded", "sharded-base"):
         assert stats.n_iters == int(ref["n_iters"]), (variant, mode, stats.n_iters)
         h = ex.dispatch(queries, 5, cfg=cfg, kernel_mode=mode)
         assert np.array_equal(h.n_hops[: len(queries)].numpy(), ref["n_hops"]), (variant, mode, "hops")
+    if hostio is not None:
+        s = ex.hostio_runtime.stats()
+        assert s["prefetch_hits"] > 0 and s["prefetch_misses"] == 0, s
+        ex.hostio_runtime.stop()
 dist.destroy_process_group()
 open(f"{work}/ok.{rank}", "w").write("OK")
 '''
@@ -424,8 +501,9 @@ def rank_inputs(port_index, tmp_path_factory):
 @pytest.mark.parametrize("D,S", [(1, 2), (2, 2)])
 def test_sharded_on_several_gloo_ranks(rank_inputs, tmp_path, D, S):
     """Meshes (1, 2) and (2, 2): each rank returns the whole batch, equal to
-    the reference's single-device executor, in both variants and in the
-    fused and reference modes."""
+    the reference's single-device executor, in both variants (sharded-base
+    also with the host-I/O service of each rank's block) and in the fused
+    and reference modes."""
     work = tmp_path / "run"
     work.mkdir()
     for f in rank_inputs.iterdir():
