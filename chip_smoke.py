@@ -60,6 +60,12 @@ Phases, each timed; any failure exits non-zero:
      1,024 (QPS, p50/p95 latency, recall equal to the plain path's, ids
      equal), and the first 1,024 again, served bit-identically from the
      result cache;
+  4c. the autotuner on phase 4's inmem executor at bucket 1,024:
+     `autotune_executor` over eager True and False (two timed calls each;
+     the card's only tile candidate is 0), each candidate's per-hop us and
+     the winner; the winners file saved and loaded strictly, and an executor
+     built with `autotune=` from it: its pipeline key equals the tuned one
+     and its ids and distances equal a search with the winner's config;
   5. the Vamana cell: `BangIndex.build` over VAMANA_N points of the same
      draw's shape (d = 128, m = 32, R = 64, L_build = 128, alpha = 1.2):
      PQ trained and encoded on the card, the Vamana graph built on the
@@ -70,6 +76,23 @@ Phases, each timed; any failure exits non-zero:
      every variant, base ids and distances equal inmem's; and one batch of
      host-I/O base (four workers, 1,500 hot rows, prefetch), ids and
      distances equal base's, with the hot cache's hit rate on this graph;
+  5b. streaming mutability on the Vamana cell's index (`MutableBangIndex`):
+     MUT_INSERTS further points of the draw inserted and MUT_DELETES random
+     non-medoid base ids deleted (1% of n each); the 1,000 queries through
+     inmem, base, exact (fused, each also in reference mode) and sharded
+     (the one-rank NCCL mesh), the staged mode on inmem, then the inserted
+     vectors as queries, each with its launch counts set to 0 just before
+     it. Checks: no deleted id in any result, each inserted vector's own id
+     at rank 0, fused ids equal reference-mode ids, staged ids equal fused,
+     sharded ids equal inmem's, `trace_counts` unchanged across three more
+     deletes; recall@10 against brute force over `live_points()`. Then
+     `consolidate()`, timed as host re-link / host inserts / re-encode on the
+     card / swap, its codes against a CPU `pq_encode` of the same rows (the
+     count of rows that differ), and the same checks again; a second round
+     of mutations folded by `consolidate_async()` while inmem batches are
+     served (QPS before and during the fold); and `ServePipeline` over the
+     mutable inmem executor with its result cache on: a repeat after a
+     delete misses the cache and does not return the deleted id;
   6. a small corpus searched on the card and on the CPU, ids equal.
 
 Kernel times are taken cold: the timed calls cycle through copies of the
@@ -114,6 +137,11 @@ INTRINSIC_DIM = 16             # per-cluster subspace of the synthetic corpus
 # R = 64, L = 128 on the H100 machine's host).
 VAMANA_N, VAMANA_QUERIES = 15_000, 1_000
 VAMANA_R, VAMANA_L, VAMANA_ALPHA = 64, 128, 1.2
+# Phase 5b: mutations of the Vamana cell's index, 1% of its n each: inserts
+# of further points of the same draw (two rounds: before the fold, and
+# before the background fold), deletes of random non-medoid base ids.
+MUT_INSERTS, MUT_DELETES = 150, 150
+MUT_BATCHES = 3                # timed batches of each phase-5b path
 COPIES = 4                     # input copies cycled by timed calls, at least
 L2_BYTES = 50 * 2**20          # H100 L2; the copies together exceed twice this
 SECTOR = 32                    # bytes: the unit in which the card reads memory
@@ -790,7 +818,19 @@ PATH_KERNELS = {
     "serve-inmem": ("search_step", "pq_adc", "rerank_l2"),
     "serve-base-hostio": ("search_step", "pq_adc", "rerank_l2"),
     "vamana-base-hostio": ("search_step", "pq_adc", "rerank_l2"),
+    "autotune-inmem": ("search_step", "pq_adc", "rerank_l2"),
 }
+# Phase 5b's paths: each variant before ("mutable-") and after
+# ("consolidated-") the fold, the inserted vectors as queries, the staged mode
+# on one batch, batches served during the background fold, and the pipeline.
+for _stage in ("mutable", "consolidated"):
+    PATH_KERNELS.update({
+        f"{_stage}-inmem": PATH_KERNELS["inmem"], f"{_stage}-base": PATH_KERNELS["base"],
+        f"{_stage}-exact": PATH_KERNELS["exact"], f"{_stage}-sharded": PATH_KERNELS["sharded"],
+        f"{_stage}-inserts": PATH_KERNELS["inmem"], f"{_stage}-staged": PATH_KERNELS["staged"],
+    })
+PATH_KERNELS.update({"mutable-during-fold": PATH_KERNELS["inmem"],
+                     "serve-mutable-inmem": PATH_KERNELS["inmem"]})
 
 
 def run_path(name: str, index, queries, gt, cfg, variant: str, kernel_mode: str, n_batches: int,
@@ -1337,8 +1377,10 @@ def vamana_cell(dev, card: str) -> dict:
     VAMANA_QUERIES held-out queries through `index.search` on inmem, base
     and exact (fused, t = 64), each run with every launch count set to 0
     just before it. Checks: fused ids equal kernel_mode="reference" ids on
-    every variant, base ids and distances equal inmem's. Returns the build
-    and each path's measurements, keyed as the paths are named."""
+    every variant, base ids and distances equal inmem's. Returns the build,
+    each path's measurements, keyed as the paths are named, and what phase
+    5b reuses: the index, the queries, the points it inserts and the
+    configuration."""
     import torch
 
     from repro_torch import BangIndex, SearchConfig, brute_force_knn
@@ -1346,8 +1388,12 @@ def vamana_cell(dev, card: str) -> dict:
     from repro_torch.core import pq
     from repro_torch.data import gaussian_mixture
 
-    both = gaussian_mixture(VAMANA_N + VAMANA_QUERIES, D, seed=SEED, intrinsic_dim=INTRINSIC_DIM)
-    data, queries = both[:VAMANA_N], both[VAMANA_N:]
+    # The base points, the held-out queries and phase 5b's inserts, from one draw.
+    both = gaussian_mixture(VAMANA_N + VAMANA_QUERIES + 2 * MUT_INSERTS, D, seed=SEED,
+                            intrinsic_dim=INTRINSIC_DIM)
+    data = both[:VAMANA_N]
+    queries = both[VAMANA_N : VAMANA_N + VAMANA_QUERIES]
+    fresh = both[VAMANA_N + VAMANA_QUERIES :]
     # Time the graph inside `BangIndex.build`: the PQ work queued on the
     # card before it is waited for first, so the split is PQ / graph / rest.
     real_build, marks = bang_mod.build_vamana, {}
@@ -1425,7 +1471,371 @@ def vamana_cell(dev, card: str) -> dict:
     paths["vamana-base-hostio"] = res
     for res in paths.values():
         del res["ids"], res["dists"]
-    return dict(build=build, paths=paths)
+    return dict(build=build, paths=paths, ctx=dict(index=index, queries=queries, fresh=fresh, cfg=cfg))
+
+
+# ------------------------------------------------------------ phase 4c
+def autotune_phase(dev, card: str, ctx: dict) -> dict:
+    """Phase 4c: `autotune_executor` on phase 4's inmem executor at bucket
+    BATCH, eager True and False (the card's tile candidates are 0 alone),
+    two timed calls each; the winners file saved and loaded strictly; an
+    executor built with `autotune=` from the loaded file, whose pipeline key
+    must equal the tuned one and whose ids must equal a search with the
+    winner's configuration. Its search is the "autotune-inmem" path."""
+    import dataclasses
+    import tempfile
+
+    import torch
+
+    from repro_torch.kernels import autotune as at
+    from repro_torch.runtime import SearchExecutor
+
+    index, queries, cfg = ctx["index"], ctx["queries"], ctx["cfg"]
+    q = queries[:BATCH]
+    ex = index.executor("inmem")
+    t0 = time.perf_counter()
+    cache = at.autotune_executor(ex, q, k=K, t=cfg.t, cfg=cfg, eager_options=(True, False), repeats=2)
+    sweep_s = time.perf_counter() - t0
+    bucket = ex._bucket_for(BATCH)
+    r, m, n_rows = ex.autotune_shape()
+    kind = at.device_kind(dev)
+    winner = cache.lookup(kind, bucket, r, m)
+    if winner is None or len(cache) != 1:
+        raise AssertionError(f"autotune: no single winner for ({kind}, {bucket}, {r}, {m}): {cache.winners}")
+    for cand in cache.last_sweep:
+        log(f"[autotune] eager={cand['eager']} codes_tile_rows={cand['codes_tile_rows']}: per-hop us "
+            f"{[round(u, 3) for u in cand['per_hop_us']]} (best {min(cand['per_hop_us']):.3f})")
+    with tempfile.TemporaryDirectory() as tmp:
+        path = Path(tmp) / "winners.json"
+        cache.save(path)
+        loaded = at.AutotuneCache.load(path, strict=True)
+    if loaded.winners != cache.winners:
+        raise AssertionError("autotune: the reloaded winners differ from the saved ones")
+    tuned_cfg = dataclasses.replace(cfg, kernel_mode="fused", eager=winner["eager"],
+                                    codes_tile_rows=winner["codes_tile_rows"])
+    tuned = SearchExecutor.from_index(index, "inmem", autotune=loaded)
+    tuned.search(q, K, cfg=cfg, kernel_mode="fused")       # builds the pipeline
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    ids, dists, st = tuned.search(q, K, cfg=cfg, kernel_mode="fused", return_stats=True)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_launches()
+    for kname in PATH_KERNELS["autotune-inmem"]:
+        if launches[kname] <= 0:
+            raise AssertionError(f"the autotune-inmem path launched no {kname} kernel")
+    keys = set(tuned._cache)
+    want = (bucket, D, K, True, tuned_cfg, None, False)
+    if keys != {want} or want not in ex._cache:
+        raise AssertionError(f"autotune: pipeline keys {keys}, tuned key {want}")
+    ids_w, dists_w = ex.search(q, K, cfg=tuned_cfg)
+    check_same("autotune tuned vs winner's config ids", [ids], [ids_w])
+    check_same("autotune tuned vs winner's config distances", [dists], [dists_w])
+    log(f"[autotune] sweep of {len(cache.last_sweep)} candidates over bucket {bucket} (R={r}, m={m}, "
+        f"{n_rows} code rows) on {kind}: {sweep_s:.2f} s; winner eager={winner['eager']} "
+        f"codes_tile_rows={winner['codes_tile_rows']} at {winner['per_hop_us']:.3f} us a hop; the "
+        f"reloaded file's executor built the tuned key and returned the winner's ids and distances")
+    return {"autotune-inmem": dict(
+        qps=BATCH / wall, n_batches=1, n_iters=[st.n_iters], mean_hops=st.mean_hops,
+        batch_wall_ms=[st.wall_s * 1e3], launches=launches,
+        launches_per_batch=dict(launches), winner=winner, sweep=cache.last_sweep, sweep_s=sweep_s,
+        device_kind=kind)}
+
+
+# ------------------------------------------------------------ phase 5b
+def mutable_run(name: str, ex, queries, cfg, kernel_mode: str = "fused") -> dict:
+    """MUT_BATCHES batches of the same queries through a mutable executor
+    (a warm-up batch first), with every launch count set to 0 just before
+    them and read just after; the host seconds of the delta fusion
+    (`runtime.mutation._fuse_delta`) are summed apart. Returns the last
+    batch's ids and distances, each batch's wall and the launches."""
+    import torch
+
+    from repro_torch.runtime import mutation as mutation_mod
+
+    ex.search(queries, K, cfg=cfg, kernel_mode=kernel_mode)
+    torch.cuda.synchronize()
+    real_fuse, fuse_s = mutation_mod._fuse_delta, []
+
+    def timed_fuse(*args):
+        t0 = time.perf_counter()
+        out = real_fuse(*args)
+        fuse_s.append(time.perf_counter() - t0)
+        return out
+
+    mutation_mod._fuse_delta = timed_fuse
+    try:
+        reset_launches()
+        walls, iters, hops = [], [], []
+        for _ in range(MUT_BATCHES):
+            t0 = time.perf_counter()
+            ids, dists, st = ex.search(queries, K, cfg=cfg, kernel_mode=kernel_mode, return_stats=True)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+            iters.append(st.n_iters)
+            hops.append(st.mean_hops)
+        launches = read_launches()
+    finally:
+        mutation_mod._fuse_delta = real_fuse
+    for kname in PATH_KERNELS[name]:
+        if launches[kname] <= 0:
+            raise AssertionError(f"the {name} path launched no {kname} kernel")
+    return dict(ids=ids.cpu().numpy(), dists=dists.cpu().numpy(),
+                qps=MUT_BATCHES * len(queries) / sum(walls), n_batches=MUT_BATCHES, n_iters=iters,
+                mean_hops=float(np.mean(hops)), batch_wall_ms=[w * 1e3 for w in walls],
+                fuse_ms_per_batch=sum(fuse_s) * 1e3 / MUT_BATCHES, launches=launches,
+                launches_per_batch={k: v / MUT_BATCHES for k, v in launches.items()})
+
+
+def no_deleted(name: str, ids: np.ndarray, deleted: set) -> None:
+    hit = deleted & set(ids.ravel().tolist())
+    if hit:
+        raise AssertionError(f"{name}: deleted ids {sorted(hit)[:5]} returned")
+
+
+def mutable_paths(stage: str, mut, queries, inserted, new_ids, deleted: set, cfg, dev,
+                  yardstick) -> dict:
+    """The checks phase 5b makes before and after the fold: the queries
+    through inmem, base and exact (fused, each also in reference mode) and
+    sharded (the default one-rank mesh); the staged mode on inmem; then the
+    inserted vectors as queries. No deleted id in any result, fused ids
+    equal reference-mode ids, sharded ids equal inmem's. Recall@10 is taken
+    against brute force over `live_points()`.
+
+    The inserted vectors' own ids: while they are delta points the exact
+    scan must put each at rank 0. Once the fold has made them graph nodes,
+    each must be linked (in- and out-edges), and the share found at rank 0
+    is reported beside `yardstick`'s, base ids of the same index searched
+    as their own queries: graph search finds neither share by construction."""
+    import torch
+
+    from repro_torch import brute_force_knn, recall_at_k
+
+    live_ids, live_vecs = mut.live_points()
+    gt = live_ids[brute_force_knn(live_vecs, queries, K, device=dev)]
+    out = {}
+    for variant in ("inmem", "base", "exact", "sharded"):
+        name = f"{stage}-{variant}"
+        ex = mut.executor(variant)
+        res = mutable_run(name, ex, queries, cfg)
+        no_deleted(name, res["ids"], deleted)
+        res["recall_at_10"] = recall_at_k(res["ids"], gt)
+        if variant != "sharded":
+            ref_ids = ex.search(queries, K, cfg=cfg, kernel_mode="reference")[0].cpu().numpy()
+            if not np.array_equal(ref_ids, res["ids"]):
+                raise AssertionError(f"{name}: fused ids differ from kernel_mode='reference' ids")
+        out[name] = res
+    if not np.array_equal(out[f"{stage}-sharded"]["ids"], out[f"{stage}-inmem"]["ids"]):
+        raise AssertionError(f"{stage}: sharded ids differ from inmem's")
+    name = f"{stage}-staged"
+    out[name] = res = mutable_run(name, mut.executor("inmem"), queries, cfg, "staged")
+    if not np.array_equal(res["ids"], out[f"{stage}-inmem"]["ids"]):
+        raise AssertionError(f"{name}: staged ids differ from fused ids")
+    res["recall_at_10"] = out[f"{stage}-inmem"]["recall_at_10"]
+    name = f"{stage}-inserts"
+    out[name] = res = mutable_run(name, mut.executor("inmem"), inserted, cfg)
+    no_deleted(name, res["ids"], deleted)
+    found = res["ids"][:, 0] == new_ids
+    in_delta = int(new_ids.min()) >= mut.index.n
+    base_vecs = mut.index.data_host[torch.from_numpy(yardstick).long()].numpy()
+    base_found = mut.executor("inmem").search(base_vecs, K, cfg=cfg)[0].cpu().numpy()[:, 0] == yardstick
+    res.update(recall_at_10=float(found.mean()), base_own_id_at_rank0=float(base_found.mean()),
+               in_top10=float((res["ids"] == new_ids[:, None]).any(1).mean()))
+    if in_delta and not found.all():
+        raise AssertionError(f"{name}: {int((~found).sum())} of {len(new_ids)} delta points not at rank 0")
+    if not in_delta:
+        adj = mut.index.graph.adjacency.numpy()
+        in_deg = np.bincount(adj[adj >= 0], minlength=adj.shape[0])[new_ids]
+        out_deg = (adj[new_ids] >= 0).sum(1)
+        if (in_deg == 0).any() or (out_deg == 0).any():
+            raise AssertionError(f"{name}: {int((in_deg == 0).sum())} folded points without in-edges, "
+                                 f"{int((out_deg == 0).sum())} without out-edges")
+        res.update(in_degree_mean=float(in_deg.mean()), out_degree_mean=float(out_deg.mean()),
+                   missed_in_degree=in_deg[~found].tolist(), missed_out_degree=out_deg[~found].tolist())
+    log(f"[{name}] own id at rank 0: {int(found.sum())} of {len(new_ids)} inserted vectors "
+        f"({'the exact delta scan' if in_delta else 'graph nodes since the fold'}), in the top 10: "
+        f"{res['in_top10']:.4f}; {int(base_found.sum())} of {len(yardstick)} base points of the index "
+        f"searched as their own queries"
+        + ("" if in_delta else f"; folded points' in-degree mean {res['in_degree_mean']:.2f} (min "
+           f"{int(in_deg.min())}), out-degree mean {res['out_degree_mean']:.2f}; the missed ones' in-degrees "
+           f"{res['missed_in_degree']}, out-degrees {res['missed_out_degree']}"))
+    for name, r in out.items():
+        log(f"[{name}] {len(queries) if not name.endswith('inserts') else len(inserted)} queries: "
+            f"recall@10 {r['recall_at_10']:.5f}"
+            f"{' (own id at rank 0)' if name.endswith('inserts') else ''}, QPS {r['qps']:.1f} over "
+            f"{r['n_batches']} batches (walls ms {[round(w, 2) for w in r['batch_wall_ms']]}; delta fusion on "
+            f"the host {r['fuse_ms_per_batch']:.2f} ms a batch), n_iters {r['n_iters']}, mean hops "
+            f"{r['mean_hops']:.2f}; launches {r['launches']}")
+    log(f"[{stage}] no deleted id returned; fused ids equal reference-mode ids (inmem, base, exact), "
+        f"staged ids equal fused, sharded ids equal inmem's")
+    for r in out.values():
+        del r["ids"], r["dists"]
+    return out
+
+
+def mutation_phase(dev, card: str, vctx: dict) -> dict:
+    """Phase 5b: streaming mutability on the Vamana cell's index.
+
+    MUT_INSERTS further points of the draw inserted and MUT_DELETES random
+    non-medoid base ids deleted through `MutableBangIndex`; `mutable_paths`'
+    checks; three more deletes with `trace_counts` unchanged; `consolidate()`
+    timed in its stages, the re-encoded codes against a CPU `pq_encode` of
+    the same rows, and `mutable_paths` again; a second round of mutations
+    folded by `consolidate_async()` while inmem batches are served (QPS
+    before and during the fold); then `ServePipeline` over the mutable inmem
+    executor with its result cache on, where a repeat after a delete must
+    miss the cache and not return the deleted id."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.core import pq
+    from repro_torch.runtime import MutableBangIndex, ServePipeline
+
+    index, queries, fresh, cfg = vctx["index"], vctx["queries"], vctx["fresh"], vctx["cfg"]
+    medoid = index.graph.medoid
+    rng = np.random.default_rng(SEED + 5)
+    paths, info = {}, {}
+    made = not dist.is_initialized()
+    # The fold inserts with the build's beam width.
+    mut = MutableBangIndex(index, alpha=VAMANA_ALPHA, consolidate_L=VAMANA_L)
+    try:
+        t0 = time.perf_counter()
+        new_ids = mut.insert(fresh[:MUT_INSERTS])
+        insert_s = time.perf_counter() - t0
+        victims = [int(i) for i in rng.choice(index.n, MUT_DELETES + 1, replace=False) if i != medoid]
+        victims = victims[:MUT_DELETES]
+        t0 = time.perf_counter()
+        mut.delete(victims)
+        delete_s = time.perf_counter() - t0
+        deleted = set(victims)
+        log(f"[mutation] {MUT_INSERTS} inserts ({insert_s * 1e3:.1f} ms on the host) and {MUT_DELETES} "
+            f"deletes ({delete_s * 1e3:.3f} ms) on the n={index.n} Vamana index: {mut.mutation_stats()}")
+        # Live base ids searched as their own queries: the yardstick for
+        # the inserted vectors once they are graph nodes.
+        yardstick = np.array([int(i) for i in rng.choice(index.n, 2 * MUT_INSERTS, replace=False)
+                              if int(i) != medoid and int(i) not in deleted][:MUT_INSERTS])
+        paths.update(mutable_paths("mutable", mut, queries, fresh[:MUT_INSERTS], new_ids, deleted, cfg, dev,
+                                   yardstick))
+
+        # Deletes build no pipeline: the bitmap is an argument.
+        ex = mut.executor("inmem")
+        traces = dict(ex.trace_counts)
+        for v in [int(i) for i in rng.choice(index.n, 8, replace=False)
+                  if i != medoid and int(i) not in deleted][:3]:
+            mut.delete([v])
+            deleted.add(v)
+            no_deleted("delete without a rebuild", ex.search(queries, K, cfg=cfg)[0].cpu().numpy(), deleted)
+        if dict(ex.trace_counts) != traces:
+            raise AssertionError(f"deletes built pipelines: {traces} -> {dict(ex.trace_counts)}")
+        log(f"[mutation] three more deletes: trace_counts unchanged ({sum(traces.values())} builds)")
+
+        stats = mut.consolidate()
+        fold = dict(mut.last_consolidation)
+        new = mut.index
+        cpu_codes = pq.pq_encode(pq.PQCodec(new.codec.codebooks.cpu()), new.data_host)
+        differ = int((cpu_codes != new.codes.cpu()).any(1).sum())
+        info.update(consolidate_s=fold, consolidated_stats=stats, codes_rows=int(new.n),
+                    codes_rows_differing_from_cpu=differ)
+        log(f"[mutation] consolidate(): {fold['total_s']:.3f} s = host re-link {fold['relink_s']:.3f} s + "
+            f"host inserts {fold['insert_s']:.3f} s + re-encode and tables on the card "
+            f"{fold['encode_s']:.3f} s + swap {fold['swap_s'] * 1e3:.3f} ms; {stats}; re-encoded codes: "
+            f"{differ} of {new.n} rows differ from a CPU pq_encode of the same rows")
+        yardstick = np.array([int(i) for i in yardstick if int(i) not in deleted])
+        paths.update(mutable_paths("consolidated", mut, queries, fresh[:MUT_INSERTS], new_ids, deleted,
+                                   cfg, dev, yardstick))
+
+        # A second round, folded in the background while batches are served.
+        new_ids2 = mut.insert(fresh[MUT_INSERTS:])
+        victims2 = [int(i) for i in rng.choice(index.n, MUT_DELETES + 8, replace=False)
+                    if i != medoid and int(i) not in deleted][:MUT_DELETES]
+        mut.delete(victims2)
+        deleted.update(victims2)
+        ex = mut.executor("inmem")
+        ex.search(queries, K, cfg=cfg, kernel_mode="fused")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(5):
+            no_deleted("before the fold", ex.search(queries, K, cfg=cfg, kernel_mode="fused")[0].cpu().numpy(),
+                       deleted)
+        qps_before = 5 * len(queries) / (time.perf_counter() - t0)
+        reset_launches()
+        th = mut.consolidate_async()
+        t0 = time.perf_counter()
+        served = 0
+        while True:
+            alive = th.is_alive()
+            ids = ex.search(queries, K, cfg=cfg, kernel_mode="fused")[0].cpu().numpy()
+            no_deleted("during the fold", ids, deleted)
+            served += 1
+            if not alive:
+                break
+        during_s = time.perf_counter() - t0
+        th.join()
+        launches = read_launches()
+        if mut.consolidate_error is not None or mut.generation != 2:
+            raise AssertionError(f"consolidate_async failed: {mut.consolidate_error!r}")
+        for kname in PATH_KERNELS["mutable-during-fold"]:
+            if launches[kname] <= 0:
+                raise AssertionError(f"the mutable-during-fold path launched no {kname} kernel")
+        ids = ex.search(fresh[MUT_INSERTS:], K, cfg=cfg)[0].cpu().numpy()
+        no_deleted("after the background fold", ids, deleted)
+        adj = mut.index.graph.adjacency.numpy()
+        if not ((adj[new_ids2] >= 0).any(1).all() and np.isin(new_ids2, adj[adj >= 0]).all()):
+            raise AssertionError("the background fold left inserted points without in- or out-edges")
+        async_fold = dict(mut.last_consolidation)
+        info["second_round_own_id_at_rank0"] = float((ids[:, 0] == new_ids2).mean())
+        paths["mutable-during-fold"] = dict(qps=served * len(queries) / during_s, n_batches=served,
+                                            launches=launches, launches_per_batch={
+                                                k: v / served for k, v in launches.items()},
+                                            batch_wall_ms=[during_s * 1e3 / served])
+        info.update(qps_before_fold=qps_before, qps_during_fold=served * len(queries) / during_s,
+                    batches_during_fold=served, async_fold_s=async_fold)
+        log(f"[mutation] consolidate_async() of {MUT_INSERTS} inserts and {MUT_DELETES} deletes "
+            f"({async_fold['total_s']:.3f} s: re-link {async_fold['relink_s']:.3f}, inserts "
+            f"{async_fold['insert_s']:.3f}, re-encode {async_fold['encode_s']:.3f}) beside inmem batches "
+            f"of {len(queries)}: QPS {qps_before:.1f} before the fold, "
+            f"{info['qps_during_fold']:.1f} during it ({served} batches in {during_s:.3f} s; the fold's "
+            f"Python holds the interpreter lock the hop loop needs); no deleted id returned; the second "
+            f"round's inserts at rank 0 after the fold: {info['second_round_own_id_at_rank0']:.4f}")
+
+        name = "serve-mutable-inmem"
+        with ServePipeline(mut.executor("inmem"), k=K, cfg=cfg, max_batch=BATCH, kernel_mode="fused",
+                           result_cache_size=len(queries)) as pipe:
+            reset_launches()
+            pipe.submit(queries)
+            ids0, _, st0 = pipe.drain()
+            launches = read_launches()
+            for kname in PATH_KERNELS[name]:
+                if launches[kname] <= 0:
+                    raise AssertionError(f"the {name} path launched no {kname} kernel")
+            no_deleted(name, ids0, deleted)
+            pipe.submit(queries)
+            ids1, _, st1 = pipe.drain()
+            if st1.result_cache_hits != len(queries) or not np.array_equal(ids1, ids0):
+                raise AssertionError(f"{name}: the repeat was not served from the result cache")
+            victim = next(int(i) for i in ids0[:, 0] if int(i) != medoid)
+            mut.delete([victim])
+            deleted.add(victim)
+            pipe.submit(queries)
+            ids2, _, st2 = pipe.drain()
+            if st2.result_cache_hits != 0:
+                raise AssertionError(f"{name}: {st2.result_cache_hits} cache hits after a delete")
+            no_deleted(name, ids2, deleted)
+        paths[name] = dict(qps=st0.qps, p50_ms=st0.p50_ms, p95_ms=st0.p95_ms, n_batches=st0.batches,
+                           launches=launches,
+                           launches_per_batch={k: v / st0.batches for k, v in launches.items()},
+                           batch_wall_ms=[st0.wall_s * 1e3 / st0.batches])
+        log(f"[{name}] ServePipeline(max_batch={BATCH}, result cache on) over the mutable inmem executor: "
+            f"QPS {st0.qps:.1f}, p50 {st0.p50_ms:.2f} ms; the repeat hit the cache {st1.result_cache_hits} "
+            f"times; after deleting id {victim} the repeat hit it {st2.result_cache_hits} times and did "
+            f"not return the id")
+        info["final_stats"] = mut.mutation_stats()
+    finally:
+        mut.close()
+        if made and dist.is_initialized():
+            dist.destroy_process_group()
+    return dict(paths=paths, info=info)
 
 
 def profile_batch(index, queries, cfg, variant: str, kernel_mode: str,
@@ -1536,14 +1946,26 @@ def main() -> int:
     paths = res["paths"]
     log(f"[main] phase: {time.perf_counter() - t0:.1f} s")
 
+    ctx = res.pop("ctx")
     t0 = time.perf_counter()
-    paths.update(hostio_phase(dev, card, res.pop("ctx")))
+    paths.update(hostio_phase(dev, card, ctx))
     log(f"[hostio] phase: {time.perf_counter() - t0:.1f} s")
+
+    t0 = time.perf_counter()
+    autotune = autotune_phase(dev, card, ctx)
+    paths.update(autotune)
+    log(f"[autotune] phase: {time.perf_counter() - t0:.1f} s")
+    del ctx
 
     t0 = time.perf_counter()
     vamana = vamana_cell(dev, card)
     paths.update(vamana["paths"])
     log(f"[vamana] phase: {time.perf_counter() - t0:.1f} s")
+
+    t0 = time.perf_counter()
+    mutation = mutation_phase(dev, card, vamana.pop("ctx"))
+    paths.update(mutation["paths"])
+    log(f"[mutation] phase: {time.perf_counter() - t0:.1f} s")
     rows[0]["fresh_lanes_inmem"] = res["fresh_lanes"]
     for row in rows:
         # A kernel's launches are those of the path that runs it; the counts
@@ -1575,8 +1997,11 @@ def main() -> int:
         busy = r.get("device_busy_ms_per_batch")
         r["idle_share"] = None if busy is None else 1.0 - busy / float(np.mean(r["batch_wall_ms"]))
     log(f"[total] {time.perf_counter() - t_start:.1f} s")
+    at = autotune["autotune-inmem"]
     print(json.dumps({"kernels": rows, "main_path": summary, "nn_contrast": res["nn_contrast"],
-                      "vamana_build": vamana["build"], "small_recall_at_10": small, "card": card}))
+                      "vamana_build": vamana["build"], "mutation": mutation["info"],
+                      "autotune": {k: at[k] for k in ("winner", "sweep", "sweep_s", "device_kind")},
+                      "small_recall_at_10": small, "card": card}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

@@ -21,6 +21,29 @@ with `BangIndex.from_arrays`. The adjacency and the full vectors are kept in
 host memory (pinned for a CUDA index) as BANG Base reads them; the vectors
 also on the device unless `keep_device_data=False`, and the adjacency goes
 to the device the first time an "inmem" or "exact" executor needs it.
+
+Mutability (`repro_torch.runtime.mutation.MutableBangIndex`): a `BangIndex`
+itself is immutable, and every executor serves a frozen snapshot. Streaming
+inserts and deletes layer on top of it:
+
+  * deletes set ids in a bitmap that every dispatch hands to the pipeline
+    as an argument; a deleted id is masked out of each hop before the bloom
+    filter, so it never enters 𝓛, the re-rank history or the top-k, in any
+    variant or kernel mode;
+  * inserts gather in a small host-side delta set, scanned exactly and
+    fused into the main results with `worklist.merge_worklist` (the PQ
+    variants must re-rank while delta points are live: the fusion needs
+    exact distances);
+  * `consolidate()` folds both into a new `BangIndex` (the in-neighbours of
+    deleted nodes re-linked with robust_prune, the delta points inserted by
+    the build rule, the corpus re-encoded on the device) and swaps it in as
+    a new generation.
+
+Cache-invalidation contract: every mutation bumps the executor-visible
+`mutation_epoch`, which scopes the `ServePipeline` result cache; a
+consolidation bumps `generation`, under which executors are rebuilt (the
+old pipelines are never served again), and `refresh()`es the retiring
+host-I/O hot-adjacency caches so their rows match the host tables.
 """
 from __future__ import annotations
 
@@ -155,7 +178,7 @@ class BangIndex:
     def n(self) -> int:
         return self.codes.shape[0]
 
-    def executor(self, variant: str = "inmem", *, mesh=None, hostio=None):
+    def executor(self, variant: str = "inmem", *, mesh=None, hostio=None, autotune=None):
         """The cached executor serving this index for `variant`.
 
         `variant="sharded"` or `"sharded-base"` returns a
@@ -167,9 +190,17 @@ class BangIndex:
         host-graph variants "base" and "sharded-base" only) serves the graph
         through the host-I/O subsystem -- multi-worker neighbour service,
         device-resident hot-adjacency cache, prefetched frontier exchange --
-        instead of the inline gather. Executors are cached per
-        (variant, mesh, hostio), so the two sharded variants never share
-        state and differently-configured services never share worker pools.
+        instead of the inline gather.
+
+        `autotune=AutotuneCache(...)` (`repro_torch.kernels.autotune`)
+        applies persisted tuning winners, keyed by (device kind, bucket, R,
+        m), to every pipeline the executor builds; the tuned fields ride the
+        pipeline key.
+
+        Executors are cached per (variant, mesh, hostio, autotune), the
+        cache by identity, so the two sharded variants never share state,
+        differently-configured services never share worker pools, and two
+        tuning files never share an executor.
         """
         if variant in ("sharded", "sharded-base"):
             if mesh is None:
@@ -183,17 +214,19 @@ class BangIndex:
                 "hostio= only applies to the host-resident-graph variants "
                 f"('base', 'sharded-base'), got {variant!r}"
             )
-        key = (variant, mesh, hostio)
+        key = (variant, mesh, hostio, autotune)
         ex = self._executors.get(key)
         if ex is None:
             if mesh is not None:
                 from repro_torch.runtime.sharded import ShardedSearchExecutor
 
-                ex = ShardedSearchExecutor.from_index(self, mesh, variant=variant, hostio=hostio)
+                ex = ShardedSearchExecutor.from_index(self, mesh, variant=variant, hostio=hostio,
+                                                      autotune=autotune)
             else:
                 from repro_torch.runtime.executor import SearchExecutor
 
-                ex = SearchExecutor.from_index(self, variant=variant, hostio=hostio)
+                ex = SearchExecutor.from_index(self, variant=variant, hostio=hostio,
+                                               autotune=autotune)
             self._executors[key] = ex
         return ex
 

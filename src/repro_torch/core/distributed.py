@@ -248,7 +248,8 @@ def sharded_bang_search_block(
     resolved. The fused mode runs K7 for the distances and the fused
     traverse kernel (K6) on the all-reduced rows. `prefetch_fn` is the
     host-I/O exchange's issue (with that exchange as `neighbor_fn`);
-    `tombstone_fn` comes with a later slice (`bang_search` raises).
+    `tombstone_fn` masks deleted ids (`search.tombstone_mask_fn` over the
+    bitmap of global ids, replicated on every rank).
 
     Returns (ids (B_loc, k), dists (B_loc, k), n_hops (B_loc,), n_iters),
     identical on every rank of the model group.

@@ -103,6 +103,27 @@ NeighborFn = Callable[[torch.Tensor], torch.Tensor]           # (B,) -> (B, R), 
 DistanceFn = Callable[[torch.Tensor, torch.Tensor], torch.Tensor]
 # (u_pred (B,), active (B,)) -> a ticket the next hop's fetch redeems
 PrefetchFn = Callable[[torch.Tensor, torch.Tensor], object]
+# (B, R) candidate ids -> (B, R) bool "deleted" mask (streaming mutability)
+TombstoneFn = Callable[[torch.Tensor], torch.Tensor]
+
+
+def tombstone_mask_fn(tombstones: torch.Tensor) -> TombstoneFn:
+    """TombstoneFn over an (n,) bool bitmap on the search's device.
+
+    The streaming-mutability seam (`repro_torch.runtime.mutation`): deleted
+    ids join the per-hop validity mask before the bloom filter and the
+    StepFn, so in every kernel mode they are treated as adjacency padding:
+    never scored, never entered into 𝓛 or the filter, never selected, so
+    never expanded, recorded for the re-rank or returned. Negative, INVALID
+    and out-of-range ids read as not deleted (padding already masks them).
+    """
+    n = tombstones.shape[0]
+
+    def fn(ids: torch.Tensor) -> torch.Tensor:
+        in_range = (ids >= 0) & (ids < n)
+        return tombstones[torch.clamp(ids, 0, n - 1).long()] & in_range
+
+    return fn
 
 
 class StepFn:
@@ -419,12 +440,10 @@ def bang_search(
     first hop. The ticket's frontier copy carries the stop test, so a hop
     still synchronises once. Results are bit-exact vs the synchronous path.
 
-    `tombstone_fn` (streaming deletes) keeps its place in the signature; it
-    comes with a later slice of the port and raises NotImplementedError
-    until then.
+    `tombstone_fn` (streaming deletes, `tombstone_mask_fn`) masks deleted
+    neighbours out of each hop's validity before the bloom filter; the
+    medoid seed is never masked (deleting the medoid is refused upstream).
     """
-    if tombstone_fn is not None:
-        raise NotImplementedError("tombstone_fn comes with the mutability slice of the port")
     B = queries.shape[0]
     dev = queries.device
     t, C = cfg.t, cfg.iters()
@@ -463,6 +482,10 @@ def bang_search(
                 break
             nbrs = neighbor_fn(u)                               # (B, R)
         valid = (nbrs >= 0) & active[:, None]
+        if tombstone_fn is not None:
+            # Deleted neighbours become padding lanes here, before the bloom
+            # filter and the StepFn: every mode scores them +inf.
+            valid = valid & ~tombstone_fn(nbrs)
         # 2. Bloom filter: drop already-seen neighbours, insert fresh ones.
         fresh, filt = bloomlib.bloom_query_and_set(filt, nbrs, valid)
         # 3-5. Distances + sort + select + merge behind the StepFn; with
@@ -489,6 +512,8 @@ def search_inmem(
     adjacency: torch.Tensor,
     medoid: int,
     cfg: SearchConfig,
+    *,
+    tombstone_fn: TombstoneFn | None = None,
 ) -> SearchResult:
     """BANG In-memory: graph and PQ codes on the device."""
     return bang_search(
@@ -497,6 +522,7 @@ def search_inmem(
         step_fn=_adc_step_fn(table, codes, cfg),
         medoid=medoid,
         cfg=cfg,
+        tombstone_fn=tombstone_fn,
     )
 
 
@@ -509,6 +535,7 @@ def search_base(
     cfg: SearchConfig,
     *,
     prefetch_fn: PrefetchFn | None = None,
+    tombstone_fn: TombstoneFn | None = None,
 ) -> SearchResult:
     """BANG Base: PQ codes on the device, the graph in host RAM behind
     `neighbor_fn` (`host_neighbor_fn`, or the host-I/O subsystem's exchange
@@ -520,6 +547,7 @@ def search_base(
         medoid=medoid,
         cfg=cfg,
         prefetch_fn=prefetch_fn,
+        tombstone_fn=tombstone_fn,
     )
 
 
@@ -529,6 +557,8 @@ def search_exact(
     adjacency: torch.Tensor,
     medoid: int,
     cfg: SearchConfig,
+    *,
+    tombstone_fn: TombstoneFn | None = None,
 ) -> SearchResult:
     """BANG Exact-distance: graph and full vectors on the device; distances
     come from full vectors, so even "fused" keeps the distance stage outside
@@ -540,4 +570,5 @@ def search_exact(
         step_fn=make_step_fn(cfg, dist, queries.device),
         medoid=medoid,
         cfg=cfg,
+        tombstone_fn=tombstone_fn,
     )

@@ -6,3 +6,5 @@
 #                   owner-shard gather + ADC (sharded search)
 #   bitonic      -- candidate sort and worklist merge (staged mode)
 #   rerank_l2    -- exact squared L2 for the re-rank
+#   autotune     -- persisted tuning winners of the fused hop per (device kind,
+#                   bucket, R, m), and the sweep that finds them

@@ -6,6 +6,8 @@
 #                  prefetched frontier exchange
 #   serving     -- ServePipeline: micro-batches, a dispatch thread, result
 #                  LRU, admission control, rolling stats
+#   mutation    -- streaming inserts and deletes: tombstones, the delta set,
+#                  background consolidation (MutableBangIndex)
 #   resilience  -- fault injection + fault-handling policy for the host tier
 #   telemetry   -- metrics registry + exporters, request tracing (Chrome
 #                  trace JSON), per-hop profiling, fault flight recorder
@@ -16,6 +18,7 @@ from .hostio import (  # noqa: F401
     HotAdjacencyCache,
     NeighborService,
 )
+from .mutation import DeltaGraph, MutableBangIndex, MutableSearchExecutor  # noqa: F401
 from .resilience import FaultInjector, FaultSpec, ResilienceConfig  # noqa: F401
 from .serving import BatchReport, ServePipeline, ServeStats  # noqa: F401
 from .sharded import SHARDED_VARIANTS, ShardedSearchExecutor  # noqa: F401

@@ -33,6 +33,16 @@ through `dispatch` / `finish`:
     neighbour service, an optional device-resident hot-adjacency cache and
     an optional prefetched frontier exchange, bit-exact vs the inline
     gather. The config joins the pipeline cache key.
+  * **Tombstones.** With `with_tombstones=True` (streaming mutability,
+    `repro_torch.runtime.mutation`) every pipeline takes the (n,) bool
+    delete bitmap as an argument, never as state it closes over, so a
+    delete builds no pipeline. The executor keeps one bitmap on its device
+    and rewrites it in place on each dispatch, so its address stays fixed.
+  * **Autotune.** With `autotune=AutotuneCache(...)`
+    (`repro_torch.kernels.autotune`) the winner for this executor's
+    (device kind, bucket, R, m) replaces the tuned `SearchConfig` fields
+    before the cache key is formed, so a reloaded winners file reproduces
+    the same pipeline keys.
 
 Variants, as the reference's `_compile` dispatches them:
 
@@ -65,10 +75,18 @@ from .hostio import HostIOConfig, HostIORuntime
 VARIANTS = ("inmem", "base", "exact")
 
 
-def bucket_size(batch: int, *, min_bucket: int = 8) -> int:
-    """Next power-of-two shape bucket holding `batch` queries."""
+def _validate_min_bucket(min_bucket: int) -> int:
+    """min_bucket must be a positive power of two: the buckets are powers of
+    two, so another floor would make misaligned buckets (12, then 16 for a
+    batch of 13) whose pipelines duplicate cache entries."""
     if min_bucket < 1 or (min_bucket & (min_bucket - 1)):
         raise ValueError(f"min_bucket must be a positive power of two, got {min_bucket}")
+    return min_bucket
+
+
+def bucket_size(batch: int, *, min_bucket: int = 8) -> int:
+    """Next power-of-two shape bucket holding `batch` queries."""
+    _validate_min_bucket(min_bucket)
     if batch <= 0:
         raise ValueError(f"batch must be positive, got {batch}")
     return max(min_bucket, 1 << (batch - 1).bit_length())
@@ -118,11 +136,17 @@ class SearchExecutor:
         host_adjacency: torch.Tensor | None = None,
         host_data: torch.Tensor | None = None,
         hostio: HostIOConfig | None = None,
+        min_bucket: int = 8,
+        with_tombstones: bool = False,
+        autotune=None,
     ) -> None:
         """`adjacency`/`data` are the device copies ("inmem", "exact"),
         `host_adjacency`/`host_data` the host ones ("base"; "inmem" re-ranks
         from `host_data` when it has no device vectors). `hostio` serves
-        "base"'s adjacency through the host-I/O subsystem."""
+        "base"'s adjacency through the host-I/O subsystem. `min_bucket` is
+        the smallest shape bucket, `with_tombstones` makes every pipeline
+        take the delete bitmap, and `autotune` is an `AutotuneCache` whose
+        winners tune the configurations (module docstring)."""
         if variant not in VARIANTS:
             raise ValueError(f"unknown variant {variant!r}, expected one of {VARIANTS}")
         if hostio is not None and variant != "base":
@@ -169,21 +193,37 @@ class SearchExecutor:
             if data is None:
                 self.host_data = HostRows(host_data, self.device)
         self._dim = int((data if data is not None else host_data).shape[1])
-        self.R = int((adjacency if adjacency is not None else host_adjacency).shape[1])
+        adj = adjacency if adjacency is not None else host_adjacency
+        self.R = int(adj.shape[1])
+        self._init_serving_state(min_bucket, with_tombstones, int(adj.shape[0]), autotune)
+
+    def _init_serving_state(self, min_bucket: int, with_tombstones: bool, tombstone_len: int,
+                            autotune) -> None:
+        """The dispatch/finish bookkeeping both executor classes share."""
+        self._min_bucket = _validate_min_bucket(min_bucket)
+        self._with_tombstones = bool(with_tombstones)
+        self._tombstone_len = tombstone_len
+        self._autotune = autotune
+        # The delete bitmap on the device, written in place by each dispatch,
+        # and on a card the pinned buffer it is copied up from with the event
+        # of the last copy (made on first use).
+        self._tomb_dev: torch.Tensor | None = None
+        self._tomb_host: torch.Tensor | None = None
+        self._tomb_copied: torch.cuda.Event | None = None
         self._cache: dict[Any, Any] = {}
         self.trace_counts: dict[Any, int] = {}
         self.telemetry = None
 
     @classmethod
-    def from_index(cls, index, variant: str = "inmem", *, hostio: HostIOConfig | None = None
-                   ) -> "SearchExecutor":
+    def from_index(cls, index, variant: str = "inmem", **kw) -> "SearchExecutor":
+        """The executor over a `BangIndex`; `kw` are the constructor's
+        keywords (hostio, min_bucket, with_tombstones, autotune)."""
         if variant == "base":
             return cls(index.codec, index.codes, index.graph.medoid, variant=variant,
-                       host_adjacency=index.graph.adjacency, host_data=index.data_host,
-                       hostio=hostio)
+                       host_adjacency=index.graph.adjacency, host_data=index.data_host, **kw)
         return cls(index.codec, index.codes, index.graph.medoid, variant=variant,
                    adjacency=index.adjacency_dev(), data=index.data_dev, host_data=index.data_host,
-                   hostio=hostio)
+                   **kw)
 
     @property
     def n_traces(self) -> int:
@@ -198,7 +238,12 @@ class SearchExecutor:
         return self._dim
 
     def _bucket_for(self, batch: int) -> int:
-        return bucket_size(batch)
+        return bucket_size(batch, min_bucket=self._min_bucket)
+
+    def autotune_shape(self) -> tuple[int, int, int]:
+        """(R, m, codes rows): the shape axes autotune winners key on; the
+        codes rows are those one hop kernel reads, here the whole index."""
+        return self.R, int(self._codes.shape[1]), int(self._codes.shape[0])
 
     @property
     def hostio_service(self):
@@ -221,10 +266,17 @@ class SearchExecutor:
     # -------------------------------------------------------------- building
     def _pipeline(self, bucket: int, d: int, k: int, rerank: bool, cfg: SearchConfig):
         """Cached pipeline for the key, and the seconds its set-up took.
-        `cfg.kernel_mode` is resolved. The host-I/O config rides the key: it
-        is fixed at construction, but keying it keeps pipelines from being
-        confused across executors whose caches are merged."""
-        key = (bucket, d, k, rerank, cfg, self._hostio)
+        `cfg.kernel_mode` is resolved. The host-I/O config and the tombstone
+        flag ride the key: they are fixed at construction, but keying them
+        keeps pipelines from being confused across executors whose caches
+        are merged. An autotune winner replaces the tuned fields of `cfg`
+        first, so the tuned configuration is the key."""
+        if self._autotune is not None:
+            from repro_torch.kernels import autotune as autotune_lib
+
+            R, m, _ = self.autotune_shape()
+            cfg = self._autotune.apply(cfg, autotune_lib.device_kind(self.device), bucket, R, m)
+        key = (bucket, d, k, rerank, cfg, self._hostio, self._with_tombstones)
         fn = self._cache.get(key)
         if fn is not None:
             return fn, 0.0
@@ -247,15 +299,17 @@ class SearchExecutor:
 
     def _build_pipeline(self, k: int, rerank: bool, cfg: SearchConfig):
         """The pipeline for one cache key (subclass hook): a function of the
-        padded (bucket, d) queries on the device that returns (ids, dists,
-        n_hops, n_iters)."""
+        padded (bucket, d) queries on the device and the delete bitmap (None
+        without tombstones) that returns (ids, dists, n_hops, n_iters)."""
         use_kernels = cfg.kernel_mode != "reference"
         variant = self.variant
 
-        def pipeline(queries: torch.Tensor):
+        def pipeline(queries: torch.Tensor, tombstones: torch.Tensor | None = None):
+            tombstone_fn = None if tombstones is None else searchlib.tombstone_mask_fn(tombstones)
             if variant == "exact":
                 res = searchlib.search_exact(
                     queries, self._data, self._adjacency, self._medoid, cfg,
+                    tombstone_fn=tombstone_fn,
                 )
                 # The exact variant skips the re-rank (§5.2): the worklist
                 # already holds exact distances.
@@ -264,11 +318,12 @@ class SearchExecutor:
             if variant == "inmem":
                 res = searchlib.search_inmem(
                     queries, table, self._codes, self._adjacency, self._medoid, cfg,
+                    tombstone_fn=tombstone_fn,
                 )
             else:
                 res = searchlib.search_base(
                     queries, table, self._codes, self.neighbors, self._medoid, cfg,
-                    prefetch_fn=self._prefetch_fn,
+                    prefetch_fn=self._prefetch_fn, tombstone_fn=tombstone_fn,
                 )
             if rerank:
                 ids, dists = rr.rerank(
@@ -280,6 +335,36 @@ class SearchExecutor:
             return ids, dists, res.n_hops, res.n_iters
 
         return pipeline
+
+    def _device_tombstones(self, tombstones: np.ndarray | None) -> torch.Tensor:
+        """The (n,) bool delete bitmap on the device (all False when none is
+        given), written in place into the executor's one device bitmap. On a
+        card the copy up goes through a pinned buffer that is rewritten only
+        once the previous copy out of it has run."""
+        n = self._tombstone_len
+        t = np.zeros(n, np.bool_) if tombstones is None else np.asarray(tombstones, np.bool_)
+        if t.shape != (n,):
+            raise ValueError(f"tombstones must be ({n},), got {t.shape}")
+        return self._upload_tombstones(t)
+
+    def _upload_tombstones(self, t: np.ndarray) -> torch.Tensor:
+        if self._tomb_dev is None:
+            self._tomb_dev = torch.zeros(t.shape, dtype=torch.bool, device=self.device)
+            if self.device.type == "cuda":
+                self._tomb_host = torch.zeros(t.shape, dtype=torch.bool).pin_memory()
+        if self._tomb_host is None:
+            self._tomb_dev.copy_(torch.from_numpy(t))
+            return self._tomb_dev
+        if self._tomb_copied is not None:
+            # The previous dispatch's copy may still be queued behind its
+            # search: rewriting the buffer first would hand that batch this
+            # dispatch's bitmap.
+            self._tomb_copied.synchronize()
+        self._tomb_host.numpy()[:] = t
+        self._tomb_dev.copy_(self._tomb_host, non_blocking=True)
+        self._tomb_copied = torch.cuda.Event()
+        self._tomb_copied.record(torch.cuda.current_stream(self.device))
+        return self._tomb_dev
 
     # ------------------------------------------------------------ accounting
     def _hot_cache_fields(self, host_rows_in: int) -> dict:
@@ -345,8 +430,16 @@ class SearchExecutor:
         cfg: SearchConfig | None = None,
         rerank: bool = True,
         kernel_mode: str | None = None,
+        tombstones: np.ndarray | None = None,
     ) -> SearchHandle:
-        """Pad, look up or build the pipeline, and launch one batch."""
+        """Pad, look up or build the pipeline, and launch one batch.
+
+        `tombstones` (an executor built with `with_tombstones=True` only) is
+        the (n,) bool delete bitmap, an argument of the pipeline: changing
+        it between dispatches builds nothing. None means nothing deleted.
+        """
+        if tombstones is not None and not self._with_tombstones:
+            raise ValueError("tombstones= requires an executor built with with_tombstones=True")
         if isinstance(queries, torch.Tensor):
             queries = queries.detach().cpu().numpy()
         q = np.asarray(queries, np.float32)
@@ -367,6 +460,7 @@ class SearchExecutor:
         bucket = self._bucket_for(B)
         pipeline, compile_s = self._pipeline(bucket, d, k, rerank, cfg)
         q_dev = torch.from_numpy(pad_batch(q, bucket)).to(self.device)
+        args = (q_dev,) if not self._with_tombstones else (q_dev, self._device_tombstones(tombstones))
         t0 = time.perf_counter()
         tel = self.telemetry
         if tel is not None and tel.profiler is not None:
@@ -376,9 +470,9 @@ class SearchExecutor:
             tel.profiler.set_kernel_info(kernel_mode=cfg.kernel_mode, batch=bucket, n=n_block,
                                          m=m, R=self.R, tile_rows=cfg.codes_tile_rows)
             with tel.profiler.annotate(f"bang_dispatch:{cfg.kernel_mode}:b{bucket}"):
-                ids, dists, n_hops, n_iters = pipeline(q_dev)
+                ids, dists, n_hops, n_iters = pipeline(*args)
         else:
-            ids, dists, n_hops, n_iters = pipeline(q_dev)
+            ids, dists, n_hops, n_iters = pipeline(*args)
         done = None
         if self.device.type == "cuda":
             done = torch.cuda.Event()
@@ -420,9 +514,11 @@ class SearchExecutor:
         rerank: bool = True,
         return_stats: bool = False,
         kernel_mode: str | None = None,
+        tombstones: np.ndarray | None = None,
     ):
         """Synchronous batched k-NN search: dispatch + finish."""
         handle = self.dispatch(
             queries, k, t=t, cfg=cfg, rerank=rerank, kernel_mode=kernel_mode,
+            tombstones=tombstones,
         )
         return self.finish(handle, return_stats=return_stats)

@@ -32,7 +32,10 @@ Every rank of a model group computes identical worklists from the summed
 rows, so results equal the single-device executor's on the same index. The
 serving surface (shape buckets rounded up to a multiple of the data-axis
 size, the per-(bucket, d, k, rerank, cfg) cache, `dispatch`/`finish`,
-`SearchStats`) is `SearchExecutor`'s.
+`SearchStats`, `min_bucket`, `with_tombstones`, `autotune`) is
+`SearchExecutor`'s. The delete bitmap is replicated on every rank over the
+padded id space (pad rows are unreachable and stay False), so each rank
+masks global ids itself.
 
 Typical use, one process per rank (`torchrun --nproc-per-node=N`)::
 
@@ -43,6 +46,7 @@ Typical use, one process per rank (`torchrun --nproc-per-node=N`)::
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from repro_torch.core import pq as pqlib
@@ -54,7 +58,7 @@ from repro_torch.core.distributed import (
     pad_to_multiple,
     sharded_bang_search_block,
 )
-from repro_torch.core.search import SearchConfig
+from repro_torch.core.search import SearchConfig, tombstone_mask_fn
 from repro_torch.core.vamana import VamanaGraph
 from repro_torch.distributed import AXES
 
@@ -77,7 +81,9 @@ class ShardedSearchExecutor(SearchExecutor):
         data: torch.Tensor,
         variant: str = "sharded",
         hostio: HostIOConfig | None = None,
+        min_bucket: int = 8,
         with_tombstones: bool = False,
+        autotune=None,
     ) -> None:
         """`codes` (n, m) on this rank's device, `graph.adjacency` (n, R) in
         host memory, `data` (n, d) on the device or the host: the whole
@@ -95,8 +101,6 @@ class ShardedSearchExecutor(SearchExecutor):
                 "hostio= only applies to the host-resident-graph variant "
                 f"'sharded-base', got {variant!r}"
             )
-        if with_tombstones:
-            raise NotImplementedError("with_tombstones=True comes with the mutability slice of the port")
         if mesh.device.type != codes.device.type:
             raise ValueError(f"the mesh drives {mesh.device}, the index lies on {codes.device}")
         self.variant = variant
@@ -139,9 +143,8 @@ class ShardedSearchExecutor(SearchExecutor):
                 self.neighbors, self._prefetch_fn = self.hostio_runtime.shard_exchange(self._model)
         else:
             self._adjacency = adjacency.to(self.device)
-        self._cache = {}
-        self.trace_counts = {}
-        self.telemetry = None
+        self._n = int(graph.adjacency.shape[0])
+        self._init_serving_state(min_bucket, with_tombstones, S * int(adjacency.shape[0]), autotune)
 
     @classmethod
     def from_index(cls, index, mesh, **kw) -> "ShardedSearchExecutor":
@@ -154,7 +157,7 @@ class ShardedSearchExecutor(SearchExecutor):
 
     def _bucket_for(self, batch: int) -> int:
         """Power-of-two bucket, rounded up so that the data ranks split it evenly."""
-        b = bucket_size(batch)
+        b = bucket_size(batch, min_bucket=self._min_bucket)
         D = self.n_data_shards
         return b if b % D == 0 else -(-b // D) * D
 
@@ -163,13 +166,14 @@ class ShardedSearchExecutor(SearchExecutor):
         """The mesh pipeline: this rank's slice of the queries searched over
         the model group, the slices gathered over the data group."""
 
-        def pipeline(queries: torch.Tensor):
+        def pipeline(queries: torch.Tensor, tombstones: torch.Tensor | None = None):
             q = data_slice(queries, self.mesh)
             table = pqlib.build_dist_table(self._codec, q)
             ids, dists, hops, n_iters = sharded_bang_search_block(
                 q, table, self._codes, self._adjacency, self._data, self._medoid, k, cfg,
                 self._model, rerank=rerank, neighbor_fn=self.neighbors,
                 prefetch_fn=self._prefetch_fn,
+                tombstone_fn=None if tombstones is None else tombstone_mask_fn(tombstones),
             )
             # One all-gather over the data group carries every output of the
             # slice: ids, the distances' bits, hops and this slice's n_iters.
@@ -183,6 +187,17 @@ class ShardedSearchExecutor(SearchExecutor):
                     whole[:, 2 * k], whole[:, 2 * k + 1].max())
 
         return pipeline
+
+    def _device_tombstones(self, tombstones) -> torch.Tensor:
+        """The replicated bitmap over the padded id space; takes the (n,)
+        form or the padded one."""
+        n_pad = self._tombstone_len
+        t = np.zeros(n_pad, np.bool_) if tombstones is None else np.asarray(tombstones, np.bool_)
+        if t.shape == (self._n,):
+            t = np.concatenate([t, np.zeros(n_pad - self._n, np.bool_)])
+        elif t.shape != (n_pad,):
+            raise ValueError(f"tombstones must be ({self._n},) or padded ({n_pad},), got {t.shape}")
+        return self._upload_tombstones(t)
 
     # ------------------------------------------------------------ accounting
     def exchange_bytes_per_hop(self, batch: int) -> dict:

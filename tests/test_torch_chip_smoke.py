@@ -5,9 +5,11 @@ checks (base ids equal to inmem's, staged ids equal to fused ids, exact
 fused ids equal to its reference mode's, exact re-rank distances, the mesh
 paths equal to inmem and base on a one-rank gloo group, the distance-table
 entry point, card vs CPU ids) at n = 3,000, d = 32, m = 8 instead of the
-card's sizes, and the Vamana cell at n = 800, R = 16, L_build = 32. Nothing
-launches on the CPU, so the wrappers are counted by stand-ins, times come
-from the host clock, and the device profile is left out.
+card's sizes, the autotuner's phase (4c) on that index, and the Vamana cell
+at n = 800, R = 16, L_build = 32 with its mutation phase (5b) at 8 inserts
+and 8 deletes a round. Nothing launches on the CPU, so the wrappers are
+counted by stand-ins, times come from the host clock, and the device
+profile is left out.
 """
 import importlib.util
 import time
@@ -52,6 +54,7 @@ def smoke(monkeypatch):
     spec.loader.exec_module(mod)
     for name, value in (("N", 3000), ("D", 32), ("M", 8), ("N_QUERIES", 80), ("BATCH", 32),
                         ("VAMANA_N", 800), ("VAMANA_QUERIES", 30), ("VAMANA_R", 16), ("VAMANA_L", 32),
+                        ("MUT_INSERTS", 8), ("MUT_DELETES", 8), ("MUT_BATCHES", 2),
                         ("PATH_BATCHES", {"inmem": 3, "base": 2, "exact": 2, "sharded": 3,
                                           "sharded-base": 2}),
                         # A tenth of the rehearsal graph's 800 rows, as 1,500 of 15,000.
@@ -61,7 +64,8 @@ def smoke(monkeypatch):
     # On the CPU the sharded re-rank follows XLA:CPU's order outside the
     # re-rank kernel's wrapper (it launches K3 on the card only).
     kernels = dict(mod.PATH_KERNELS)
-    for name in ("sharded", "sharded-base", "sharded-base-hostio"):
+    for name in ("sharded", "sharded-base", "sharded-base-hostio", "mutable-sharded",
+                 "consolidated-sharded"):
         kernels[name] = tuple(k for k in kernels[name] if k != "rerank_l2")
     monkeypatch.setattr(mod, "PATH_KERNELS", kernels)
     # Device tracing has nothing to trace here (and takes seconds on the host).
@@ -157,6 +161,14 @@ def test_chip_smoke_phases_on_cpu(smoke):
         assert r["device_busy_ms_per_batch"] is None     # no device on the CPU
     assert res["nn_contrast"] > 1.0
     assert smoke.small_vs_cpu(cpu) > 0.5
+    # Phase 4c on the same index: one winner for bucket BATCH over eager
+    # True and False, and the tuned executor's search counted as a path.
+    tuned = smoke.autotune_phase(cpu, "cpu", res["ctx"])["autotune-inmem"]
+    assert [(c["eager"], c["codes_tile_rows"]) for c in tuned["sweep"]] == [(True, 0), (False, 0)]
+    assert all(len(c["per_hop_us"]) == 2 for c in tuned["sweep"])
+    assert tuned["winner"]["per_hop_us"] == min(min(c["per_hop_us"]) for c in tuned["sweep"])
+    assert tuned["device_kind"] == "cpu" and tuned["n_batches"] == 1
+    assert tuned["launches"]["search_step"] == tuned["n_iters"][0] and tuned["launches"]["rerank_l2"] == 1
 
 
 def test_chip_smoke_refuses_without_a_card(smoke, capsys):
@@ -173,9 +185,11 @@ def test_chip_smoke_vamana_cell_on_cpu(smoke):
     res = smoke.vamana_cell(torch.device("cpu"), "cpu")
     build, paths = res["build"], res["paths"]
     assert build["total_s"] >= build["pq_s"] + build["graph_s"] > 0
-    # The cell's graph is the host build of the same data and parameters.
-    data = gaussian_mixture(smoke.VAMANA_N + smoke.VAMANA_QUERIES, smoke.D, seed=smoke.SEED,
-                            intrinsic_dim=smoke.INTRINSIC_DIM)[: smoke.VAMANA_N]
+    # The cell's graph is the host build of the same data and parameters;
+    # the draw also holds the queries and phase 5b's inserts.
+    data = gaussian_mixture(smoke.VAMANA_N + smoke.VAMANA_QUERIES + 2 * smoke.MUT_INSERTS, smoke.D,
+                            seed=smoke.SEED, intrinsic_dim=smoke.INTRINSIC_DIM)[: smoke.VAMANA_N]
+    assert res["ctx"]["fresh"].shape == (2 * smoke.MUT_INSERTS, smoke.D)
     g = build_vamana(data, R=16, L=32, alpha=smoke.VAMANA_ALPHA, seed=smoke.SEED)
     assert (build["mean_degree"], build["max_degree"]) == g.degree_stats()
     assert build["medoid"] == g.medoid and build["pq_error"] > 0
@@ -197,6 +211,44 @@ def test_chip_smoke_vamana_cell_on_cpu(smoke):
     assert base["launches"] == inmem["launches"] and base["recall_at_10"] == inmem["recall_at_10"]
     assert exact["launches"]["fused_traverse"] == exact["n_iters"][0]
     assert exact["launches"]["search_step"] == exact["launches"]["rerank_l2"] == 0
+
+    # Phase 5b on the cell's index, its checks made inside the phase.
+    mut = smoke.mutation_phase(torch.device("cpu"), "cpu", res["ctx"])
+    assert not torch.distributed.is_initialized()        # the one-rank group is gone
+    mpaths, info = mut["paths"], mut["info"]
+    stages = ("inmem", "base", "exact", "sharded", "staged", "inserts")
+    assert list(mpaths) == ([f"mutable-{v}" for v in stages] + [f"consolidated-{v}" for v in stages]
+                            + ["mutable-during-fold", "serve-mutable-inmem"])
+    assert mpaths["mutable-inserts"]["recall_at_10"] == 1.0          # the exact delta scan
+    folded = mpaths["consolidated-inserts"]
+    assert folded["in_degree_mean"] >= 1 and folded["out_degree_mean"] >= 1
+    assert 0 < folded["recall_at_10"] <= folded["in_top10"] <= 1
+    assert 0 < folded["base_own_id_at_rank0"] <= 1
+    assert 0 < info["second_round_own_id_at_rank0"] <= 1
+    for stage in ("mutable", "consolidated"):
+        assert 0.5 < mpaths[f"{stage}-inmem"]["recall_at_10"] <= 1.0
+        r = mpaths[f"{stage}-inmem"]
+        lk = r["launches"]
+        assert r["n_batches"] == len(r["n_iters"]) == len(r["batch_wall_ms"]) == 2
+        assert lk["search_step"] == sum(r["n_iters"]) and lk["rerank_l2"] == 2
+        # The delta fusion runs on the host while delta points are live.
+        assert (r["fuse_ms_per_batch"] > 0) == (stage == "mutable")
+        assert mpaths[f"{stage}-exact"]["launches"]["fused_traverse"] > 0
+        sh = mpaths[f"{stage}-sharded"]["launches"]
+        assert sh["local_adc"] > 0 and sh["fused_traverse"] > 0 and sh["search_step"] == 0
+        st = mpaths[f"{stage}-staged"]["launches"]
+        assert st["bitonic_sort"] == st["bitonic_merge"] > 0 and st["search_step"] == 0
+    fold = info["consolidate_s"]
+    assert set(fold) == {"relink_s", "insert_s", "encode_s", "swap_s", "total_s"}
+    assert fold["total_s"] >= fold["relink_s"] + fold["insert_s"] + fold["encode_s"]
+    # On the CPU the re-encode is the CPU pq_encode itself.
+    assert info["codes_rows_differing_from_cpu"] == 0
+    assert info["codes_rows"] == smoke.VAMANA_N + smoke.MUT_INSERTS
+    assert info["consolidated_stats"]["generation"] == 1 and info["consolidated_stats"]["delta_points"] == 0
+    assert info["batches_during_fold"] >= 1 and info["qps_before_fold"] > 0 and info["qps_during_fold"] > 0
+    assert info["final_stats"]["generation"] == 2
+    assert info["final_stats"]["base_n"] == smoke.VAMANA_N + 2 * smoke.MUT_INSERTS
+    assert mpaths["serve-mutable-inmem"]["launches"]["search_step"] > 0
 
 
 def test_chip_smoke_hostio_phase_on_cpu(smoke, monkeypatch):

@@ -59,6 +59,9 @@ NINTH_SLICE = {
     "repro_torch.runtime.serving",
 }
 
+# Modules of the tenth slice: streaming mutability and the autotuner.
+TENTH_SLICE = {"repro_torch.runtime.mutation", "repro_torch.kernels.autotune"}
+
 
 def test_every_module_imports_without_jax_or_reference():
     env = dict(os.environ, PYTHONPATH=str(SRC))
@@ -68,7 +71,8 @@ def test_every_module_imports_without_jax_or_reference():
     )
     assert res.returncode == 0, res.stderr
     names = set(res.stdout.split())
-    assert len(names) >= 44 and SECOND_SLICE | THIRD_SLICE | EIGHTH_SLICE | NINTH_SLICE <= names   # every module was walked
+    slices = SECOND_SLICE | THIRD_SLICE | EIGHTH_SLICE | NINTH_SLICE | TENTH_SLICE
+    assert len(names) >= 46 and slices <= names   # every module was walked
 
 
 def test_from_arrays_defaults_to_cuda():
@@ -108,3 +112,35 @@ def test_hostio_entry_points_default_to_cuda():
             HostIORuntime(HostIOConfig(), [adj], adj)
     rt = HostIORuntime(HostIOConfig(hot_cache_rows=2), [adj], adj, device="cpu")
     assert rt.cache.device.type == "cpu" and not rt.service.started
+
+
+def test_mutable_index_and_autotune_follow_the_index_device():
+    """A `MutableBangIndex` serves on its index's device, which defaults to
+    the card, and so do the executors it builds after a consolidation; the
+    autotuner's device kind defaults to the card too."""
+    import numpy as np
+    from repro_torch import BangIndex
+    from repro_torch.kernels import autotune
+    from repro_torch.runtime import MutableBangIndex
+
+    if torch.cuda.is_available():
+        assert autotune.device_kind() == torch.cuda.get_device_name(0)
+    else:
+        with pytest.raises(RuntimeError, match="CUDA"):
+            autotune.device_kind()
+    assert autotune.device_kind("cpu") == "cpu"
+    rng = np.random.default_rng(1)
+    data = rng.standard_normal((40, 4)).astype(np.float32)
+    codes = rng.integers(0, 256, (40, 2)).astype(np.uint8)
+    adj = np.stack([np.roll(np.arange(40), -s) for s in (1, 2, 3)], 1).astype(np.int32)
+    idx = BangIndex.from_arrays(rng.standard_normal((2, 256, 2)).astype(np.float32), codes, adj, 0,
+                                data, device="cpu")
+    mut = MutableBangIndex(idx)
+    for variant in ("inmem", "base", "exact"):
+        assert mut.executor(variant)._inner().device.type == "cpu"
+    mut.insert(data[1] + 0.5)
+    mut.delete([3])
+    mut.consolidate()
+    assert mut.index.device.type == "cpu" and mut.index.codes.device.type == "cpu"
+    assert mut.executor("inmem")._inner().device.type == "cpu"
+    assert not mut.index.graph.adjacency.is_pinned()

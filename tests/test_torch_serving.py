@@ -362,3 +362,36 @@ def test_serve_ann_torch_example_runs_on_cpu(capsys):
     assert len(_dispatch_threads()) == before
     with pytest.raises(SystemExit):
         mod.main(["--device", "cpu", "--prefetch"])          # prefetch needs workers
+
+
+def test_serve_ann_torch_example_mutate_and_autotune(capsys, tmp_path):
+    """The example's --autotune (sweep, winners saved, then applied from
+    the file alone) and --mutate (deletes and inserts before every batch, a
+    background consolidation halfway) at a tiny n on the CPU."""
+    import importlib.util
+    import json
+    from pathlib import Path
+
+    path = Path(__file__).resolve().parents[1] / "examples" / "serve_ann_torch.py"
+    spec = importlib.util.spec_from_file_location("serve_ann_torch", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    before = len(_dispatch_threads())
+    common = ["--device", "cpu", "--n", "400", "--dim", "16", "--m", "4", "--R", "8",
+              "--L-build", "16", "--batch-size", "8", "--max-batch", "8", "--t", "16", "--k", "5"]
+    cache = tmp_path / "winners.json"
+    out = mod.main(common + ["--batches", "1", "--autotune", "--autotune-cache", str(cache)])
+    (key,) = json.loads(cache.read_text())["winners"]
+    assert key.startswith("cpu|bucket=8|R=8|m=4") and len(out["autotune"]) == 1
+    # The saved file is applied without a sweep.
+    out = mod.main(common + ["--batches", "1", "--autotune-cache", str(cache)])
+    assert out["autotune"].winners == json.loads(cache.read_text())["winners"]
+    out = mod.main(common + ["--batches", "4", "--mutate", "--result-cache", "16"])
+    st = out["stats"]
+    assert st.mutation is not None and st.queries == 8 and st.mean_recall > 0.5
+    text = capsys.readouterr().out
+    assert "winner cpu|bucket=8" in text and "background consolidation started" in text
+    assert "[serve] TOTAL 32 queries" in text and "generation 1 (1 consolidation(s))" in text
+    assert len(_dispatch_threads()) == before
+    with pytest.raises(SystemExit):
+        mod.main(["--device", "cpu", "--mutate", "--autotune"])

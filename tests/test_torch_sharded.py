@@ -339,8 +339,17 @@ def test_unsupported_options_raise(one_rank, port_index):
         ShardedSearchExecutor.from_index(tidx, one_rank, variant="sharded", hostio=HostIOConfig())
     with pytest.raises(ValueError, match="hostio"):
         tidx.executor("sharded", mesh=one_rank, hostio=HostIOConfig())
-    with pytest.raises(NotImplementedError, match="mutability slice"):
-        ShardedSearchExecutor.from_index(tidx, one_rank, with_tombstones=True)
+    # Tombstones (streaming mutability): the (n,) bitmap or the padded one;
+    # another shape, or a bitmap for an executor without the flag, raises.
+    tomb_ex = ShardedSearchExecutor.from_index(tidx, one_rank, with_tombstones=True)
+    q = uniform_queries(data, 6, seed=77)
+    cfg = SearchConfig(t=16, bloom_z=4096)
+    tomb_ex.search(q, K, cfg=cfg, tombstones=np.zeros(tidx.n, np.bool_))
+    with pytest.raises(ValueError, match="tombstones must be"):
+        tomb_ex.search(q, K, cfg=cfg, tombstones=np.zeros(tidx.n + 3, np.bool_))
+    with pytest.raises(ValueError, match="with_tombstones"):
+        ShardedSearchExecutor.from_index(tidx, one_rank).search(
+            q, K, cfg=cfg, tombstones=np.zeros(tidx.n, np.bool_))
     with pytest.raises(ValueError, match="variant"):
         ShardedSearchExecutor.from_index(tidx, one_rank, variant="sharded-exact")
     with pytest.raises(ValueError, match="ranks"):
