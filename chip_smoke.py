@@ -93,7 +93,23 @@ Phases, each timed; any failure exits non-zero:
      served (QPS before and during the fold); and `ServePipeline` over the
      mutable inmem executor with its result cache on: a repeat after a
      delete misses the cache and does not return the deleted id;
-  6. a small corpus searched on the card and on the CPU, ids equal.
+  6. a small corpus searched on the card and on the CPU, ids equal;
+  7. the LM's serve path (`lm_phase`), after the earlier phases' memory is
+     freed: 7a glm4-9b at full width and depth in bf16 (9.4 B parameters
+     drawn on the card from a seeded generator), 4 requests of 2,048 random
+     tokens prefilled, then 32 greedy exact-KV decode steps (prefill ms,
+     decode ms a step, tokens/s, peak memory, parameter and KV bytes); 7b
+     one request of 32,768 tokens, codebooks fitted per layer on its keys,
+     16 steps exact and 16 BANG-KV (m = 16, top-L 64, window 256) from one
+     state, the logit correlation and argmax agreement of every step and
+     the share of exact attention's mass BANG-KV keeps at layer 0; 7c
+     prefill-decode consistency at full width in float32, 4 layers of
+     glm4-9b and of phi3.5-moe (rtol = atol = 2e-2), exact and BANG-KV with
+     a covering top-L, and phi3.5-moe's dropped fraction at its published
+     capacity; 7d the reduced glm4-9b on the card against the CPU (rtol
+     1e-4, atol 1e-5) and BANG-KV's top-L overlap. No port kernel lies on
+     this path: the launch counts stay 0. Its numbers go into the summary
+     line under "lm".
 
 Kernel times are taken cold: the timed calls cycle through copies of the
 inputs that together exceed twice the H100's 50 MB L2. Bounds count the bytes the function needs for this run's
@@ -1848,6 +1864,18 @@ def profile_batch(index, queries, cfg, variant: str, kernel_mode: str,
     kernels' time). The profiler slows the host many times over, so the busy
     time is set against `batch_wall_ms`, the mean wall of unprofiled batches.
     """
+    return device_profile(
+        f"{variant}, one batch of {queries.shape[0]}",
+        lambda: index.search(queries, K, cfg=cfg, variant=variant, kernel_mode=kernel_mode,
+                             hostio=hostio),
+        batch_wall_ms)
+
+
+def device_profile(label: str, fn, wall_ms_unprofiled: float) -> dict | None:
+    """Device time by kernel over one call of `fn` (torch.profiler), set
+    against `wall_ms_unprofiled`, the mean wall of unprofiled calls.
+    Returns the busy ms, the device event count and the collectives' (NCCL)
+    ms and events, or None where the profiler saw no device time."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -1855,7 +1883,7 @@ def profile_batch(index, queries, cfg, variant: str, kernel_mode: str,
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        index.search(queries, K, cfg=cfg, variant=variant, kernel_mode=kernel_mode, hostio=hostio)
+        fn()
         torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t0) * 1e3
     def self_us(e) -> float:   # the name differs across torch versions
@@ -1864,13 +1892,14 @@ def profile_batch(index, queries, cfg, variant: str, kernel_mode: str,
     events = sorted((e for e in prof.key_averages()
                      if e.device_type == DeviceType.CUDA and self_us(e) > 0), key=lambda e: -self_us(e))
     if not events:
-        log(f"[profile] {variant}: the profiler recorded no device time: not measured")
+        log(f"[profile] {label}: the profiler recorded no device time: not measured")
         return None
     busy_ms = sum(self_us(e) for e in events) / 1e3
+    n_events = sum(e.count for e in events)
     nccl = [e for e in events if "nccl" in e.key.lower()]
-    log(f"[profile] {variant}, one batch of {queries.shape[0]}: device busy {busy_ms:.2f} ms in "
-        f"{sum(e.count for e in events)} device events = {100 * busy_ms / batch_wall_ms:.1f}% of "
-        f"the unprofiled mean batch wall {batch_wall_ms:.2f} ms (profiled wall {wall_ms:.0f} ms)")
+    log(f"[profile] {label}: device busy {busy_ms:.2f} ms in "
+        f"{n_events} device events = {100 * busy_ms / wall_ms_unprofiled:.1f}% of "
+        f"the unprofiled mean wall {wall_ms_unprofiled:.2f} ms (profiled wall {wall_ms:.0f} ms)")
     for e in events[:12]:
         log(f"[profile]   {self_us(e) / 1e3:9.3f} ms  x{e.count:<6d} {e.key[:90]}")
     for e in nccl:
@@ -1880,7 +1909,7 @@ def profile_batch(index, queries, cfg, variant: str, kernel_mode: str,
         if "(anonymous namespace)::" in e.key and "at::" not in e.key:
             log(f"[profile]   port kernel {self_us(e) / 1e3:9.3f} ms  x{e.count:<6d} "
                 f"{self_us(e) / e.count / 1e3:.4f} ms a launch  {e.key[:80]}")
-    return dict(busy_ms=busy_ms, nccl_ms=sum(self_us(e) for e in nccl) / 1e3,
+    return dict(busy_ms=busy_ms, device_events=n_events, nccl_ms=sum(self_us(e) for e in nccl) / 1e3,
                 nccl_events=sum(e.count for e in nccl))
 
 
@@ -1914,6 +1943,381 @@ def small_vs_cpu(dev) -> float:
     log(f"[small] n=4000 corpus, 40 queries: card (kernels) and CPU (plain) ids equal, "
         f"max |dist diff| {float((gd - cd).abs().max()):.3g}, recall@10 {rec:.4f}")
     return rec
+
+
+# ------------------------------------------------------------- phase 7
+LM_ARCH, LM_MOE_ARCH = "glm4-9b", "phi3.5-moe-42b-a6.6b"
+LM_REQUESTS, LM_PROMPT, LM_DECODE = 4, 2048, 32   # 7a: requests, tokens each, greedy steps
+LM_LONG, LM_LONG_DECODE = 32_768, 16                # 7b: S_long (see lm_phase), steps each way
+LM_FIT_ITERS = 12                                   # 7b: k-means iterations a layer, as the example
+LM_CUT_LAYERS = 4      # 7c's depth cut: f32 weights of all 40 layers and 7a's would not share the card
+LM_CHECK_TOKENS = 16   # 7c: prompt length of the prefill-decode check (2 requests)
+LM_CPU_STEPS = 4       # 7d: decode steps each way, card against CPU
+
+
+def lm_config(name: str, **overrides):
+    """An architecture at its published widths, with `overrides` (7c's depth
+    cut and dtype)."""
+    import dataclasses
+
+    import repro_torch.configs as configs
+
+    return dataclasses.replace(configs.get(name), **overrides)
+
+
+def sync(dev) -> None:
+    import torch
+
+    if torch.device(dev).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def device_mem(dev) -> dict | None:
+    """Device memory in use, reserved and at its peak; None off the card."""
+    import torch
+
+    if torch.device(dev).type != "cuda":
+        return None
+    return {"allocated_bytes": torch.cuda.memory_allocated(),
+            "reserved_bytes": torch.cuda.memory_reserved(),
+            "peak_bytes": torch.cuda.max_memory_allocated()}
+
+
+def free_device(dev) -> dict | None:
+    import gc
+
+    import torch
+
+    gc.collect()
+    if torch.device(dev).type == "cuda":
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    return device_mem(dev)
+
+
+def finite(name: str, x, shape: tuple) -> None:
+    import torch
+
+    if tuple(x.shape) != shape or not bool(torch.isfinite(x).all()):
+        raise AssertionError(f"{name}: shape {tuple(x.shape)} (expected {shape}) or non-finite values")
+
+
+def decode_run(lm, caches, tok, steps: int, dev, *, bangkv: bool = False, forced=None):
+    """`steps` decode steps from `tok` (B, 1): greedy, or fed `forced`
+    (steps, B, 1). Returns logits (steps, B, V), the tokens fed, the host
+    ms of each step (ending in a synchronise) and the caches."""
+    import torch
+
+    logits, fed, ms = [], [], []
+    for s in range(steps):
+        if forced is not None:
+            tok = forced[s]
+        t0 = time.perf_counter()
+        out, caches = lm.decode_step(caches, tok, bangkv=bangkv)
+        nxt = out[:, 0].argmax(dim=-1, keepdim=True).to(torch.int32)
+        sync(dev)
+        ms.append((time.perf_counter() - t0) * 1e3)
+        logits.append(out[:, 0])
+        fed.append(tok)
+        tok = nxt
+    return torch.stack(logits), torch.stack(fed), ms, caches
+
+
+def profile_step(dev, label: str, lm, caches, tok, stats: dict, *, bangkv: bool = False) -> None:
+    """One more decode step under the profiler (on the card): its device
+    busy ms and events, and the idle share against the median step, into
+    `stats`. The caches must hold one more slot."""
+    import torch
+
+    prof = None
+    if torch.device(dev).type == "cuda":
+        prof = device_profile(label, lambda: lm.decode_step(caches, tok, bangkv=bangkv),
+                              stats["ms_per_step"])
+    stats["device_busy_ms_per_step"] = None if prof is None else prof["busy_ms"]
+    stats["device_events_per_step"] = None if prof is None else prof["device_events"]
+    stats["idle_share"] = None if prof is None else 1.0 - prof["busy_ms"] / stats["ms_per_step"]
+
+
+def step_stats(ms: list, batch: int) -> dict:
+    """Median ms a step after the first, and tokens a second from it."""
+    med = float(np.median(ms[1:] if len(ms) > 1 else ms))
+    return {"step_ms": ms, "ms_per_step": med, "tokens_per_s": batch / (med / 1e3)}
+
+
+def kept_attention_mass(lm, tok, bang) -> float:
+    """Layer 0 of the step after the prompt: the share of exact attention's
+    softmax mass over the prompt's keys that lies on the keys BANG-KV keeps
+    (its top-L and the window), the mean over requests and heads. A
+    uniform distribution gives (L + W) / S."""
+    import torch
+
+    from repro_torch.models import retrieval_attention as bkv
+    from repro_torch.models.layers import apply_rope, embed, norm
+
+    cfg, p = lm.cfg, lm.params
+    lp, layer = p["layers"][0], type(bang)(*(t[0] for t in bang))
+    B, n, W = tok.shape[0], int(layer.index), cfg.bangkv_window
+    x = norm(embed(tok.long(), p["embed"]), lp["attn_norm"], cfg.norm_kind, cfg.norm_eps)
+    q = (x @ lp["attn"]["wq"]).reshape(B, 1, cfg.n_heads, cfg.head_dim)
+    q = apply_rope(q, layer.index.reshape(1, 1).expand(B, 1), cfg.rope_theta)
+    _, top = bkv.bangkv_decode_attention(p["bangkv_codebooks"][0], q, layer, top_l=cfg.bangkv_topl,
+                                         window=W, return_top_idx=True)
+    G = cfg.n_heads // cfg.n_kv_heads
+    qg = q.reshape(B, cfg.n_kv_heads, G, cfg.head_dim).float()
+    scores = (qg @ layer.k[:, :n].float().permute(0, 2, 3, 1)) * cfg.head_dim ** -0.5
+    probs = torch.softmax(scores.reshape(B, cfg.n_heads, n), dim=-1)
+    # Retrieved slots past the retrieval region (history < L) are invalid;
+    # they never share a position with a valid one.
+    kept = torch.zeros_like(probs, dtype=torch.bool).scatter_(-1, top.clamp(max=n - 1), top < n - W)
+    kept[..., n - W:] = True
+    return float((probs * kept).sum(-1).mean())
+
+
+def lm_serve(dev, card: str) -> dict:
+    """7a and 7b: glm4-9b at full width and depth in bf16, its parameters
+    drawn on the card. 7a: LM_REQUESTS prompts of LM_PROMPT random tokens,
+    prefilled together, then LM_DECODE greedy exact-KV steps. 7b: one
+    prompt of LM_LONG tokens, codebooks fitted per layer on its keys, then
+    LM_LONG_DECODE steps from one state twice: exact, and BANG-KV fed the
+    exact path's tokens, so every step compares the two attentions on the
+    same input."""
+    import torch
+
+    from repro_torch.models import LM
+    from repro_torch.models.attention import KVCache
+    from repro_torch.models.retrieval_attention import fit_bangkv_caches
+
+    cfg = lm_config(LM_ARCH)
+    g = torch.Generator(dev).manual_seed(SEED)
+    t0 = time.perf_counter()
+    lm = LM(cfg, device=dev, generator=g)
+    sync(dev)
+    init_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in lm.parameters())
+    param_bytes = sum(p.numel() * p.element_size() for p in lm.parameters())
+    log(f"[lm] {cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, {cfg.n_heads} heads "
+        f"({cfg.n_kv_heads} KV), d_ff {cfg.d_ff}, vocab {cfg.vocab_size}, {cfg.dtype}: "
+        f"{n_params:,} parameters, {param_bytes / 1e9:.2f} GB, drawn on {dev} in {init_s:.2f} s")
+
+    # 7a: the batch of requests.
+    B, S, V = LM_REQUESTS, LM_PROMPT, cfg.vocab_size
+    tokens = torch.randint(0, V, (B, S), generator=g, device=dev)
+    free_device(dev)
+    t0 = time.perf_counter()
+    logits, caches = lm.prefill({"tokens": tokens}, s_max=S + LM_DECODE + 1)
+    sync(dev)
+    prefill_ms = (time.perf_counter() - t0) * 1e3
+    finite("7a prefill logits", logits, (B, 1, V))
+    tok = logits[:, 0].argmax(dim=-1, keepdim=True).to(torch.int32)
+    dl, _, ms, caches = decode_run(lm, caches, tok, LM_DECODE, dev)
+    tok = dl[-1].argmax(dim=-1, keepdim=True).to(torch.int32)
+    finite("7a decode logits", dl, (LM_DECODE, B, V))
+    if not bool((caches.index == S + LM_DECODE).all()):
+        raise AssertionError(f"7a cache fill {caches.index.tolist()} != {S + LM_DECODE}")
+    serve = {"requests": B, "prompt_tokens": S, "decode_steps": LM_DECODE, "prefill_ms": prefill_ms,
+             "prefill_tokens_per_s": B * S / (prefill_ms / 1e3), **step_stats(ms, B),
+             "kv_cache_bytes": caches.k.nbytes + caches.v.nbytes, "memory": device_mem(dev)}
+    profile_step(dev, "7a exact-KV decode step", lm, caches, tok, serve)
+    log(f"[lm] 7a: {B} x {S} tokens prefilled in {prefill_ms:.1f} ms "
+        f"({serve['prefill_tokens_per_s']:.0f} tokens/s); exact-KV decode "
+        f"{serve['ms_per_step']:.2f} ms a step (median of steps 2-{LM_DECODE}; first "
+        f"{ms[0]:.2f}), {serve['tokens_per_s']:.1f} tokens/s; KV cache "
+        f"{serve['kv_cache_bytes'] / 1e6:.1f} MB; peak device memory "
+        f"{(serve['memory'] or {}).get('peak_bytes', 0) / 1e9:.2f} GB [{card}]")
+    del logits, caches, dl
+
+    # 7b: one long request, exact against BANG-KV.
+    S = LM_LONG
+    tokens = torch.randint(0, V, (1, S), generator=g, device=dev)
+    free_device(dev)
+    t0 = time.perf_counter()
+    logits, exact = lm.prefill({"tokens": tokens}, s_max=S + LM_LONG_DECODE + 1)
+    sync(dev)
+    long_prefill_ms = (time.perf_counter() - t0) * 1e3
+    finite("7b prefill logits", logits, (1, 1, V))
+    t0 = time.perf_counter()
+    own = KVCache(exact.k.clone(), exact.v.clone(), exact.index.clone())
+    codebooks, bang = fit_bangkv_caches(own, S, cfg.bangkv_m, iters=LM_FIT_ITERS)
+    lm.set_codebooks(codebooks)
+    sync(dev)
+    fit_s = time.perf_counter() - t0
+    tok = logits[:, 0].argmax(dim=-1, keepdim=True).to(torch.int32)
+    mass = kept_attention_mass(lm, tok, bang)
+    le, fed, ms_e, exact = decode_run(lm, exact, tok, LM_LONG_DECODE, dev)
+    lb, _, ms_b, bang = decode_run(lm, bang, tok, LM_LONG_DECODE, dev, bangkv=True, forced=fed)
+    finite("7b exact logits", le, (LM_LONG_DECODE, 1, V))
+    finite("7b BANG-KV logits", lb, (LM_LONG_DECODE, 1, V))
+    for name, c in (("exact", exact), ("BANG-KV", bang)):
+        if not bool((c.index == S + LM_LONG_DECODE).all()):
+            raise AssertionError(f"7b {name} cache fill {c.index.tolist()}")
+    ex_stats, bang_stats = step_stats(ms_e, 1), step_stats(ms_b, 1)
+    tok = le[-1].argmax(dim=-1, keepdim=True).to(torch.int32)
+    profile_step(dev, "7b exact-KV decode step", lm, exact, tok, ex_stats)
+    profile_step(dev, "7b BANG-KV decode step", lm, bang, tok, bang_stats, bangkv=True)
+    corr = [float(torch.corrcoef(torch.stack([a.double().flatten(), b.double().flatten()]))[0, 1])
+            for a, b in zip(le, lb)]
+    agree = [bool(a) for a in (le.argmax(-1) == lb.argmax(-1)).flatten().tolist()]
+    long = {"s_long": S, "decode_steps": LM_LONG_DECODE, "prefill_ms": long_prefill_ms,
+            "fit_encode_s": fit_s, "fit_iters": LM_FIT_ITERS,
+            "exact_decode": ex_stats, "bangkv_decode": bang_stats,
+            "logit_corr": corr, "argmax_agree": agree, "kept_attention_mass_layer0": mass,
+            "scan_bytes_per_key": {"bangkv_codes": cfg.bangkv_m, "exact_k": 2 * cfg.head_dim},
+            "bangkv": {"m": cfg.bangkv_m, "top_l": cfg.bangkv_topl, "window": cfg.bangkv_window},
+            "kv_cache_bytes": exact.k.nbytes + exact.v.nbytes, "memory": device_mem(dev)}
+    log(f"[lm] 7b: {S} tokens prefilled in {long_prefill_ms:.1f} ms; codebooks fitted "
+        f"({LM_FIT_ITERS} iterations) and keys encoded, all {cfg.n_layers} layers, in {fit_s:.2f} s; "
+        f"at layer 0 BANG-KV's keys hold {mass:.4f} of exact attention's mass (uniform: "
+        f"{(cfg.bangkv_topl + cfg.bangkv_window) / S:.4f})")
+    for s in range(LM_LONG_DECODE):
+        log(f"[lm] 7b step {s:2d}: exact {ms_e[s]:8.2f} ms  BANG-KV {ms_b[s]:8.2f} ms  "
+            f"logit corr {corr[s]:.4f}  argmax {'agrees' if agree[s] else 'differs'}")
+    log(f"[lm] 7b: decode ms a step (median of steps 2-{LM_LONG_DECODE}): exact "
+        f"{long['exact_decode']['ms_per_step']:.2f}, BANG-KV {long['bangkv_decode']['ms_per_step']:.2f} "
+        f"(m = {cfg.bangkv_m}, top-L {cfg.bangkv_topl}, window {cfg.bangkv_window}); argmax agreement "
+        f"{sum(agree)}/{len(agree)}; the scan reads {cfg.bangkv_m} B a key against "
+        f"{2 * cfg.head_dim} B of full-precision K [{card}]")
+    return {"arch": cfg.name, "params": n_params, "param_bytes": param_bytes, "init_s": init_s,
+            "serve": serve, "long": long}
+
+
+def lm_consistency(dev, name: str, **overrides) -> dict:
+    """7c: decode(prefill(x[:S-1])) against prefill(x[:S])'s last logits at
+    the architecture's full width, LM_CUT_LAYERS layers, float32, with the
+    reference test's tolerance (rtol = atol = 2e-2); and the same with
+    BANG-KV, its top-L covering the whole history outside a 4-key window,
+    so that stages 1-3 must give exact attention whatever the codes."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.models import LM
+    from repro_torch.models import retrieval_attention as bkv
+    from repro_torch.models.transformer import decoder_stack
+
+    cfg = lm_config(name, n_layers=LM_CUT_LAYERS, dtype="float32", **overrides)
+    g = torch.Generator(dev).manual_seed(SEED + 1)
+    lm = LM(cfg, device=dev, generator=g)
+    S = LM_CHECK_TOKENS
+    tokens = torch.randint(0, cfg.vocab_size, (2, S), generator=g, device=dev)
+    full, _ = lm.prefill({"tokens": tokens})
+    _, caches = lm.prefill({"tokens": tokens[:, :-1]}, s_max=S)
+    cover = LM(dataclasses.replace(cfg, bangkv_topl=S, bangkv_window=4), lm.params)
+    codes = torch.zeros((*caches.k.shape[:4], cfg.bangkv_m), dtype=torch.uint8, device=dev)
+    for layer in range(cfg.n_layers):
+        codes[layer] = bkv.encode_keys(lm.params["bangkv_codebooks"][layer], caches.k[layer])
+    bang = bkv.BangKVCache(codes, caches.k.clone(), caches.v.clone(), caches.index.clone())
+    dec, _ = lm.decode_step(caches, tokens[:, -1:])
+    dec_b, _ = cover.decode_step(bang, tokens[:, -1:], bangkv=True)
+    diff, diff_b = float((dec - full).abs().max()), float((dec_b - full).abs().max())
+    for what, got, d in (("decode", dec, diff), ("BANG-KV decode (covering top-L)", dec_b, diff_b)):
+        if not torch.allclose(got, full, rtol=2e-2, atol=2e-2):
+            raise AssertionError(f"7c {cfg.name}: {what} and prefill logits differ by {d}")
+    out = {"arch": cfg.name, "layers": cfg.n_layers, "d_model": cfg.d_model, "dtype": cfg.dtype,
+           "max_abs_diff": diff, "bangkv_cover_max_abs_diff": diff_b,
+           "max_abs_logit": float(full.abs().max())}
+    if cfg.n_experts:
+        # The fraction of routed assignments dropped at the published capacity.
+        base = lm_config(name, n_layers=LM_CUT_LAYERS, dtype="float32")
+        h = lm._embed_inputs(tokens, None)
+        with torch.no_grad():
+            _, aux, _ = decoder_stack(base, lm.params, h, mode="prefill")
+        out["capacity_factor"] = cfg.capacity_factor
+        out["dropped_frac_default_capacity"] = float(aux.dropped_frac) / base.n_layers
+        out["default_capacity_factor"] = base.capacity_factor
+    log(f"[lm] 7c {cfg.name} ({cfg.n_layers} layers, d_model {cfg.d_model}, f32): decode against "
+        f"prefill max |diff| {diff:.3g}, BANG-KV (top-L {S}, window 4) {diff_b:.3g} "
+        f"(bound 2e-2 + 2e-2 |x|)"
+        + (f"; dropped_frac at capacity {out['default_capacity_factor']}: "
+           f"{out['dropped_frac_default_capacity']:.4f}" if cfg.n_experts else ""))
+    return out
+
+
+def lm_card_vs_cpu(dev) -> dict:
+    """7d: glm4-9b reduced, float32, one set of parameters on the card and
+    on the CPU: prefill, LM_CPU_STEPS exact and BANG-KV steps (random
+    codebooks, the prompt's keys encoded), logits within rtol 1e-4, atol
+    1e-5; and one BANG-KV stage on each device's final caches, the
+    retrieved positions compared."""
+    import copy
+
+    import torch
+
+    import repro_torch.configs as configs
+    from repro_torch.models import LM, init_params
+    from repro_torch.models import retrieval_attention as bkv
+
+    cfg = configs.get(LM_ARCH).reduced(dtype="float32")
+    params = init_params(cfg, torch.Generator().manual_seed(SEED + 2), "cpu")
+    rng = np.random.default_rng(SEED + 2)
+    B, S, n = 2, 24, LM_CPU_STEPS
+    tokens = rng.integers(0, cfg.vocab_size, (B, S + 2 * n)).astype(np.int32)
+    q = rng.standard_normal((B, 1, cfg.n_heads, cfg.head_dim)).astype(np.float32)
+    res = {}
+    for where, d in (("cpu", torch.device("cpu")), ("card", torch.device(dev))):
+        lm = LM(cfg, copy.deepcopy(params).to(d))
+        t = torch.from_numpy(tokens).to(d)
+        logits, exact = lm.prefill({"tokens": t[:, :S]}, s_max=S + n)
+        cb = lm.params["bangkv_codebooks"]
+        codes = torch.zeros((*exact.k.shape[:4], cfg.bangkv_m), dtype=torch.uint8, device=d)
+        for layer in range(cfg.n_layers):
+            codes[layer, :, :S] = bkv.encode_keys(cb[layer], exact.k[layer, :, :S])
+        bang = bkv.BangKVCache(codes, exact.k.clone(), exact.v.clone(), exact.index.clone())
+        forced = t[:, S:].T.reshape(2 * n, B, 1)
+        le, _, _, exact = decode_run(lm, exact, None, n, d, forced=forced[:n])
+        lb, _, _, bang = decode_run(lm, bang, None, n, d, bangkv=True, forced=forced[n:])
+        _, top = bkv.bangkv_decode_attention(
+            cb[0], torch.from_numpy(q).to(d), type(bang)(*(x[0] for x in bang)),
+            top_l=cfg.bangkv_topl, window=cfg.bangkv_window, return_top_idx=True)
+        res[where] = [x.cpu() for x in (logits, le, lb, top)]
+    out = {"arch": cfg.name}
+    for i, what in enumerate(("prefill", "exact_decode", "bangkv_decode")):
+        a, b = res["cpu"][i], res["card"][i]
+        out[f"{what}_max_abs_diff"] = float((a - b).abs().max())
+        if not torch.allclose(b, a, rtol=1e-4, atol=1e-5):
+            raise AssertionError(f"7d {what}: card and CPU logits differ by {out[f'{what}_max_abs_diff']}")
+    ta, tb = res["cpu"][3], res["card"][3]
+    same = [len(set(x.tolist()) & set(y.tolist())) for x, y in zip(ta.flatten(0, 1), tb.flatten(0, 1))]
+    out["top_l_overlap"] = sum(same) / (len(same) * cfg.bangkv_topl)
+    log(f"[lm] 7d {cfg.name} f32: card against CPU, max |logit diff| prefill "
+        f"{out['prefill_max_abs_diff']:.3g}, exact decode {out['exact_decode_max_abs_diff']:.3g}, "
+        f"BANG-KV decode {out['bangkv_decode_max_abs_diff']:.3g} (bound 1e-5 + 1e-4 |x|); "
+        f"BANG-KV top-L overlap {out['top_l_overlap']:.4f}")
+    return out
+
+
+def lm_phase(dev, card: str) -> dict:
+    """Phase 7: the LM's serve path (prefill, exact-KV and BANG-KV decode).
+
+    7a serves glm4-9b at full width and depth in bf16 (about 9.4 B
+    parameters, 18.8 GB, drawn on the card); 7b decodes one request of
+    S_long = LM_LONG = 32,768 tokens (`LM_SHAPES["decode_32k"]`'s length)
+    with exact KV and with BANG-KV: the largest power of two up to 32,768
+    that keeps phase 7 within about 120 s, which the whole phase met on the
+    H100 (its prefill dominates: float32 scores, as the reference's, at 2.1
+    GB a 512-query chunk); 7c checks prefill-decode consistency at full
+    width in float32 for glm4-9b and phi3.5-moe, each cut to LM_CUT_LAYERS
+    layers; 7d holds the card against the CPU on the reduced glm4-9b. No
+    port kernel lies on this path: the launch counts, set to 0 before 7a,
+    are read after 7d and must all be 0."""
+    t0 = time.perf_counter()
+    mem = free_device(dev)
+    if mem is not None:
+        log(f"[lm] device memory before phase 7: {mem['allocated_bytes'] / 1e9:.2f} GB in use, "
+            f"{mem['reserved_bytes'] / 1e9:.2f} GB reserved")
+    reset_launches()
+    out = lm_serve(dev, card)
+    free_device(dev)
+    out["consistency"] = [lm_consistency(dev, LM_ARCH),
+                          lm_consistency(dev, LM_MOE_ARCH, capacity_factor=16.0)]
+    free_device(dev)
+    out["card_vs_cpu"] = lm_card_vs_cpu(dev)
+    launches = read_launches()
+    if any(launches.values()):
+        raise AssertionError(f"the LM path launched port kernels: {launches}")
+    out["kernel_launches"] = launches
+    out["memory_before"] = mem
+    out["phase_s"] = time.perf_counter() - t0
+    return out
 
 
 def main() -> int:
@@ -1984,6 +2388,9 @@ def main() -> int:
     small = small_vs_cpu(dev)
     log(f"[small] phase: {time.perf_counter() - t0:.1f} s")
 
+    lm = lm_phase(dev, card)
+    log(f"[lm] phase: {lm['phase_s']:.1f} s")
+
     keys = ("recall_at_10", "qps", "n_batches", "mean_n_iters", "mean_hops", "batch_wall_ms",
             "device_busy_ms_per_batch", "link_bytes_per_hop", "rerank_bytes_per_batch",
             "host_gather_ms_per_batch", "host_gather_share", "collective_ms_per_batch",
@@ -2001,7 +2408,7 @@ def main() -> int:
     print(json.dumps({"kernels": rows, "main_path": summary, "nn_contrast": res["nn_contrast"],
                       "vamana_build": vamana["build"], "mutation": mutation["info"],
                       "autotune": {k: at[k] for k in ("winner", "sweep", "sweep_s", "device_kind")},
-                      "small_recall_at_10": small, "card": card}))
+                      "small_recall_at_10": small, "lm": lm, "card": card}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

@@ -1,0 +1,21 @@
+"""gemma3-27b [dense]: 62L d_model=5376 32H (GQA kv=16) d_ff=21504
+vocab=262144 -- 5:1 local(sliding 1024):global pattern, 128k context.
+[hf:google/gemma-3-1b-pt family; unverified]
+"""
+from .base import ModelConfig
+
+CONFIG = ModelConfig(
+    name="gemma3-27b",
+    family="dense",
+    n_layers=62,
+    d_model=5376,
+    n_heads=32,
+    n_kv_heads=16,
+    head_dim=128,
+    d_ff=21504,
+    vocab_size=262_144,
+    sliding_window=1024,
+    local_global_ratio=5,      # 5 local layers per 1 global
+    rope_theta=1_000_000.0,    # global layers use long-context rope base
+    tie_embeddings=True,
+)

@@ -1,0 +1,26 @@
+"""llama4-scout-17b-a16e [moe]: 48L d_model=5120 40H (GQA kv=8) d_ff=8192,
+vocab=202048, MoE 16 experts top-1 + shared expert, early fusion.
+[hf:meta-llama/Llama-4-Scout-17B-16E; unverified]
+
+We model the text backbone (the assignment's LM-family scope); Llama-4's
+early-fusion image path is a frontend concern outside the assigned shapes.
+Every layer is MoE (top-1 routed + 1 shared expert), matching the release's
+interleave-free Scout configuration.
+"""
+from .base import ModelConfig
+
+CONFIG = ModelConfig(
+    name="llama4-scout-17b-a16e",
+    family="moe",
+    n_layers=48,
+    d_model=5120,
+    n_heads=40,
+    n_kv_heads=8,
+    head_dim=128,
+    d_ff=8192,
+    vocab_size=202_048,
+    n_experts=16,
+    moe_top_k=1,
+    n_shared_experts=1,
+    tie_embeddings=False,
+)

@@ -18,13 +18,29 @@ The host arrays (`graph.adjacency`, `data_np`) become the port's host
 tables, pinned on a CUDA index, which the "base" variant serves from;
 `keep_device_data` mirrors the reference's `data_dev` (None when the
 reference index was built with `keep_device_data=False`).
+
+The LM's state crosses the same way: `lm_params_from_reference` takes the
+reference's parameter pytree (`LM(cfg).init(key)`, leaves as numpy arrays,
+the layers stacked on a leading L axis) and returns the port's parameter
+tree for `repro_torch.models.LM(cfg, params)`; `kv_caches_from_reference`
+and `bangkv_caches_from_reference` carry decode caches across, so both
+packages can decode from one state::
+
+    params = lm_params_from_reference(jax.tree.map(np.asarray, ref_params), cfg)
+    lm = LM(cfg, params)
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
+from .configs.base import ModelConfig
 from .core.bang import BangIndex
+from .kernels.common import resolve_device
+from .models.attention import KVCache
+from .models.layers import ParamTree
+from .models.retrieval_attention import BangKVCache
+from .models.transformer import check_family
 
 KEYS = ("codebooks", "codes", "adjacency", "medoid", "data")
 
@@ -47,3 +63,47 @@ def index_from_reference(
         device=device,
         keep_device_data=keep_device_data,
     )
+
+
+def _tensor(a, device: torch.device) -> torch.Tensor:
+    """A numpy array (bfloat16 ones included, as numpy holds JAX's) on `device`."""
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.view(np.uint16).copy()).view(torch.bfloat16).to(device)
+    return torch.from_numpy(a.copy()).to(device)
+
+
+def _tree(tree, fn):
+    return {k: _tree(v, fn) if isinstance(v, dict) else fn(v) for k, v in tree.items()}
+
+
+def lm_params_from_reference(params: dict, cfg: ModelConfig, *,
+                             device: str | torch.device = "cuda") -> ParamTree:
+    """The reference's LM parameters on the port's modules: the stacked
+    (L, ...) `layers` leaves (attention, norms, the FFN or the MoE `router`,
+    `w_*` and `shared` weights) split into one subtree a layer, the
+    embedding, head, final norm and the (L, Hkv, m, 256, dsub)
+    `bangkv_codebooks` as they are."""
+    check_family(cfg)
+    dev = resolve_device(device)
+    out = {k: _tensor(params[k], dev) for k in ("embed", "lm_head", "bangkv_codebooks")
+           if k in params}
+    out["final_norm"] = _tree(params["final_norm"], lambda a: _tensor(a, dev))
+    out["layers"] = [_tree(params["layers"], lambda a, i=i: _tensor(np.asarray(a)[i], dev))
+                     for i in range(cfg.n_layers)]
+    return ParamTree(out)
+
+
+def kv_caches_from_reference(caches, *, device: str | torch.device = "cuda") -> KVCache:
+    """A reference `KVCache` stack (k, v (L, B, S, Hkv, hd), index (L,))."""
+    dev = resolve_device(device)
+    return KVCache(_tensor(caches.k, dev), _tensor(caches.v, dev),
+                   _tensor(np.asarray(caches.index, np.int32), dev))
+
+
+def bangkv_caches_from_reference(caches, *, device: str | torch.device = "cuda") -> BangKVCache:
+    """A reference `BangKVCache` stack (codes (L, B, S, Hkv, m) uint8, k, v,
+    index (L,))."""
+    dev = resolve_device(device)
+    return BangKVCache(_tensor(np.asarray(caches.codes, np.uint8), dev), _tensor(caches.k, dev),
+                       _tensor(caches.v, dev), _tensor(np.asarray(caches.index, np.int32), dev))

@@ -1,0 +1,182 @@
+"""GQA attention: prefill (chunked causal) and decode (KV cache).
+
+The port of the reference package's `models/attention.py`, for the causal
+and decode cases. Full (S, S) score matrices are never materialised:
+prefill runs a flash-style loop over query chunks -- scores exist only as
+(B, Hkv, G, chunk, S) blocks -- and sliding-window layers apply a band mask
+inside the same loop. Scores and probabilities are float32, as the
+reference's `preferred_element_type=jnp.float32`; with `bf16_scores` the
+inputs are rounded to bf16 first and multiplied in float32 (a bf16 product
+is exact in float32), so the sums stay float32 as the reference's do.
+
+Decode attends one query token against the cache. The cache is updated in
+place: the new key and value are written at the device index
+`cache.index` (no host sync), and the returned cache shares the storage.
+The non-causal (encoder) branch and `cross_attention` belong to the encdec
+family and wait for it (ROADMAP A8).
+"""
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+from .layers import apply_rope, truncated_normal_init
+
+
+class KVCache(NamedTuple):
+    k: torch.Tensor       # (B, S_max, Hkv, hd); stacked over layers (L, B, S_max, Hkv, hd)
+    v: torch.Tensor       # (B, S_max, Hkv, hd)
+    index: torch.Tensor   # () int32 -- current fill level; stacked (L,)
+
+
+def attn_params(generator: torch.Generator, d_model: int, n_heads: int, n_kv_heads: int,
+                head_dim: int, dtype) -> dict:
+    return {
+        "wq": truncated_normal_init((d_model, n_heads * head_dim), generator, dtype=dtype),
+        "wk": truncated_normal_init((d_model, n_kv_heads * head_dim), generator, dtype=dtype),
+        "wv": truncated_normal_init((d_model, n_kv_heads * head_dim), generator, dtype=dtype),
+        "wo": truncated_normal_init((n_heads * head_dim, d_model), generator, dtype=dtype),
+    }
+
+
+def _qkv(p, x: torch.Tensor, n_heads: int, n_kv_heads: int, head_dim: int):
+    B, S, _ = x.shape
+    q = (x @ p["wq"]).reshape(B, S, n_heads, head_dim)
+    k = (x @ p["wk"]).reshape(B, S, n_kv_heads, head_dim)
+    v = (x @ p["wv"]).reshape(B, S, n_kv_heads, head_dim)
+    return q, k, v
+
+
+def chunked_causal_attention(
+    q: torch.Tensor,               # (B, S, H, hd), rope applied
+    k: torch.Tensor,               # (B, S, Hkv, hd)
+    v: torch.Tensor,               # (B, S, Hkv, hd)
+    *,
+    chunk: int,
+    window: torch.Tensor | int,    # >= S means full causal
+    bf16_scores: bool = False,
+    band: int | None = None,       # static key band per query chunk (local layers)
+) -> torch.Tensor:
+    """Causal attention over query chunks (flash-style).
+
+    With `band` set (local layers, static window), each query chunk only
+    multiplies against the `band` keys that can pass its sliding-window
+    mask: a (c, band) score block instead of (c, S).
+    """
+    B, S, H, hd = q.shape
+    Hkv = k.shape[2]
+    G = H // Hkv
+    scale = hd ** -0.5
+    n_chunks = max(S // chunk, 1)
+    c = S // n_chunks
+    if n_chunks * c != S:
+        raise ValueError(f"seq {S} must divide by attn chunk {chunk}")
+    in_dt = torch.bfloat16 if bf16_scores else torch.float32
+    dev = q.device
+
+    qg = q.reshape(B, n_chunks, c, Hkv, G, hd).permute(1, 0, 3, 4, 2, 5)
+    # (n_chunks, B, Hkv, G, c, hd); keys and values rounded to in_dt once
+    kT = k.permute(0, 2, 3, 1).to(in_dt).float()       # (B, Hkv, hd, S)
+    vT = v.permute(0, 2, 1, 3).to(in_dt).float()       # (B, Hkv, S, hd)
+    kv_pos = torch.arange(S, dtype=torch.int32, device=dev)
+
+    outs = []
+    for ci in range(n_chunks):
+        if band is not None and band < S:
+            start = min(max(ci * c - (band - c), 0), S - band)
+            kT_c, vT_c = kT[..., start:start + band], vT[:, :, start:start + band]
+            pos_c = start + torch.arange(band, dtype=torch.int32, device=dev)
+        else:
+            kT_c, vT_c, pos_c = kT, vT, kv_pos
+        qc = qg[ci].to(in_dt).float().reshape(B, Hkv, G * c, hd)
+        scores = (qc @ kT_c).reshape(B, Hkv, G, c, -1) * scale   # (B, Hkv, G, c, S|band)
+        q_pos = ci * c + torch.arange(c, dtype=torch.int32, device=dev)
+        causal = (pos_c[None, :] <= q_pos[:, None]) & (pos_c[None, :] > q_pos[:, None] - window)
+        scores.masked_fill_(~causal, float("-inf"))
+        probs = torch.softmax(scores, dim=-1)
+        out = probs.to(in_dt).float().reshape(B, Hkv, G * c, -1) @ vT_c
+        outs.append(out.reshape(B, Hkv, G, c, hd).to(q.dtype))
+    # (n_chunks, B, Hkv, G, c, hd) -> (B, S, H, hd)
+    return torch.stack(outs).permute(1, 0, 4, 2, 3, 5).reshape(B, S, H, hd)
+
+
+def decode_attention(
+    q: torch.Tensor,        # (B, 1, H, hd), rope applied
+    cache: KVCache,
+    *,
+    window: torch.Tensor | int,
+) -> torch.Tensor:
+    """One-token attention against the cache's first `cache.index` slots."""
+    B, _, H, hd = q.shape
+    Hkv = cache.k.shape[2]
+    G = H // Hkv
+    S = cache.k.shape[1]
+    scale = hd ** -0.5
+    qg = q.reshape(B, Hkv, G, hd).float()
+    scores = (qg @ cache.k.float().permute(0, 2, 3, 1)) * scale      # (B, Hkv, G, S)
+    pos = torch.arange(S, dtype=torch.int32, device=q.device)
+    valid = (pos[None, :] < cache.index) & (pos[None, :] >= cache.index - window)
+    scores.masked_fill_(~valid[:, None, None, :], float("-inf"))
+    probs = torch.softmax(scores, dim=-1)
+    out = probs @ cache.v.float().permute(0, 2, 1, 3)                 # (B, Hkv, G, hd)
+    return out.reshape(B, 1, H, hd).to(q.dtype)
+
+
+def write_at_index(buf: torch.Tensor, val: torch.Tensor, index: torch.Tensor) -> None:
+    """buf[:, index] = val in place, at a device index (no host sync): the
+    counterpart of the reference's `dynamic_update_slice_in_dim(..., axis=1)`.
+    The caller sizes the cache; an index past its end is an error."""
+    buf.index_copy_(1, index.reshape(1).long(), val.to(buf.dtype))
+
+
+def attention_block(
+    p,
+    x: torch.Tensor,
+    *,
+    n_heads: int,
+    n_kv_heads: int,
+    head_dim: int,
+    rope_theta: float,
+    attn_chunk: int,
+    window: torch.Tensor | int,
+    causal: bool = True,
+    cache: KVCache | None = None,
+    bf16_scores: bool = False,
+    window_skip: bool = False,
+) -> tuple[torch.Tensor, KVCache | tuple | None]:
+    """Full attention sublayer. cache=None -> prefill; else decode.
+
+    Prefill returns the roped (k, v) for the caller to assemble the decode
+    cache; decode writes the new key and value into `cache` in place and
+    returns it with `index + 1`. With a static int `window`, `window_skip`
+    activates the banded local-attention path.
+    """
+    B, S, _ = x.shape
+    q, k, v = _qkv(p, x, n_heads, n_kv_heads, head_dim)
+
+    if cache is None:
+        if not causal:
+            raise NotImplementedError(
+                "bidirectional (encoder) attention belongs to the encdec family: ROADMAP A8")
+        pos = torch.arange(S, dtype=torch.int32, device=x.device)[None, :]
+        q = apply_rope(q, pos, rope_theta)
+        k = apply_rope(k, pos, rope_theta)
+        c = min(attn_chunk, S)
+        band = None
+        if window_skip and isinstance(window, int) and window + c < S:
+            band = min(S, -(-(window + c) // c) * c)   # round up to chunks
+        out = chunked_causal_attention(q, k, v, chunk=c, window=window,
+                                       bf16_scores=bf16_scores, band=band)
+        new_cache = (k, v)   # roped k -- prefill assembles the decode cache
+    else:
+        pos = cache.index.reshape(1, 1).expand(B, 1)   # query position
+        q = apply_rope(q, pos, rope_theta)
+        k = apply_rope(k, pos, rope_theta)
+        write_at_index(cache.k, k, cache.index)
+        write_at_index(cache.v, v, cache.index)
+        new_cache = KVCache(cache.k, cache.v, cache.index + 1)
+        out = decode_attention(q, new_cache, window=window)
+
+    y = out.reshape(B, S, n_heads * head_dim) @ p["wo"]
+    return y, new_cache

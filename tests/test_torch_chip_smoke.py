@@ -289,3 +289,43 @@ def test_chip_smoke_hostio_phase_on_cpu(smoke, monkeypatch):
         assert r["cache_repeat_hit_rate"] == 1.0 and 0 < r["p50_ms"] <= r["p95_ms"]
         assert r["launches"]["search_step"] > 0 and r["qps"] > 0
     assert "overlap_fraction" in paths["serve-base-hostio"]
+
+
+def test_chip_smoke_lm_phase_on_cpu(smoke, monkeypatch):
+    """Phase 7 at the reduced configs: 7a's batch prefilled and decoded,
+    7b's long request exact and BANG-KV from one state, 7c's prefill-decode
+    checks (glm4-9b and phi3.5-moe, and BANG-KV with a covering top-L),
+    7d's card-against-CPU check (CPU against CPU here), and no port kernel
+    launched."""
+    import repro_torch.configs as configs
+
+    monkeypatch.setattr(smoke, "lm_config", lambda name, **kw: configs.get(name).reduced(**kw))
+    for name, value in (("LM_PROMPT", 32), ("LM_DECODE", 4), ("LM_LONG", 64),
+                        ("LM_LONG_DECODE", 3), ("LM_FIT_ITERS", 3)):
+        monkeypatch.setattr(smoke, name, value)
+    out = smoke.lm_phase(torch.device("cpu"), "cpu")
+    assert out["arch"] == "glm4-9b-reduced" and out["params"] > 0 and out["param_bytes"] > 0
+    serve, long = out["serve"], out["long"]
+    assert serve["requests"] == smoke.LM_REQUESTS and len(serve["step_ms"]) == 4
+    # K and V: L, B, the prompt, the steps and one profiled step, Hkv, hd, bf16.
+    assert serve["kv_cache_bytes"] == 2 * 4 * 4 * (32 + 4 + 1) * 2 * 16 * 2
+    assert serve["tokens_per_s"] > 0 and serve["memory"] is None
+    for stats in (serve, long["exact_decode"], long["bangkv_decode"]):
+        assert stats["device_busy_ms_per_step"] is stats["idle_share"] is None   # no card
+    assert long["s_long"] == 64 and long["fit_iters"] == 3
+    assert len(long["exact_decode"]["step_ms"]) == len(long["bangkv_decode"]["step_ms"]) == 3
+    assert len(long["logit_corr"]) == len(long["argmax_agree"]) == 3
+    assert all(-1.0 <= c <= 1.0 for c in long["logit_corr"])
+    assert long["scan_bytes_per_key"] == {"bangkv_codes": 4, "exact_k": 32}
+    dense, moe = out["consistency"]
+    assert dense["arch"] == "glm4-9b-reduced" and moe["arch"] == "phi3.5-moe-42b-a6.6b-reduced"
+    for c in (dense, moe):
+        assert c["layers"] == smoke.LM_CUT_LAYERS and c["dtype"] == "float32"
+        assert c["max_abs_diff"] < 1e-5 and c["bangkv_cover_max_abs_diff"] < 1e-5
+    assert moe["capacity_factor"] == 16.0 and moe["default_capacity_factor"] == 1.25
+    assert 0.0 < moe["dropped_frac_default_capacity"] < 1.0 and "dropped_frac_default_capacity" not in dense
+    cpu = out["card_vs_cpu"]
+    assert cpu["prefill_max_abs_diff"] == cpu["exact_decode_max_abs_diff"] == 0.0
+    assert cpu["bangkv_decode_max_abs_diff"] == 0.0 and cpu["top_l_overlap"] == 1.0
+    assert out["kernel_launches"] == dict.fromkeys(smoke.kernel_counters(), 0)
+    assert out["phase_s"] > 0 and out["memory_before"] is None

@@ -62,6 +62,18 @@ NINTH_SLICE = {
 # Modules of the tenth slice: streaming mutability and the autotuner.
 TENTH_SLICE = {"repro_torch.runtime.mutation", "repro_torch.kernels.autotune"}
 
+# Modules of the eleventh slice: the configs and the decoder LM's serve path.
+ELEVENTH_SLICE = {
+    "repro_torch.configs", "repro_torch.configs.base", "repro_torch.configs.gemma3_27b",
+    "repro_torch.configs.glm4_9b", "repro_torch.configs.granite_3_2b",
+    "repro_torch.configs.internvl2_1b", "repro_torch.configs.llama4_scout",
+    "repro_torch.configs.mamba2_2p7b", "repro_torch.configs.phi35_moe",
+    "repro_torch.configs.phi3_medium_14b", "repro_torch.configs.whisper_medium",
+    "repro_torch.configs.zamba2_2p7b", "repro_torch.models", "repro_torch.models.layers",
+    "repro_torch.models.ffn", "repro_torch.models.attention", "repro_torch.models.moe",
+    "repro_torch.models.retrieval_attention", "repro_torch.models.transformer",
+}
+
 
 def test_every_module_imports_without_jax_or_reference():
     env = dict(os.environ, PYTHONPATH=str(SRC))
@@ -71,8 +83,8 @@ def test_every_module_imports_without_jax_or_reference():
     )
     assert res.returncode == 0, res.stderr
     names = set(res.stdout.split())
-    slices = SECOND_SLICE | THIRD_SLICE | EIGHTH_SLICE | NINTH_SLICE | TENTH_SLICE
-    assert len(names) >= 46 and slices <= names   # every module was walked
+    slices = SECOND_SLICE | THIRD_SLICE | EIGHTH_SLICE | NINTH_SLICE | TENTH_SLICE | ELEVENTH_SLICE
+    assert len(names) >= 65 and slices <= names   # every module was walked
 
 
 def test_from_arrays_defaults_to_cuda():
@@ -144,3 +156,22 @@ def test_mutable_index_and_autotune_follow_the_index_device():
     assert mut.index.device.type == "cpu" and mut.index.codes.device.type == "cpu"
     assert mut.executor("inmem")._inner().device.type == "cpu"
     assert not mut.index.graph.adjacency.is_pinned()
+
+
+def test_lm_defaults_to_cuda():
+    """`LM(cfg)`, `init_params` and the BANG-KV cache draw on the card by
+    default: with no card they raise and never fall back to the CPU."""
+    import repro_torch.configs as configs
+    from repro_torch.models import LM, init_params
+    from repro_torch.models.retrieval_attention import bangkv_init
+
+    cfg = configs.get("glm4-9b").reduced(dtype="float32")
+    if torch.cuda.is_available():
+        assert LM(cfg).device.type == "cuda"
+    else:
+        for make in (lambda: LM(cfg), lambda: init_params(cfg),
+                     lambda: bangkv_init(1, 8, 2, 16, 4)):
+            with pytest.raises(RuntimeError, match="CUDA"):
+                make()
+    lm = LM(cfg, device="cpu", generator=torch.Generator().manual_seed(0))
+    assert lm.device.type == "cpu" and lm.init_decode_caches(1, 8).k.device.type == "cpu"
