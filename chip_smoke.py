@@ -88,7 +88,9 @@ Phases, each timed; any failure exits non-zero:
      deletes; recall@10 against brute force over `live_points()`. Then
      `consolidate()`, timed as host re-link / host inserts / re-encode on the
      card / swap, its codes against a CPU `pq_encode` of the same rows (the
-     count of rows that differ), and the same checks again; a second round
+     count of rows that differ, and for each differing code the float64 gap
+     between the two centroids' squared distances in float32 ulps), and the
+     same checks again; a second round
      of mutations folded by `consolidate_async()` while inmem batches are
      served (QPS before and during the fold); and `ServePipeline` over the
      mutable inmem executor with its result cache on: a repeat after a
@@ -102,14 +104,27 @@ Phases, each timed; any failure exits non-zero:
      one request of 32,768 tokens, codebooks fitted per layer on its keys,
      16 steps exact and 16 BANG-KV (m = 16, top-L 64, window 256) from one
      state, the logit correlation and argmax agreement of every step and
-     the share of exact attention's mass BANG-KV keeps at layer 0; 7c
-     prefill-decode consistency at full width in float32, 4 layers of
-     glm4-9b and of phi3.5-moe (rtol = atol = 2e-2), exact and BANG-KV with
-     a covering top-L, and phi3.5-moe's dropped fraction at its published
-     capacity; 7d the reduced glm4-9b on the card against the CPU (rtol
-     1e-4, atol 1e-5) and BANG-KV's top-L overlap. No port kernel lies on
-     this path: the launch counts stay 0. Its numbers go into the summary
-     line under "lm".
+     the share of exact attention's mass BANG-KV keeps at layer 0; 7e
+     mamba2-2.7b at full width and depth in bf16 (64 Mamba2 layers), 4 x
+     2,048 tokens and 32 greedy steps, then one request of 32,768 tokens
+     and 16 steps (the SSM cache the same bytes a request at both lengths);
+     7f zamba2-2.7b (54 Mamba2 layers, the shared attention block after
+     every 6), 4 x 2,048 tokens, 32 greedy exact-KV steps, then 16 exact and
+     16 BANG-KV steps from that state (codebooks fitted on each of the 9
+     shared-block caches), logit correlation and argmax agreement a step;
+     7g whisper-medium (24 encoder and 24 decoder layers), 4 requests of
+     1,500 frame embeddings and 64-token prompts, the encoder timed alone,
+     32 greedy exact-KV steps (each: prefill ms and tokens/s, decode ms a
+     step, the idle share of one profiled step, peak memory, cache bytes);
+     7c prefill-decode consistency at full width in float32, 4 layers of
+     glm4-9b, phi3.5-moe and mamba2, 12 of zamba2 (two groups), 4 + 4 of
+     whisper (rtol = atol = 2e-2), exact and, where the family has
+     attention, BANG-KV with a covering top-L, and phi3.5-moe's dropped
+     fraction at its published capacity; 7d the reduced glm4-9b, mamba2,
+     zamba2 and whisper on the card against the CPU (rtol 1e-4, atol 1e-5)
+     and BANG-KV's top-L overlap. No port kernel lies on this path: the
+     launch counts stay 0. Its numbers go into the summary line under
+     "lm".
 
 Kernel times are taken cold: the timed calls cycle through copies of the
 inputs that together exceed twice the H100's 50 MB L2. Bounds count the bytes the function needs for this run's
@@ -1690,6 +1705,32 @@ def mutable_paths(stage: str, mut, queries, inserted, new_ids, deleted: set, cfg
     return out
 
 
+def code_gaps(codebooks, data, card_codes, cpu_codes) -> list[dict]:
+    """For each (row, subspace) whose card-encoded code differs from the
+    CPU's: both centroids' squared distances to the row's subvector in
+    float64, their gap, and the float32 ulp at the distance and at
+    |x|^2 + |c|^2, the size of the terms whose difference `pq_encode`
+    takes (ROADMAP C10). A gap of a few ulps of the terms is a near tie."""
+    m = codebooks.shape[0]
+    x = data.double().reshape(data.shape[0], m, -1)
+    cb = codebooks.double()
+    out = []
+    for row, sub in (card_codes != cpu_codes).nonzero().tolist():
+        xs = x[row, sub]
+        a, b = int(card_codes[row, sub]), int(cpu_codes[row, sub])
+        da, db = float(((xs - cb[sub, a]) ** 2).sum()), float(((xs - cb[sub, b]) ** 2).sum())
+        terms = float((xs * xs).sum() + (cb[sub, a] * cb[sub, a]).sum())
+        gap = abs(da - db)
+        ulp_d, ulp_t = float(np.spacing(np.float32(max(da, db)))), float(np.spacing(np.float32(terms)))
+        out.append({"row": row, "subspace": sub, "card_code": a, "cpu_code": b, "card_d2": da,
+                    "cpu_d2": db, "gap": gap, "ulp_at_d2": ulp_d, "ulp_at_terms": ulp_t,
+                    "gap_in_ulps_of_terms": gap / ulp_t})
+        log(f"[mutation] C10 row {row} subspace {sub}: card code {a} d2 {da:.9g}, CPU code {b} d2 "
+            f"{db:.9g} (float64); gap {gap:.3g} = {gap / ulp_d:.2f} float32 ulps at d2, "
+            f"{gap / ulp_t:.2f} ulps at |x|^2+|c|^2 = {terms:.6g}")
+    return out
+
+
 def mutation_phase(dev, card: str, vctx: dict) -> dict:
     """Phase 5b: streaming mutability on the Vamana cell's index.
 
@@ -1751,8 +1792,9 @@ def mutation_phase(dev, card: str, vctx: dict) -> dict:
         new = mut.index
         cpu_codes = pq.pq_encode(pq.PQCodec(new.codec.codebooks.cpu()), new.data_host)
         differ = int((cpu_codes != new.codes.cpu()).any(1).sum())
+        gaps = code_gaps(new.codec.codebooks.cpu(), new.data_host, new.codes.cpu(), cpu_codes)
         info.update(consolidate_s=fold, consolidated_stats=stats, codes_rows=int(new.n),
-                    codes_rows_differing_from_cpu=differ)
+                    codes_rows_differing_from_cpu=differ, code_gaps=gaps)
         log(f"[mutation] consolidate(): {fold['total_s']:.3f} s = host re-link {fold['relink_s']:.3f} s + "
             f"host inserts {fold['insert_s']:.3f} s + re-encode and tables on the card "
             f"{fold['encode_s']:.3f} s + swap {fold['swap_s'] * 1e3:.3f} ms; {stats}; re-encoded codes: "
@@ -1947,6 +1989,9 @@ def small_vs_cpu(dev) -> float:
 
 # ------------------------------------------------------------- phase 7
 LM_ARCH, LM_MOE_ARCH = "glm4-9b", "phi3.5-moe-42b-a6.6b"
+SSM_ARCH, HYBRID_ARCH, ENCDEC_ARCH = "mamba2-2.7b", "zamba2-2.7b", "whisper-medium"   # 7e, 7f, 7g
+ENCDEC_PROMPT = 64     # 7g: decoder prompt tokens a request (after 1,500 frames)
+HYBRID_CUT_LAYERS = 12  # 7c's zamba2 cut: two groups of hybrid_attn_every = 6
 LM_REQUESTS, LM_PROMPT, LM_DECODE = 4, 2048, 32   # 7a: requests, tokens each, greedy steps
 LM_LONG, LM_LONG_DECODE = 32_768, 16                # 7b: S_long (see lm_phase), steps each way
 LM_FIT_ITERS = 12                                   # 7b: k-means iterations a layer, as the example
@@ -2180,39 +2225,250 @@ def lm_serve(dev, card: str) -> dict:
             "serve": serve, "long": long}
 
 
+def cache_bytes(caches) -> int:
+    if hasattr(caches, "nbytes"):
+        return caches.nbytes
+    return sum(cache_bytes(c) for c in caches)
+
+
+def encoded(lm, caches):
+    """BANG-KV caches over a copy of `caches`: every slot's key encoded with
+    its stack's codebooks (slots past the fill are never scanned)."""
+    import torch
+
+    from repro_torch.models import retrieval_attention as bkv
+    from repro_torch.models.transformer import attention_caches, clone_caches, with_attention_caches
+
+    cfg = lm.cfg
+    state = clone_caches(caches)
+    kv = attention_caches(cfg, state)
+    cb = lm.params["bangkv_codebooks"]
+    codes = torch.stack([bkv.encode_keys(cb[i], kv.k[i]) for i in range(kv.k.shape[0])])
+    return with_attention_caches(cfg, state, bkv.BangKVCache(codes, kv.k, kv.v, kv.index))
+
+
+def model_on_card(dev, name: str, seed: int):
+    """An architecture at full width and depth, its parameters drawn on
+    `dev` from a seeded generator."""
+    import torch
+
+    from repro_torch.models import LM
+
+    cfg = lm_config(name)
+    g = torch.Generator(dev).manual_seed(seed)
+    t0 = time.perf_counter()
+    lm = LM(cfg, device=dev, generator=g)
+    sync(dev)
+    init_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in lm.parameters())
+    param_bytes = sum(p.numel() * p.element_size() for p in lm.parameters())
+    log(f"[lm] {cfg.name} ({cfg.family}): {cfg.n_layers} layers"
+        + (f" + {cfg.n_encoder_layers} encoder layers" if cfg.n_encoder_layers else "")
+        + f", d_model {cfg.d_model}, vocab {cfg.vocab_size}, {cfg.dtype}: {n_params:,} parameters, "
+        f"{param_bytes / 1e9:.2f} GB, drawn on {dev} in {init_s:.2f} s")
+    return lm, g, {"arch": cfg.name, "params": n_params, "param_bytes": param_bytes, "init_s": init_s}
+
+
+def serve_batch(dev, label: str, lm, batch: dict, steps: int, s_max: int | None = None):
+    """Prefill `batch`, then `steps` greedy exact-KV steps. Returns the
+    measures (prefill ms and tokens/s, step stats, cache bytes, memory),
+    the caches after the steps, the next tokens and the step logits."""
+    import torch
+
+    from repro_torch.models.transformer import attention_caches
+
+    B, S = batch["tokens"].shape
+    V = lm.cfg.vocab_size
+    free_device(dev)
+    t0 = time.perf_counter()
+    logits, caches = lm.prefill(batch, s_max=s_max)
+    sync(dev)
+    prefill_ms = (time.perf_counter() - t0) * 1e3
+    finite(f"{label} prefill logits", logits, (B, 1, V))
+    tok = logits[:, 0].argmax(dim=-1, keepdim=True).to(torch.int32)
+    dl, fed, ms, caches = decode_run(lm, caches, tok, steps, dev)
+    finite(f"{label} decode logits", dl, (steps, B, V))
+    kv = attention_caches(lm.cfg, caches)
+    if kv is not None and not bool((kv.index == S + steps).all()):
+        raise AssertionError(f"{label} cache fill {kv.index.tolist()} != {S + steps}")
+    stats = {"requests": B, "prompt_tokens": S, "decode_steps": steps, "prefill_ms": prefill_ms,
+             "prefill_tokens_per_s": B * S / (prefill_ms / 1e3), **step_stats(ms, B),
+             "cache_bytes": cache_bytes(caches), "cache_bytes_per_request": cache_bytes(caches) / B,
+             "memory": device_mem(dev)}
+    return stats, caches, dl[-1].argmax(dim=-1, keepdim=True).to(torch.int32), fed
+
+
+def log_serve(label: str, st: dict, card: str, extra: str = "") -> None:
+    log(f"[lm] {label}: {st['requests']} x {st['prompt_tokens']} tokens prefilled in "
+        f"{st['prefill_ms']:.1f} ms ({st['prefill_tokens_per_s']:.0f} tokens/s){extra}; exact decode "
+        f"{st['ms_per_step']:.2f} ms a step (median of steps 2-{st['decode_steps']}; first "
+        f"{st['step_ms'][0]:.2f}), {st['tokens_per_s']:.1f} tokens/s; idle "
+        + ("not measured" if st.get("idle_share") is None else f"{100 * st['idle_share']:.1f}%")
+        + f"; cache {st['cache_bytes'] / 1e6:.1f} MB ({st['cache_bytes_per_request'] / 1e6:.1f} MB a "
+        f"request); peak device memory {(st['memory'] or {}).get('peak_bytes', 0) / 1e9:.2f} GB [{card}]")
+
+
+def ssm_serve(dev, card: str) -> dict:
+    """7e: mamba2-2.7b at full width and depth in bf16. LM_REQUESTS prompts
+    of LM_PROMPT random tokens, then LM_DECODE greedy steps; one prompt of
+    LM_LONG tokens, then LM_LONG_DECODE steps. The SSM's decode state is
+    (conv window, state) a layer whatever the context: the same bytes a
+    request at both lengths."""
+    import torch
+
+    lm, g, out = model_on_card(dev, SSM_ARCH, SEED + 3)
+    V = lm.cfg.vocab_size
+    for key, B, S, steps in (("serve", LM_REQUESTS, LM_PROMPT, LM_DECODE),
+                             ("long", 1, LM_LONG, LM_LONG_DECODE)):
+        tokens = torch.randint(0, V, (B, S), generator=g, device=dev)
+        st, caches, tok, _ = serve_batch(dev, f"7e {key}", lm, {"tokens": tokens}, steps)
+        profile_step(dev, f"7e {key} decode step", lm, caches, tok, st)
+        if key == "serve" and torch.device(dev).type == "cuda":
+            # Where the SSD prefill's device time goes (the scan, the conv, the
+            # products), and its idle share.
+            prof = device_profile(f"7e prefill {B} x {S}", lambda: lm.prefill({"tokens": tokens}),
+                                  st["prefill_ms"])
+            st["prefill_device_busy_ms"] = None if prof is None else prof["busy_ms"]
+            st["prefill_device_events"] = None if prof is None else prof["device_events"]
+        log_serve(f"7e {lm.cfg.name} {key}", st, card)
+        out[key] = st
+        del caches
+    per = {k: out[k]["cache_bytes_per_request"] for k in ("serve", "long")}
+    if per["serve"] != per["long"]:
+        raise AssertionError(f"7e: the SSM cache grew with the context: {per}")
+    out["cache_bytes_per_request"] = per["serve"]
+    return out
+
+
+def hybrid_serve(dev, card: str) -> dict:
+    """7f: zamba2-2.7b at full width and depth in bf16 (the shared attention
+    block after every `hybrid_attn_every` SSM layers). LM_REQUESTS prompts
+    of LM_PROMPT random tokens, LM_DECODE greedy exact-KV steps; then from
+    that state LM_LONG_DECODE steps twice: exact, and BANG-KV with
+    codebooks fitted on each shared-block cache, fed the exact path's
+    tokens."""
+    import torch
+
+    from repro_torch.models.attention import KVCache
+    from repro_torch.models.retrieval_attention import fit_bangkv_caches
+    from repro_torch.models.transformer import clone_caches
+
+    lm, g, out = model_on_card(dev, HYBRID_ARCH, SEED + 4)
+    cfg = lm.cfg
+    B, S, V = LM_REQUESTS, LM_PROMPT, cfg.vocab_size
+    tokens = torch.randint(0, V, (B, S), generator=g, device=dev)
+    s_max = S + LM_DECODE + LM_LONG_DECODE + 1
+    st, exact, tok, _ = serve_batch(dev, "7f", lm, {"tokens": tokens}, LM_DECODE, s_max=s_max)
+    fill = S + LM_DECODE
+    t0 = time.perf_counter()
+    kv = exact[1]
+    own = KVCache(kv.k.clone(), kv.v.clone(), kv.index.clone())
+    codebooks, bang_kv = fit_bangkv_caches(own, fill, cfg.bangkv_m, iters=LM_FIT_ITERS)
+    lm.set_codebooks(codebooks)
+    bang = (clone_caches(exact[0]), bang_kv)
+    sync(dev)
+    fit_s = time.perf_counter() - t0
+    le, fed, ms_e, exact = decode_run(lm, exact, tok, LM_LONG_DECODE, dev)
+    lb, _, ms_b, bang = decode_run(lm, bang, tok, LM_LONG_DECODE, dev, bangkv=True, forced=fed)
+    finite("7f exact logits", le, (LM_LONG_DECODE, B, V))
+    finite("7f BANG-KV logits", lb, (LM_LONG_DECODE, B, V))
+    for name, c in (("exact", exact), ("BANG-KV", bang)):
+        if not bool((c[1].index == fill + LM_LONG_DECODE).all()):
+            raise AssertionError(f"7f {name} cache fill {c[1].index.tolist()}")
+    ex_stats, bang_stats = step_stats(ms_e, B), step_stats(ms_b, B)
+    tok = le[-1].argmax(dim=-1, keepdim=True).to(torch.int32)
+    profile_step(dev, "7f exact-KV decode step", lm, exact, tok, ex_stats)
+    profile_step(dev, "7f BANG-KV decode step", lm, bang, tok, bang_stats, bangkv=True)
+    st["idle_share"] = ex_stats["idle_share"]
+    corr = [float(torch.corrcoef(torch.stack([a.double().flatten(), b.double().flatten()]))[0, 1])
+            for a, b in zip(le, lb)]
+    agree = (le.argmax(-1) == lb.argmax(-1)).float().mean(-1).tolist()   # share of requests a step
+    n_groups = cfg.n_layers // cfg.hybrid_attn_every
+    log_serve(f"7f {cfg.name}", st, card, f"; {n_groups} shared-block calls a token")
+    for s in range(LM_LONG_DECODE):
+        log(f"[lm] 7f step {s:2d}: exact {ms_e[s]:8.2f} ms  BANG-KV {ms_b[s]:8.2f} ms  "
+            f"logit corr {corr[s]:.4f}  argmax agreement {agree[s]:.2f} of {B} requests")
+    log(f"[lm] 7f: codebooks fitted ({LM_FIT_ITERS} iterations) and keys encoded on the {n_groups} "
+        f"shared-block caches of {fill} keys in {fit_s:.2f} s; decode ms a step (median of steps "
+        f"2-{LM_LONG_DECODE}): exact {ex_stats['ms_per_step']:.2f}, BANG-KV "
+        f"{bang_stats['ms_per_step']:.2f}; idle exact "
+        + ("not measured" if ex_stats["idle_share"] is None else
+           f"{100 * ex_stats['idle_share']:.1f}%, BANG-KV {100 * bang_stats['idle_share']:.1f}%")
+        + f" [{card}]")
+    out.update(serve=st, n_groups=n_groups, fit_encode_s=fit_s, fit_iters=LM_FIT_ITERS,
+               exact_decode=ex_stats, bangkv_decode=bang_stats, logit_corr=corr, argmax_agree=agree,
+               bangkv={"m": cfg.bangkv_m, "top_l": cfg.bangkv_topl, "window": cfg.bangkv_window})
+    return out
+
+
+def encdec_serve(dev, card: str) -> dict:
+    """7g: whisper-medium at full width and depth in bf16. LM_REQUESTS
+    requests of `frontend_len` seeded frame embeddings (the stub front end)
+    and ENCDEC_PROMPT-token prompts: the encoder timed alone, then the
+    prefill (encoder, cross K and V, decoder), then LM_DECODE greedy
+    exact-KV steps."""
+    import torch
+
+    lm, g, out = model_on_card(dev, ENCDEC_ARCH, SEED + 5)
+    cfg = lm.cfg
+    B, S = LM_REQUESTS, ENCDEC_PROMPT
+    frames = torch.randn((B, cfg.frontend_len, cfg.d_model), generator=g, device=dev)
+    tokens = torch.randint(0, cfg.vocab_size, (B, S), generator=g, device=dev)
+    lm.encode(frames)   # the first call's set-up is not the encoder's time
+    sync(dev)
+    t0 = time.perf_counter()
+    ck, cv = lm.encode(frames)
+    sync(dev)
+    encoder_ms = (time.perf_counter() - t0) * 1e3
+    finite("7g cross K", ck, (cfg.n_layers, B, cfg.frontend_len, cfg.n_kv_heads, cfg.head_dim))
+    del ck, cv
+    st, caches, tok, _ = serve_batch(dev, "7g", lm, {"tokens": tokens, "frontend": frames},
+                                     LM_DECODE, s_max=S + LM_DECODE + 1)
+    profile_step(dev, "7g exact-KV decode step", lm, caches, tok, st)
+    st["encoder_ms"] = encoder_ms
+    log_serve(f"7g {cfg.name}", st, card,
+              f" (the encoder over {B} x {cfg.frontend_len} frames alone {encoder_ms:.1f} ms)")
+    out["serve"] = st
+    return out
+
+
 def lm_consistency(dev, name: str, **overrides) -> dict:
     """7c: decode(prefill(x[:S-1])) against prefill(x[:S])'s last logits at
-    the architecture's full width, LM_CUT_LAYERS layers, float32, with the
-    reference test's tolerance (rtol = atol = 2e-2); and the same with
-    BANG-KV, its top-L covering the whole history outside a 4-key window,
-    so that stages 1-3 must give exact attention whatever the codes."""
+    the architecture's full width, LM_CUT_LAYERS layers (or `overrides`),
+    float32, with the reference test's tolerance (rtol = atol = 2e-2); and,
+    where the family has attention, the same with BANG-KV, its top-L
+    covering the whole history outside a 4-key window, so that stages 1-3
+    must give exact attention whatever the codes."""
     import dataclasses
 
     import torch
 
     from repro_torch.models import LM
-    from repro_torch.models import retrieval_attention as bkv
-    from repro_torch.models.transformer import decoder_stack
+    from repro_torch.models.transformer import attention_caches, clone_caches, decoder_stack
 
-    cfg = lm_config(name, n_layers=LM_CUT_LAYERS, dtype="float32", **overrides)
+    cfg = lm_config(name, **{"n_layers": LM_CUT_LAYERS, "dtype": "float32", **overrides})
     g = torch.Generator(dev).manual_seed(SEED + 1)
     lm = LM(cfg, device=dev, generator=g)
     S = LM_CHECK_TOKENS
     tokens = torch.randint(0, cfg.vocab_size, (2, S), generator=g, device=dev)
-    full, _ = lm.prefill({"tokens": tokens})
-    _, caches = lm.prefill({"tokens": tokens[:, :-1]}, s_max=S)
-    cover = LM(dataclasses.replace(cfg, bangkv_topl=S, bangkv_window=4), lm.params)
-    codes = torch.zeros((*caches.k.shape[:4], cfg.bangkv_m), dtype=torch.uint8, device=dev)
-    for layer in range(cfg.n_layers):
-        codes[layer] = bkv.encode_keys(lm.params["bangkv_codebooks"][layer], caches.k[layer])
-    bang = bkv.BangKVCache(codes, caches.k.clone(), caches.v.clone(), caches.index.clone())
-    dec, _ = lm.decode_step(caches, tokens[:, -1:])
-    dec_b, _ = cover.decode_step(bang, tokens[:, -1:], bangkv=True)
-    diff, diff_b = float((dec - full).abs().max()), float((dec_b - full).abs().max())
-    for what, got, d in (("decode", dec, diff), ("BANG-KV decode (covering top-L)", dec_b, diff_b)):
+    batch = {}
+    if cfg.arch_kind == "encdec":
+        batch["frontend"] = torch.randn((2, cfg.frontend_len, cfg.d_model), generator=g, device=dev)
+    full, _ = lm.prefill({**batch, "tokens": tokens})
+    _, caches = lm.prefill({**batch, "tokens": tokens[:, :-1]}, s_max=S)
+    checks = [("decode", lm.decode_step(clone_caches(caches), tokens[:, -1:])[0])]
+    if attention_caches(cfg, caches) is not None:
+        cover = LM(dataclasses.replace(cfg, bangkv_topl=S, bangkv_window=4), lm.params)
+        checks.append(("BANG-KV decode (covering top-L)",
+                       cover.decode_step(encoded(lm, caches), tokens[:, -1:], bangkv=True)[0]))
+    diffs = []
+    for what, got in checks:
+        diffs.append(float((got - full).abs().max()))
         if not torch.allclose(got, full, rtol=2e-2, atol=2e-2):
-            raise AssertionError(f"7c {cfg.name}: {what} and prefill logits differ by {d}")
-    out = {"arch": cfg.name, "layers": cfg.n_layers, "d_model": cfg.d_model, "dtype": cfg.dtype,
+            raise AssertionError(f"7c {cfg.name}: {what} and prefill logits differ by {diffs[-1]}")
+    diff, diff_b = diffs[0], (diffs[1] if len(diffs) > 1 else None)
+    out = {"arch": cfg.name, "family": cfg.family, "layers": cfg.n_layers,
+           "encoder_layers": cfg.n_encoder_layers, "d_model": cfg.d_model, "dtype": cfg.dtype,
            "max_abs_diff": diff, "bangkv_cover_max_abs_diff": diff_b,
            "max_abs_logit": float(full.abs().max())}
     if cfg.n_experts:
@@ -2224,20 +2480,50 @@ def lm_consistency(dev, name: str, **overrides) -> dict:
         out["capacity_factor"] = cfg.capacity_factor
         out["dropped_frac_default_capacity"] = float(aux.dropped_frac) / base.n_layers
         out["default_capacity_factor"] = base.capacity_factor
-    log(f"[lm] 7c {cfg.name} ({cfg.n_layers} layers, d_model {cfg.d_model}, f32): decode against "
-        f"prefill max |diff| {diff:.3g}, BANG-KV (top-L {S}, window 4) {diff_b:.3g} "
-        f"(bound 2e-2 + 2e-2 |x|)"
+    log(f"[lm] 7c {cfg.name} ({cfg.n_layers} layers"
+        + (f" + {cfg.n_encoder_layers} encoder layers" if cfg.n_encoder_layers else "")
+        + f", d_model {cfg.d_model}, f32): decode against prefill max |diff| {diff:.3g}"
+        + ("" if diff_b is None else f", BANG-KV (top-L {S}, window 4) {diff_b:.3g}")
+        + f" (bound 2e-2 + 2e-2 |x|; logits up to {out['max_abs_logit']:.3g})"
         + (f"; dropped_frac at capacity {out['default_capacity_factor']}: "
            f"{out['dropped_frac_default_capacity']:.4f}" if cfg.n_experts else ""))
     return out
 
 
-def lm_card_vs_cpu(dev) -> dict:
-    """7d: glm4-9b reduced, float32, one set of parameters on the card and
-    on the CPU: prefill, LM_CPU_STEPS exact and BANG-KV steps (random
+def map_caches(fn, caches):
+    """`fn` applied to every tensor of a (nested) cache tuple."""
+    if hasattr(caches, "_fields"):
+        return type(caches)(*(fn(t) for t in caches))
+    if isinstance(caches, tuple):
+        return tuple(map_caches(fn, c) for c in caches)
+    return fn(caches)
+
+
+def bf16_ulps(a, b) -> tuple[int, float]:
+    """Entries of two tensors of bf16 values that differ, and the largest
+    difference in bf16 ulps (at the larger magnitude)."""
+    import torch
+
+    a, b = a.float(), b.float()
+    diff = (a - b).abs()
+    mag = torch.maximum(a.abs(), b.abs()).clamp_min(torch.finfo(torch.bfloat16).tiny)
+    ulp = torch.exp2(torch.floor(torch.log2(mag)) - 7)
+    return int((diff > 0).sum()), float((diff / ulp).max()) if diff.numel() else 0.0
+
+
+def lm_card_vs_cpu(dev, name: str) -> dict:
+    """7d: `name` reduced, float32, one set of parameters on the card and on
+    the CPU: the prefill's logits and caches, then LM_CPU_STEPS exact steps
+    and, where the family has attention, LM_CPU_STEPS BANG-KV steps (random
     codebooks, the prompt's keys encoded), logits within rtol 1e-4, atol
-    1e-5; and one BANG-KV stage on each device's final caches, the
-    retrieved positions compared."""
+    1e-5; and one BANG-KV stage on each device's final caches (the first
+    attention stack), the retrieved positions compared.
+
+    An SSM's prefill rounds its conv window through bf16 (as the
+    reference's), so an entry an ulp from a rounding boundary on one device
+    can round the other way on the other: the window is held to within one
+    bf16 ulp an entry, and the card decodes twice, from the CPU's prefill
+    state (held to 1e-4, 1e-5) and from its own (held to 7c's 2e-2)."""
     import copy
 
     import torch
@@ -2245,43 +2531,89 @@ def lm_card_vs_cpu(dev) -> dict:
     import repro_torch.configs as configs
     from repro_torch.models import LM, init_params
     from repro_torch.models import retrieval_attention as bkv
+    from repro_torch.models.transformer import attention_caches
 
-    cfg = configs.get(LM_ARCH).reduced(dtype="float32")
+    cfg = configs.get(name).reduced(dtype="float32")
     params = init_params(cfg, torch.Generator().manual_seed(SEED + 2), "cpu")
     rng = np.random.default_rng(SEED + 2)
     B, S, n = 2, 24, LM_CPU_STEPS
     tokens = rng.integers(0, cfg.vocab_size, (B, S + 2 * n)).astype(np.int32)
+    frames = rng.standard_normal((B, cfg.frontend_len, cfg.d_model)).astype(np.float32)
     q = rng.standard_normal((B, 1, cfg.n_heads, cfg.head_dim)).astype(np.float32)
+    has_attn = "bangkv_codebooks" in params
+    has_ssm = cfg.family in ("ssm", "hybrid")
     res = {}
     for where, d in (("cpu", torch.device("cpu")), ("card", torch.device(dev))):
         lm = LM(cfg, copy.deepcopy(params).to(d))
         t = torch.from_numpy(tokens).to(d)
-        logits, exact = lm.prefill({"tokens": t[:, :S]}, s_max=S + n)
-        cb = lm.params["bangkv_codebooks"]
-        codes = torch.zeros((*exact.k.shape[:4], cfg.bangkv_m), dtype=torch.uint8, device=d)
-        for layer in range(cfg.n_layers):
-            codes[layer, :, :S] = bkv.encode_keys(cb[layer], exact.k[layer, :, :S])
-        bang = bkv.BangKVCache(codes, exact.k.clone(), exact.v.clone(), exact.index.clone())
+        batch = {"tokens": t[:, :S]}
+        if cfg.arch_kind == "encdec":
+            batch["frontend"] = torch.from_numpy(frames).to(d)
+        logits, own = lm.prefill(batch, s_max=S + n)
+        starts = {"own": own}
+        if where == "card" and has_ssm:
+            starts["cpu_state"] = map_caches(lambda x: x.to(d, copy=True), res["cpu"]["prefill_caches"])
+        res[where] = {"prefill": logits.cpu(), "prefill_caches": map_caches(lambda x: x.cpu().clone(), own)}
         forced = t[:, S:].T.reshape(2 * n, B, 1)
-        le, _, _, exact = decode_run(lm, exact, None, n, d, forced=forced[:n])
-        lb, _, _, bang = decode_run(lm, bang, None, n, d, bangkv=True, forced=forced[n:])
-        _, top = bkv.bangkv_decode_attention(
-            cb[0], torch.from_numpy(q).to(d), type(bang)(*(x[0] for x in bang)),
-            top_l=cfg.bangkv_topl, window=cfg.bangkv_window, return_top_idx=True)
-        res[where] = [x.cpu() for x in (logits, le, lb, top)]
+        for key, state in starts.items():
+            bang = encoded(lm, state) if has_attn else None
+            le, _, _, _ = decode_run(lm, state, None, n, d, forced=forced[:n])
+            res[where][f"{key}_exact_decode"] = le.cpu()
+            if has_attn:
+                lb, _, _, bang = decode_run(lm, bang, None, n, d, bangkv=True, forced=forced[n:])
+                res[where][f"{key}_bangkv_decode"] = lb.cpu()
+                if key == "own":
+                    kv = attention_caches(cfg, bang)
+                    _, top = bkv.bangkv_decode_attention(
+                        lm.params["bangkv_codebooks"][0], torch.from_numpy(q).to(d),
+                        type(kv)(*(x[0] for x in kv)), top_l=cfg.bangkv_topl,
+                        window=cfg.bangkv_window, return_top_idx=True)
+                    res[where]["top"] = top.cpu()
+    cpu, card = res["cpu"], res["card"]
     out = {"arch": cfg.name}
-    for i, what in enumerate(("prefill", "exact_decode", "bangkv_decode")):
-        a, b = res["cpu"][i], res["card"][i]
+
+    def hold(what, a, b, rtol, atol):
         out[f"{what}_max_abs_diff"] = float((a - b).abs().max())
-        if not torch.allclose(b, a, rtol=1e-4, atol=1e-5):
-            raise AssertionError(f"7d {what}: card and CPU logits differ by {out[f'{what}_max_abs_diff']}")
-    ta, tb = res["cpu"][3], res["card"][3]
-    same = [len(set(x.tolist()) & set(y.tolist())) for x, y in zip(ta.flatten(0, 1), tb.flatten(0, 1))]
-    out["top_l_overlap"] = sum(same) / (len(same) * cfg.bangkv_topl)
+        if not torch.allclose(b, a, rtol=rtol, atol=atol):
+            raise AssertionError(f"7d {cfg.name} {what}: card and CPU differ by {out[f'{what}_max_abs_diff']}")
+
+    hold("prefill", cpu["prefill"], card["prefill"], 1e-4, 1e-5)
+    kinds = ("exact_decode", "bangkv_decode") if has_attn else ("exact_decode",)
+    for kind in kinds:
+        if has_ssm:
+            # The card from the CPU's state; and from its own, at 7c's bound.
+            hold(kind, cpu[f"own_{kind}"], card[f"cpu_state_{kind}"], 1e-4, 1e-5)
+            hold(f"own_state_{kind}", cpu[f"own_{kind}"], card[f"own_{kind}"], 2e-2, 2e-2)
+        else:
+            hold(kind, cpu[f"own_{kind}"], card[f"own_{kind}"], 1e-4, 1e-5)
+    kv_a, kv_b = attention_caches(cfg, cpu["prefill_caches"]), attention_caches(cfg, card["prefill_caches"])
+    if kv_a is not None:
+        hold("prefill_k", kv_a.k, kv_b.k, 1e-4, 1e-5)
+        hold("prefill_v", kv_a.v, kv_b.v, 1e-4, 1e-5)
+    if has_ssm:
+        ssm_of = lambda c: c if cfg.family == "ssm" else c[0]  # noqa: E731
+        a, b = ssm_of(cpu["prefill_caches"]), ssm_of(card["prefill_caches"])
+        hold("prefill_ssm_state", a.state, b.state, 1e-4, 1e-5)
+        differ, worst = bf16_ulps(a.conv, b.conv)
+        out.update(prefill_conv_entries=a.conv.numel(), prefill_conv_entries_differing=differ,
+                   prefill_conv_max_bf16_ulps=worst)
+        if worst > 1.0:
+            raise AssertionError(f"7d {cfg.name}: the conv windows differ by {worst} bf16 ulps")
+    if has_attn:
+        ta, tb = cpu["top"], card["top"]
+        same = [len(set(x.tolist()) & set(y.tolist())) for x, y in zip(ta.flatten(0, 1), tb.flatten(0, 1))]
+        out["top_l_overlap"] = sum(same) / (len(same) * cfg.bangkv_topl)
     log(f"[lm] 7d {cfg.name} f32: card against CPU, max |logit diff| prefill "
-        f"{out['prefill_max_abs_diff']:.3g}, exact decode {out['exact_decode_max_abs_diff']:.3g}, "
-        f"BANG-KV decode {out['bangkv_decode_max_abs_diff']:.3g} (bound 1e-5 + 1e-4 |x|); "
-        f"BANG-KV top-L overlap {out['top_l_overlap']:.4f}")
+        f"{out['prefill_max_abs_diff']:.3g}, exact decode {out['exact_decode_max_abs_diff']:.3g}"
+        + (f", BANG-KV decode {out['bangkv_decode_max_abs_diff']:.3g}" if has_attn else "")
+        + " (bound 1e-5 + 1e-4 |x|)"
+        + ("; from the card's own prefill state: exact "
+           f"{out['own_state_exact_decode_max_abs_diff']:.3g}"
+           + (f", BANG-KV {out['own_state_bangkv_decode_max_abs_diff']:.3g}" if has_attn else "")
+           + f" (bound 2e-2), its conv window {out['prefill_conv_entries_differing']} of "
+           f"{out['prefill_conv_entries']} entries rounded the other way to bf16 (at most "
+           f"{out['prefill_conv_max_bf16_ulps']:.2f} ulp)" if has_ssm else "")
+        + (f"; BANG-KV top-L overlap {out['top_l_overlap']:.4f}" if has_attn else ""))
     return out
 
 
@@ -2294,11 +2626,14 @@ def lm_phase(dev, card: str) -> dict:
     with exact KV and with BANG-KV: the largest power of two up to 32,768
     that keeps phase 7 within about 120 s, which the whole phase met on the
     H100 (its prefill dominates: float32 scores, as the reference's, at 2.1
-    GB a 512-query chunk); 7c checks prefill-decode consistency at full
-    width in float32 for glm4-9b and phi3.5-moe, each cut to LM_CUT_LAYERS
-    layers; 7d holds the card against the CPU on the reduced glm4-9b. No
-    port kernel lies on this path: the launch counts, set to 0 before 7a,
-    are read after 7d and must all be 0."""
+    GB a 512-query chunk); 7e, 7f and 7g serve mamba2-2.7b, zamba2-2.7b and
+    whisper-medium at full width and depth in bf16; 7c checks
+    prefill-decode consistency at full width in float32 for glm4-9b,
+    phi3.5-moe and mamba2 cut to LM_CUT_LAYERS layers, zamba2 to
+    HYBRID_CUT_LAYERS (two groups) and whisper to LM_CUT_LAYERS + LM_CUT_LAYERS;
+    7d holds the card against the CPU on the reduced glm4-9b, mamba2,
+    zamba2 and whisper. No port kernel lies on this path: the launch
+    counts, set to 0 before 7a, are read after 7d and must all be 0."""
     t0 = time.perf_counter()
     mem = free_device(dev)
     if mem is not None:
@@ -2306,11 +2641,21 @@ def lm_phase(dev, card: str) -> dict:
             f"{mem['reserved_bytes'] / 1e9:.2f} GB reserved")
     reset_launches()
     out = lm_serve(dev, card)
+    for key, fn in (("ssm", ssm_serve), ("hybrid", hybrid_serve), ("encdec", encdec_serve)):
+        free_device(dev)
+        t1 = time.perf_counter()
+        out[key] = fn(dev, card)
+        out[key]["phase_s"] = time.perf_counter() - t1
+        log(f"[lm] {out[key]['arch']}: {out[key]['phase_s']:.1f} s")
     free_device(dev)
     out["consistency"] = [lm_consistency(dev, LM_ARCH),
-                          lm_consistency(dev, LM_MOE_ARCH, capacity_factor=16.0)]
+                          lm_consistency(dev, LM_MOE_ARCH, capacity_factor=16.0),
+                          lm_consistency(dev, SSM_ARCH),
+                          lm_consistency(dev, HYBRID_ARCH, n_layers=HYBRID_CUT_LAYERS),
+                          lm_consistency(dev, ENCDEC_ARCH, n_encoder_layers=LM_CUT_LAYERS)]
     free_device(dev)
-    out["card_vs_cpu"] = lm_card_vs_cpu(dev)
+    out["card_vs_cpu"] = [lm_card_vs_cpu(dev, name)
+                          for name in (LM_ARCH, SSM_ARCH, HYBRID_ARCH, ENCDEC_ARCH)]
     launches = read_launches()
     if any(launches.values()):
         raise AssertionError(f"the LM path launched port kernels: {launches}")

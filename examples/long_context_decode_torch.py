@@ -9,8 +9,15 @@ counterpart of `examples/long_context_decode.py`; by default the same
 reduced glm4-9b, so the two print comparable lines (their random weights
 and tokens differ: JAX keys against a `torch.Generator`).
 
+`--arch zamba2-2.7b` retrieves from the caches of the hybrid's shared
+attention block (one a group of SSM layers), `--arch whisper-medium` from
+the decoder's self-attention caches (its encoder runs over random frame
+embeddings, the stub front end); `--arch mamba2-2.7b` is attention-free, so
+there is no KV cache to retrieve from: the script says so and exits 2.
+
     PYTHONPATH=src python examples/long_context_decode_torch.py                # on the card
     PYTHONPATH=src python examples/long_context_decode_torch.py --device cpu --context 192
+    PYTHONPATH=src python examples/long_context_decode_torch.py --device cpu --arch zamba2-2.7b
 """
 from __future__ import annotations
 
@@ -27,6 +34,8 @@ from repro_torch.kernels.common import resolve_device  # noqa: E402
 from repro_torch.models import LM  # noqa: E402
 from repro_torch.models.attention import KVCache  # noqa: E402
 from repro_torch.models.retrieval_attention import fit_bangkv_caches  # noqa: E402
+from repro_torch.models.transformer import (  # noqa: E402
+    attention_caches, clone_caches, with_attention_caches)
 
 
 def logit_corr(a: torch.Tensor, b: torch.Tensor) -> float:
@@ -43,7 +52,12 @@ def main(argv: list[str] | None = None) -> dict:
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
 
-    cfg = configs.get(args.arch).reduced(
+    cfg = configs.get(args.arch)
+    if cfg.family == "ssm":
+        print(f"[bangkv] {cfg.name} is attention-free (Mamba2 layers only): its decode state is a "
+              "fixed-size SSM state, with no KV cache for BANG-KV to retrieve from", file=sys.stderr)
+        raise SystemExit(2)
+    cfg = cfg.reduced(
         d_model=128, n_heads=8, n_kv_heads=2, head_dim=32,
         d_ff=256, vocab_size=512, bangkv_m=8, bangkv_topl=32, bangkv_window=32,
     )
@@ -52,17 +66,25 @@ def main(argv: list[str] | None = None) -> dict:
     lm = LM(cfg, device=dev, generator=g)
     B, S = 1, args.context
     tokens = torch.randint(0, cfg.vocab_size, (B, S), generator=g, device=dev)
+    batch = {"tokens": tokens}
+    if cfg.arch_kind == "encdec":
+        batch["frontend"] = torch.randn((B, cfg.frontend_len, cfg.d_model), generator=g, device=dev)
+        print(f"[bangkv] encoder over {cfg.frontend_len} stub frame embeddings ...")
 
     print(f"[bangkv] prefill {S} tokens ...")
     s_max = S + args.decode_steps
-    _, exact_caches = lm.prefill({"tokens": tokens}, s_max=s_max)
+    _, exact_caches = lm.prefill(batch, s_max=s_max)
 
-    # BANG-KV caches: fit codebooks per layer on the prefill keys (stage 0),
-    # encode the prefill keys, then decode through the compressed path. The
-    # decode writes into its caches in place, so BANG-KV gets its own K/V.
-    print("[bangkv] fitting per-layer PQ codebooks on prefill keys ...")
-    own = KVCache(exact_caches.k.clone(), exact_caches.v.clone(), exact_caches.index.clone())
-    codebooks, bang_caches = fit_bangkv_caches(own, S, cfg.bangkv_m, iters=12)
+    # BANG-KV caches: fit codebooks per attention cache on the prefill keys
+    # (stage 0), encode the prefill keys, then decode through the compressed
+    # path. The decode writes into its caches in place, so BANG-KV gets its
+    # own copy of the state.
+    state = clone_caches(exact_caches)
+    kv = attention_caches(cfg, state)
+    print(f"[bangkv] fitting PQ codebooks on the prefill keys of {kv.k.shape[0]} attention caches ...")
+    own = KVCache(kv.k, kv.v, kv.index)
+    codebooks, bang_kv = fit_bangkv_caches(own, int(kv.index[0]), cfg.bangkv_m, iters=12)
+    bang_caches = with_attention_caches(cfg, state, bang_kv)
     lm.set_codebooks(codebooks)
 
     tok = tokens[:, -1:]
@@ -85,7 +107,8 @@ def main(argv: list[str] | None = None) -> dict:
         f"= {cfg.bangkv_m}B vs exact {2 * cfg.head_dim}B "
         f"({2 * cfg.head_dim / cfg.bangkv_m:.0f}x smaller in-loop reads)"
     )
-    return {"corr": corrs, "agree": agree, "steps": args.decode_steps, "device": str(dev)}
+    return {"corr": corrs, "agree": agree, "steps": args.decode_steps, "device": str(dev),
+            "arch": cfg.name}
 
 
 if __name__ == "__main__":

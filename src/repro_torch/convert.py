@@ -22,12 +22,14 @@ reference index was built with `keep_device_data=False`).
 The LM's state crosses the same way: `lm_params_from_reference` takes the
 reference's parameter pytree (`LM(cfg).init(key)`, leaves as numpy arrays,
 the layers stacked on a leading L axis) and returns the port's parameter
-tree for `repro_torch.models.LM(cfg, params)`; `kv_caches_from_reference`
-and `bangkv_caches_from_reference` carry decode caches across, so both
-packages can decode from one state::
+tree for `repro_torch.models.LM(cfg, params)`; `kv_caches_from_reference`,
+`bangkv_caches_from_reference` and `ssm_caches_from_reference` carry decode
+caches across, and `lm_caches_from_reference` any family's (hybrid's and
+whisper's tuples too), so both packages can decode from one state::
 
     params = lm_params_from_reference(jax.tree.map(np.asarray, ref_params), cfg)
     lm = LM(cfg, params)
+    caches = lm_caches_from_reference(jax.tree.map(np.asarray, ref_caches), cfg)
 """
 from __future__ import annotations
 
@@ -40,6 +42,7 @@ from .kernels.common import resolve_device
 from .models.attention import KVCache
 from .models.layers import ParamTree
 from .models.retrieval_attention import BangKVCache
+from .models.ssm import SSMCache, conv_cache_dtype
 from .models.transformer import check_family
 
 KEYS = ("codebooks", "codes", "adjacency", "medoid", "data")
@@ -77,20 +80,31 @@ def _tree(tree, fn):
     return {k: _tree(v, fn) if isinstance(v, dict) else fn(v) for k, v in tree.items()}
 
 
+def _split_layers(tree: dict, n: int, dev: torch.device) -> list:
+    """A stacked (n, ...) subtree as n subtrees, one a layer."""
+    return [_tree(tree, lambda a, i=i: _tensor(np.asarray(a)[i], dev)) for i in range(n)]
+
+
 def lm_params_from_reference(params: dict, cfg: ModelConfig, *,
                              device: str | torch.device = "cuda") -> ParamTree:
     """The reference's LM parameters on the port's modules: the stacked
     (L, ...) `layers` leaves (attention, norms, the FFN or the MoE `router`,
-    `w_*` and `shared` weights) split into one subtree a layer, the
-    embedding, head, final norm and the (L, Hkv, m, 256, dsub)
-    `bangkv_codebooks` as they are."""
+    `w_*` and `shared` weights, the SSM's, whisper's `cross_*`) split into
+    one subtree a layer, and so whisper's `encoder.layers`; the embedding,
+    head, final norms, zamba2's unstacked `shared_attn` and the (n, Hkv, m,
+    256, dsub) `bangkv_codebooks` as they are."""
     check_family(cfg)
     dev = resolve_device(device)
-    out = {k: _tensor(params[k], dev) for k in ("embed", "lm_head", "bangkv_codebooks")
-           if k in params}
-    out["final_norm"] = _tree(params["final_norm"], lambda a: _tensor(a, dev))
-    out["layers"] = [_tree(params["layers"], lambda a, i=i: _tensor(np.asarray(a)[i], dev))
-                     for i in range(cfg.n_layers)]
+    leaf = lambda a: _tensor(a, dev)  # noqa: E731
+    out = {k: leaf(params[k]) for k in ("embed", "lm_head", "bangkv_codebooks") if k in params}
+    out["final_norm"] = _tree(params["final_norm"], leaf)
+    out["layers"] = _split_layers(params["layers"], cfg.n_layers, dev)
+    if "shared_attn" in params:
+        out["shared_attn"] = _tree(params["shared_attn"], leaf)
+    if "encoder" in params:
+        enc = params["encoder"]
+        out["encoder"] = {"layers": _split_layers(enc["layers"], cfg.n_encoder_layers, dev),
+                          "final_norm": _tree(enc["final_norm"], leaf)}
     return ParamTree(out)
 
 
@@ -107,3 +121,38 @@ def bangkv_caches_from_reference(caches, *, device: str | torch.device = "cuda")
     dev = resolve_device(device)
     return BangKVCache(_tensor(np.asarray(caches.codes, np.uint8), dev), _tensor(caches.k, dev),
                        _tensor(caches.v, dev), _tensor(np.asarray(caches.index, np.int32), dev))
+
+
+def ssm_caches_from_reference(caches, *, dtype=torch.bfloat16,
+                              device: str | torch.device = "cuda") -> SSMCache:
+    """A reference `SSMCache` stack (conv (L, B, K-1, conv_ch), state (L, B,
+    H, P, N) float32) for a model of `dtype`: the conv window in
+    `conv_cache_dtype(dtype)`, which holds the reference's values exactly
+    (its prefill window is bf16, its decode window the promoted dtype)."""
+    dev = resolve_device(device)
+    return SSMCache(_tensor(caches.conv, dev).to(conv_cache_dtype(dtype)),
+                    _tensor(np.asarray(caches.state, np.float32), dev))
+
+
+def lm_caches_from_reference(caches, cfg: ModelConfig, *, device: str | torch.device = "cuda"):
+    """Any family's reference decode caches, in the layout `LM.prefill`
+    returns: a `KVCache` or `BangKVCache` stack, mamba2's `SSMCache`,
+    zamba2's `(SSMCache, KVCache | BangKVCache)`, whisper's `(self caches,
+    (cross_k, cross_v))`."""
+    check_family(cfg)
+
+    def attn(c):
+        if hasattr(c, "codes"):
+            return bangkv_caches_from_reference(c, device=device)
+        return kv_caches_from_reference(c, device=device)
+
+    dtype = getattr(torch, cfg.dtype)
+    if cfg.family == "ssm":
+        return ssm_caches_from_reference(caches, dtype=dtype, device=device)
+    if cfg.family == "hybrid":
+        return (ssm_caches_from_reference(caches[0], dtype=dtype, device=device), attn(caches[1]))
+    if cfg.arch_kind == "encdec":
+        dev = resolve_device(device)
+        self_c, (ck, cv) = caches
+        return (attn(self_c), (_tensor(ck, dev), _tensor(cv, dev)))
+    return attn(caches)

@@ -1,8 +1,8 @@
-"""GQA attention: prefill (chunked causal) and decode (KV cache).
+"""GQA attention: prefill (chunked causal), decode (KV cache), and whisper's
+encoder and cross-attention.
 
-The port of the reference package's `models/attention.py`, for the causal
-and decode cases. Full (S, S) score matrices are never materialised:
-prefill runs a flash-style loop over query chunks -- scores exist only as
+The port of the reference package's `models/attention.py`. Full (S, S)
+causal score matrices are never materialised: prefill runs a flash-style loop over query chunks -- scores exist only as
 (B, Hkv, G, chunk, S) blocks -- and sliding-window layers apply a band mask
 inside the same loop. Scores and probabilities are float32, as the
 reference's `preferred_element_type=jnp.float32`; with `bf16_scores` the
@@ -12,8 +12,9 @@ is exact in float32), so the sums stay float32 as the reference's do.
 Decode attends one query token against the cache. The cache is updated in
 place: the new key and value are written at the device index
 `cache.index` (no host sync), and the returned cache shares the storage.
-The non-causal (encoder) branch and `cross_attention` belong to the encdec
-family and wait for it (ROADMAP A8).
+Whisper's encoder attends bidirectionally (no mask) and its decoder's
+`cross_attention` attends to the encoder memory: both one float32 softmax
+over every key (`full_attention`), as the reference's einsums.
 """
 from __future__ import annotations
 
@@ -123,6 +124,31 @@ def decode_attention(
     return out.reshape(B, 1, H, hd).to(q.dtype)
 
 
+def full_attention(
+    q: torch.Tensor,        # (B, S, H, hd)
+    k: torch.Tensor,        # (B, M, Hkv, hd)
+    v: torch.Tensor,        # (B, M, Hkv, hd)
+) -> torch.Tensor:
+    """Unmasked attention of every query to every key, in float32: the
+    reference's "bskgd,bmkd->bksgm" scores, softmax, and weighted sum of V.
+    Returns (B, S, H, hd) in q's dtype."""
+    B, S, H, hd = q.shape
+    Hkv = k.shape[2]
+    G = H // Hkv
+    scale = hd ** -0.5
+    qg = q.float().reshape(B, S, Hkv, G, hd).permute(0, 2, 1, 3, 4).reshape(B, Hkv, S * G, hd)
+    scores = (qg @ k.float().permute(0, 2, 3, 1)) * scale            # (B, Hkv, S*G, M)
+    probs = torch.softmax(scores, dim=-1)
+    out = probs @ v.float().permute(0, 2, 1, 3)                      # (B, Hkv, S*G, hd)
+    return out.reshape(B, Hkv, S, G, hd).permute(0, 2, 1, 3, 4).reshape(B, S, H, hd).to(q.dtype)
+
+
+def cross_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """Whisper's decoder into the encoder memory: q (B, S, H, hd), with no
+    RoPE, against k, v (B, M, Hkv, hd)."""
+    return full_attention(q, k, v)
+
+
 def write_at_index(buf: torch.Tensor, val: torch.Tensor, index: torch.Tensor) -> None:
     """buf[:, index] = val in place, at a device index (no host sync): the
     counterpart of the reference's `dynamic_update_slice_in_dim(..., axis=1)`.
@@ -145,7 +171,8 @@ def attention_block(
     bf16_scores: bool = False,
     window_skip: bool = False,
 ) -> tuple[torch.Tensor, KVCache | tuple | None]:
-    """Full attention sublayer. cache=None -> prefill; else decode.
+    """Full attention sublayer. cache=None -> prefill (causal, or the
+    encoder's bidirectional attention with `causal=False`); else decode.
 
     Prefill returns the roped (k, v) for the caller to assemble the decode
     cache; decode writes the new key and value into `cache` in place and
@@ -156,18 +183,18 @@ def attention_block(
     q, k, v = _qkv(p, x, n_heads, n_kv_heads, head_dim)
 
     if cache is None:
-        if not causal:
-            raise NotImplementedError(
-                "bidirectional (encoder) attention belongs to the encdec family: ROADMAP A8")
         pos = torch.arange(S, dtype=torch.int32, device=x.device)[None, :]
         q = apply_rope(q, pos, rope_theta)
         k = apply_rope(k, pos, rope_theta)
-        c = min(attn_chunk, S)
-        band = None
-        if window_skip and isinstance(window, int) and window + c < S:
-            band = min(S, -(-(window + c) // c) * c)   # round up to chunks
-        out = chunked_causal_attention(q, k, v, chunk=c, window=window,
-                                       bf16_scores=bf16_scores, band=band)
+        if causal:
+            c = min(attn_chunk, S)
+            band = None
+            if window_skip and isinstance(window, int) and window + c < S:
+                band = min(S, -(-(window + c) // c) * c)   # round up to chunks
+            out = chunked_causal_attention(q, k, v, chunk=c, window=window,
+                                           bf16_scores=bf16_scores, band=band)
+        else:   # encoder: full bidirectional (no mask)
+            out = full_attention(q, k, v)
         new_cache = (k, v)   # roped k -- prefill assembles the decode cache
     else:
         pos = cache.index.reshape(1, 1).expand(B, 1)   # query position

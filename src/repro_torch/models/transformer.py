@@ -1,22 +1,27 @@
-"""The LM's serve path: the decoder families assembled from the layers.
+"""The LM's serve path: every architecture family assembled from the layers.
 
-The port of the reference package's `models/transformer.py` for the
-families that share its `_dense_layer` and decoder stack -- dense, moe and
-vlm: `init_params`, the per-layer flags, `_dense_layer`, `decoder_stack`
-and `LM` with `prefill`, `decode_step` (exact KV or BANG-KV) and
-`init_decode_caches`. The stack is one Python loop over the layers, the
+The port of the reference package's `models/transformer.py`: `init_params`,
+the per-layer flags, `_dense_layer` (with whisper's cross-attention),
+`_ssm_layer`, the stacks -- the decoders (dense, moe, vlm), the Mamba2 stack
+(ssm), zamba2's SSM groups with one weight-shared attention block after
+each (hybrid), whisper's encoder and its decoder with cross-attention
+(encdec) -- and `LM` with `prefill`, `decode_step` (exact KV or BANG-KV) and
+`init_decode_caches`. Each stack is one Python loop over the layers, the
 counterpart of both the reference's `lax.scan` and its unrolled stack; the
 per-layer window and RoPE base are Python numbers (`static_layer_flags`).
 
 Caches keep the reference's stacked layout -- K and V (L, B, S, Hkv, hd),
-BANG-KV codes (L, B, S, Hkv, m) uint8, `index` (L,) int32 -- so carrying one
+BANG-KV codes (L, B, S, Hkv, m) uint8, `index` (L,) int32, the SSM's conv
+window (L, B, K-1, conv_ch) and state (L, B, H, P, N); hybrid's
+`(SSMCache, KVCache | BangKVCache (n_groups, ...))`, encdec's
+`(self caches, (cross_k, cross_v) (L, B, M, Hkv, hd))` -- so carrying one
 across is a copy. A decode step writes the new entries into the caches in
 place at the device index (no host sync per layer or step) and returns
 caches that share their storage, with `index + 1`.
 
-Waiting for later slices (ROADMAP A8): the ssm and hybrid families
-(mamba2, zamba2), encdec (whisper: the encoder, cross-attention), and
-training (`LM.loss`, `unembed_chunked`). `LM(cfg)` for those raises.
+Waiting for a later slice (ROADMAP A8d): training (`LM.loss`,
+`unembed_chunked`); `decoder_stack` refuses every mode but prefill and
+decode.
 """
 from __future__ import annotations
 
@@ -28,28 +33,24 @@ from torch import nn
 from ..configs.base import ModelConfig
 from ..kernels.common import resolve_device
 from . import retrieval_attention as bkv
-from .attention import KVCache, attention_block, attn_params
+from .attention import KVCache, attention_block, attn_params, cross_attention
 from .ffn import ffn_params, swiglu
 from .layers import ParamTree, embed, norm, norm_params, truncated_normal_init
 from .moe import MoEAux, moe_block, moe_params
+from .ssm import SSMCache, ssm_block, ssm_cache_init, ssm_params
 
-DECODER_FAMILIES = ("dense", "moe", "vlm")
+SERVE_FAMILIES = ("dense", "moe", "vlm", "audio", "ssm", "hybrid")
 
 
 def check_family(cfg: ModelConfig) -> None:
-    """Raise for an architecture this slice does not serve."""
-    if cfg.family in ("ssm", "hybrid"):
+    """Raise for an architecture that no serve path of the port supports."""
+    if cfg.family not in SERVE_FAMILIES or cfg.arch_kind not in ("decoder", "encdec"):
         raise NotImplementedError(
-            f"{cfg.name}: the {cfg.family} family (Mamba2 layers, models/ssm.py) is not "
-            "ported yet: ROADMAP A8, ssm and hybrid")
-    if cfg.arch_kind == "encdec" or cfg.family not in DECODER_FAMILIES:
-        raise NotImplementedError(
-            f"{cfg.name}: the encoder-decoder family (the encoder, cross-attention) is not "
-            "ported yet: ROADMAP A8, encdec")
+            f"{cfg.name}: family {cfg.family!r} ({cfg.arch_kind}) has no serve path")
 
 
 def _pick_chunk(S: int, target: int) -> int:
-    """Largest divisor of S that is <= target (chunked attention tiling)."""
+    """Largest divisor of S that is <= target (chunked attention and SSD tiling)."""
     c = min(target, S)
     while S % c:
         c -= 1
@@ -59,6 +60,10 @@ def _pick_chunk(S: int, target: int) -> int:
 def _zero_aux(device) -> MoEAux:
     z = torch.zeros((), dtype=torch.float32, device=device)
     return MoEAux(z, z, z)
+
+
+def _add_aux(a: MoEAux, b: MoEAux) -> MoEAux:
+    return MoEAux(*(x + y for x, y in zip(a, b)))
 
 
 # ---------------------------------------------------------------------------
@@ -79,29 +84,64 @@ def _dense_layer_params(cfg: ModelConfig, g: torch.Generator, dtype) -> dict:
     return p
 
 
+def _ssm_layer_params(cfg: ModelConfig, g: torch.Generator, dtype) -> dict:
+    return {
+        "norm": norm_params(cfg.d_model, cfg.norm_kind, g.device),
+        "ssm": ssm_params(g, cfg.d_model, expand=cfg.ssm_expand, state=cfg.ssm_state,
+                          conv=cfg.ssm_conv, head_dim=cfg.ssm_head_dim, groups=cfg.ssm_groups,
+                          dtype=dtype),
+    }
+
+
+def _encdec_decoder_layer_params(cfg: ModelConfig, g: torch.Generator, dtype) -> dict:
+    p = _dense_layer_params(cfg, g, dtype)
+    p["cross_norm"] = norm_params(cfg.d_model, cfg.norm_kind, g.device)
+    p["cross"] = attn_params(g, cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, dtype)
+    return p
+
+
+def _codebooks(cfg: ModelConfig, g: torch.Generator, n: int) -> torch.Tensor:
+    return torch.stack([bkv.bangkv_codebook_params(g, cfg.n_kv_heads, cfg.head_dim, cfg.bangkv_m)
+                        for _ in range(n)])
+
+
 def init_params(cfg: ModelConfig, generator: torch.Generator | None = None,
                 device: str | torch.device = "cuda") -> ParamTree:
     """Random parameters, drawn on `device` from `generator` (a generator on
     that device; seed 0 when None): nothing passes through host memory, so
     glm4-9b's 18.8 GB of bf16 are made on the card. The tree has the
-    reference's names, with the stacked layer axis as a list of layers."""
+    reference's names, with each stacked layer axis as a list of layers:
+    `layers` (and whisper's `encoder.layers`), zamba2's one `shared_attn`
+    block, and BANG-KV codebooks for every attention cache (none for
+    mamba2)."""
     check_family(cfg)
     dev = resolve_device(device)
     g = torch.Generator(dev).manual_seed(0) if generator is None else generator
     if g.device.type != dev.type:
         raise ValueError(f"generator on {g.device}, parameters asked on {dev}")
     dtype = getattr(torch, cfg.dtype)
+    L = cfg.n_layers
     params: dict[str, Any] = {
         "embed": truncated_normal_init((cfg.vocab_size, cfg.d_model), g, dtype=dtype),
         "final_norm": norm_params(cfg.d_model, cfg.norm_kind, dev),
     }
     if not cfg.tie_embeddings:
         params["lm_head"] = truncated_normal_init((cfg.d_model, cfg.vocab_size), g, dtype=dtype)
-    params["layers"] = [_dense_layer_params(cfg, g, dtype) for _ in range(cfg.n_layers)]
-    params["bangkv_codebooks"] = torch.stack([
-        bkv.bangkv_codebook_params(g, cfg.n_kv_heads, cfg.head_dim, cfg.bangkv_m)
-        for _ in range(cfg.n_layers)
-    ])
+    if cfg.family in ("ssm", "hybrid"):
+        params["layers"] = [_ssm_layer_params(cfg, g, dtype) for _ in range(L)]
+        if cfg.family == "hybrid":
+            params["shared_attn"] = _dense_layer_params(cfg, g, dtype)
+            params["bangkv_codebooks"] = _codebooks(cfg, g, L // cfg.hybrid_attn_every)
+    elif cfg.arch_kind == "encdec":
+        params["layers"] = [_encdec_decoder_layer_params(cfg, g, dtype) for _ in range(L)]
+        params["encoder"] = {
+            "layers": [_dense_layer_params(cfg, g, dtype) for _ in range(cfg.n_encoder_layers)],
+            "final_norm": norm_params(cfg.d_model, cfg.norm_kind, dev),
+        }
+        params["bangkv_codebooks"] = _codebooks(cfg, g, L)
+    else:
+        params["layers"] = [_dense_layer_params(cfg, g, dtype) for _ in range(L)]
+        params["bangkv_codebooks"] = _codebooks(cfg, g, L)
     return ParamTree(params)
 
 
@@ -131,11 +171,13 @@ def static_layer_flags(cfg: ModelConfig, s_ref: int) -> tuple[list, list]:
 
 
 # ---------------------------------------------------------------------------
-# Layer body and stack
+# Layer bodies
 # ---------------------------------------------------------------------------
 
-def _dense_layer(cfg: ModelConfig, p, h, window, theta, cache, mode: str, codebooks=None):
-    """One dense/moe decoder layer. Returns (h, new_cache, aux)."""
+def _dense_layer(cfg: ModelConfig, p, h, window, theta, cache, mode: str, codebooks=None,
+                 cross_mem=None):
+    """One dense/moe decoder layer (whisper's with its cross-attention into
+    `cross_mem` = (k, v) (B, M, Hkv, hd)). Returns (h, new_cache, aux)."""
     aux = _zero_aux(h.device)
     x = norm(h, p["attn_norm"], cfg.norm_kind, cfg.norm_eps)
     if mode == "decode_bangkv":
@@ -155,6 +197,13 @@ def _dense_layer(cfg: ModelConfig, p, h, window, theta, cache, mode: str, codebo
         )
     h = h + y
 
+    if cross_mem is not None:   # whisper's decoder: no RoPE on the cross query
+        x = norm(h, p["cross_norm"], cfg.norm_kind, cfg.norm_eps)
+        B, S, _ = x.shape
+        q = (x @ p["cross"]["wq"]).reshape(B, S, cfg.n_heads, cfg.head_dim)
+        y = cross_attention(q, *cross_mem)
+        h = h + y.reshape(B, S, -1) @ p["cross"]["wo"]
+
     x = norm(h, p["ffn_norm"], cfg.norm_kind, cfg.norm_eps)
     if cfg.n_experts:
         y, aux = moe_block(
@@ -166,43 +215,196 @@ def _dense_layer(cfg: ModelConfig, p, h, window, theta, cache, mode: str, codebo
     return h + y, new_cache, aux
 
 
+def _ssm_layer(cfg: ModelConfig, p, h, cache, mode: str):
+    """One Mamba2 layer. Returns (h, cache): prefill's new cache, or the
+    decode step's `cache`, updated in place."""
+    x = norm(h, p["norm"], cfg.norm_kind, cfg.norm_eps)
+    y, new_cache = ssm_block(
+        p["ssm"], x,
+        expand=cfg.ssm_expand, state=cfg.ssm_state, conv=cfg.ssm_conv,
+        head_dim=cfg.ssm_head_dim, groups=cfg.ssm_groups,
+        chunk=_pick_chunk(x.shape[1], cfg.ssm_chunk),
+        cache=cache if mode.startswith("decode") else None,
+        return_cache=(mode == "prefill"),
+    )
+    return h + y, new_cache
+
+
+# ---------------------------------------------------------------------------
+# Stacks
+# ---------------------------------------------------------------------------
+
+def _layer(caches, i: int):
+    """Layer i's view of a stacked cache (a NamedTuple of (L, ...) tensors)."""
+    return type(caches)(*(t[i] for t in caches))
+
+
+def _kv_buffers(n: int, B: int, s_max: int, S: int, cfg: ModelConfig, like: torch.Tensor):
+    if s_max < S:
+        raise ValueError(f"s_max {s_max} is shorter than the {S} prefilled positions")
+    shape = (n, B, s_max, cfg.n_kv_heads, cfg.head_dim)
+    return (torch.zeros(shape, dtype=like.dtype, device=like.device),
+            torch.zeros(shape, dtype=like.dtype, device=like.device))
+
+
+def _ssm_layers(cfg: ModelConfig, layers, h, mode: str, caches: SSMCache | None,
+                out: SSMCache | None, lo: int, hi: int):
+    """SSM layers lo..hi-1: decode updates `caches` in place; prefill writes
+    each layer's new cache into the stacked `out`."""
+    for i in range(lo, hi):
+        h, c_i = _ssm_layer(cfg, layers[i], h, _layer(caches, i) if caches is not None else None,
+                            mode)
+        if out is not None:
+            out.conv[i], out.state[i] = c_i
+    return h
+
+
+def _ssm_prefill_buffers(cfg: ModelConfig, h: torch.Tensor) -> SSMCache:
+    return ssm_cache_init(h.shape[0], expand=cfg.ssm_expand, d_model=cfg.d_model,
+                          state=cfg.ssm_state, conv=cfg.ssm_conv, head_dim=cfg.ssm_head_dim,
+                          groups=cfg.ssm_groups, dtype=h.dtype, device=h.device,
+                          layers=cfg.n_layers)
+
+
+def _hybrid_stack(cfg: ModelConfig, params, h, *, mode: str, caches, s_max: int | None):
+    """Zamba2: groups of `hybrid_attn_every` Mamba2 layers, each followed by
+    the one shared attention block (the same weights, a cache of its own
+    per call, window s_ref + 1, the config's RoPE base).
+
+    caches = (SSM caches (L, ...), attention caches (n_groups, ...))."""
+    every = cfg.hybrid_attn_every
+    n_groups = cfg.n_layers // every
+    decode = mode != "prefill"
+    B, S, _ = h.shape
+    aux = _zero_aux(h.device)
+    if decode:
+        ssm_c, attn_c = caches
+        s_ref, ssm_out = attn_c.k.shape[2], None
+    else:
+        ssm_c, attn_c, s_ref = None, None, S
+        ssm_out = _ssm_prefill_buffers(cfg, h)
+        k_all, v_all = _kv_buffers(n_groups, B, S if s_max is None else s_max, S, cfg, h)
+    for g in range(n_groups):
+        h = _ssm_layers(cfg, params["layers"], h, mode, ssm_c, ssm_out, g * every, (g + 1) * every)
+        cb = params["bangkv_codebooks"][g] if mode == "decode_bangkv" else None
+        h, a_new, aux_g = _dense_layer(cfg, params["shared_attn"], h, s_ref + 1, cfg.rope_theta,
+                                       _layer(attn_c, g) if decode else None, mode, codebooks=cb)
+        aux = _add_aux(aux, aux_g)
+        if not decode:
+            k_all[g, :, :S], v_all[g, :, :S] = a_new
+    if decode:
+        return h, aux, (ssm_c, attn_c._replace(index=attn_c.index + 1))
+    index = torch.full((n_groups,), S, dtype=torch.int32, device=h.device)
+    return h, aux, (ssm_out, KVCache(k_all, v_all, index))
+
+
 def decoder_stack(cfg: ModelConfig, params, h: torch.Tensor, *, mode: str, caches=None,
-                  s_max: int | None = None):
+                  s_max: int | None = None, cross_mem=None):
     """Run the decoder layers. Returns (h, aux summed over layers, caches).
 
-    mode "prefill": caches are made here, (L, B, s_max or S, Hkv, hd) with
-    the prompt's roped K and V in the first S slots and index S.
-    "decode" / "decode_bangkv": `caches` (a `KVCache` / `BangKVCache`
-    stack) are updated in place."""
+    mode "prefill": caches are made here -- attention caches (L, B, s_max or
+    S, Hkv, hd) with the prompt's roped K and V in the first S slots and
+    index S, SSM caches with the prompt's conv window and final state.
+    "decode" / "decode_bangkv": `caches` are updated in place. Whisper's
+    decoder takes `cross_mem` = (cross_k, cross_v) (L, B, M, Hkv, hd)."""
     check_family(cfg)
     if mode not in ("prefill", "decode", "decode_bangkv"):
-        raise NotImplementedError(f"mode {mode!r}: training waits for a later slice (ROADMAP A8)")
-    B, S, _ = h.shape
+        raise NotImplementedError(f"mode {mode!r}: training waits for a later slice (ROADMAP A8d)")
     decode = mode != "prefill"
+    if cfg.family == "ssm":
+        out = None if decode else _ssm_prefill_buffers(cfg, h)
+        h = _ssm_layers(cfg, params["layers"], h, mode, caches if decode else None, out,
+                        0, cfg.n_layers)
+        return h, _zero_aux(h.device), caches if decode else out
+    if cfg.family == "hybrid":
+        return _hybrid_stack(cfg, params, h, mode=mode, caches=caches, s_max=s_max)
+
+    B, S, _ = h.shape
     s_ref = caches.k.shape[2] if decode else S
     wins, thetas = static_layer_flags(cfg, s_ref)
     aux = _zero_aux(h.device)
     if not decode:
-        s_max = S if s_max is None else s_max
-        if s_max < S:
-            raise ValueError(f"s_max {s_max} is shorter than the {S} prefilled positions")
-        shape = (cfg.n_layers, B, s_max, cfg.n_kv_heads, cfg.head_dim)
-        k_all = torch.zeros(shape, dtype=h.dtype, device=h.device)
-        v_all = torch.zeros(shape, dtype=h.dtype, device=h.device)
+        k_all, v_all = _kv_buffers(cfg.n_layers, B, S if s_max is None else s_max, S, cfg, h)
     for i in range(cfg.n_layers):
-        cache_i = type(caches)(*(t[i] for t in caches)) if decode else None
         cb_i = params["bangkv_codebooks"][i] if mode == "decode_bangkv" else None
-        h, c_i, aux_i = _dense_layer(cfg, params["layers"][i], h, wins[i], thetas[i], cache_i,
-                                     mode, codebooks=cb_i)
-        aux = MoEAux(*(a + b for a, b in zip(aux, aux_i)))
+        cm_i = (cross_mem[0][i], cross_mem[1][i]) if cross_mem is not None else None
+        h, c_i, aux_i = _dense_layer(cfg, params["layers"][i], h, wins[i], thetas[i],
+                                     _layer(caches, i) if decode else None, mode,
+                                     codebooks=cb_i, cross_mem=cm_i)
+        aux = _add_aux(aux, aux_i)
         if not decode:
             k_all[i, :, :S], v_all[i, :, :S] = c_i
     if decode:
-        new_caches = caches._replace(index=caches.index + 1)
-    else:
-        new_caches = KVCache(k_all, v_all,
-                             torch.full((cfg.n_layers,), S, dtype=torch.int32, device=h.device))
-    return h, aux, new_caches
+        return h, aux, caches._replace(index=caches.index + 1)
+    index = torch.full((cfg.n_layers,), S, dtype=torch.int32, device=h.device)
+    return h, aux, KVCache(k_all, v_all, index)
+
+
+def encoder_stack(cfg: ModelConfig, params, mem: torch.Tensor) -> torch.Tensor:
+    """Whisper's encoder: bidirectional attention over the frame embeddings
+    (RoPE on q and k at positions 0..M-1), a SwiGLU FFN, the final norm."""
+    enc = params["encoder"]
+    S = mem.shape[1]
+    h = mem
+    for p in enc["layers"]:
+        z = norm(h, p["attn_norm"], cfg.norm_kind, cfg.norm_eps)
+        y, _ = attention_block(
+            p["attn"], z,
+            n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads, head_dim=cfg.head_dim,
+            rope_theta=cfg.rope_theta, attn_chunk=_pick_chunk(S, cfg.attn_chunk),
+            window=S + 1, causal=False,
+        )
+        h = h + y
+        z = norm(h, p["ffn_norm"], cfg.norm_kind, cfg.norm_eps)
+        h = h + swiglu(p["ffn"], z)
+    return norm(h, enc["final_norm"], cfg.norm_kind, cfg.norm_eps)
+
+
+def cross_kv(cfg: ModelConfig, params, memory: torch.Tensor):
+    """Each decoder layer's cross-attention K and V of the encoder memory:
+    two (L, B, M, Hkv, hd) stacks."""
+    B, M, _ = memory.shape
+    shape = (B, M, cfg.n_kv_heads, cfg.head_dim)
+    ks = torch.stack([(memory @ p["cross"]["wk"]).reshape(shape) for p in params["layers"]])
+    vs = torch.stack([(memory @ p["cross"]["wv"]).reshape(shape) for p in params["layers"]])
+    return ks, vs
+
+
+# ---------------------------------------------------------------------------
+# Decode state
+# ---------------------------------------------------------------------------
+
+def attention_caches(cfg: ModelConfig, caches):
+    """The attention stack of a decode state, the one BANG-KV retrieves
+    from: a decoder's caches, zamba2's shared-block caches (one a group),
+    whisper's self-attention caches; None for mamba2."""
+    if cfg.family == "ssm":
+        return None
+    if cfg.family == "hybrid":
+        return caches[1]
+    if cfg.arch_kind == "encdec":
+        return caches[0]
+    return caches
+
+
+def with_attention_caches(cfg: ModelConfig, caches, kv):
+    """The decode state `caches` with `kv` in place of its attention stack."""
+    if cfg.family == "hybrid":
+        return (caches[0], kv)
+    if cfg.arch_kind == "encdec":
+        return (kv, caches[1])
+    return kv
+
+
+def clone_caches(caches):
+    """A copy of the decode state that a decode step writes in place, to
+    decode two paths from one prefill (whisper's cross K and V are only
+    read, and stay shared)."""
+    if hasattr(caches, "_fields"):
+        return type(caches)(*(t.clone() for t in caches))
+    if isinstance(caches[0], torch.Tensor):
+        return caches
+    return tuple(clone_caches(c) for c in caches)
 
 
 # ---------------------------------------------------------------------------
@@ -210,7 +412,7 @@ def decoder_stack(cfg: ModelConfig, params, h: torch.Tensor, *, mode: str, cache
 # ---------------------------------------------------------------------------
 
 class LM(nn.Module):
-    """One decoder architecture's parameters and its serve path.
+    """One architecture's parameters and its serve path.
 
     `LM(cfg)` draws random parameters on the card (`device="cuda"`, which
     raises where there is none); the tests pass `device="cpu"`, or
@@ -234,8 +436,11 @@ class LM(nn.Module):
 
     @torch.no_grad()
     def set_codebooks(self, codebooks: torch.Tensor) -> None:
-        """Replace the (L, Hkv, m, 256, hd/m) BANG-KV codebooks (fitted on
-        prefill keys: `retrieval_attention.fit_bangkv_caches`)."""
+        """Replace the (n, Hkv, m, 256, hd/m) BANG-KV codebooks, one set an
+        attention cache (fitted on prefill keys:
+        `retrieval_attention.fit_bangkv_caches`)."""
+        if "bangkv_codebooks" not in self.params:
+            raise ValueError(f"{self.cfg.name} has no attention: no BANG-KV codebooks")
         self.params["bangkv_codebooks"].copy_(codebooks)
 
     # ---------------------------------------------------------------- embed
@@ -252,15 +457,30 @@ class LM(nn.Module):
         head = p["embed"].T if self.cfg.tie_embeddings else p["lm_head"]   # (D, V)
         return h.float() @ head.float()
 
+    def encode(self, frontend: torch.Tensor):
+        """Whisper: the encoder over (B, M, D) frame embeddings, then every
+        decoder layer's cross K and V (L, B, M, Hkv, hd)."""
+        memory = encoder_stack(self.cfg, self.params, frontend.to(self.dtype))
+        return cross_kv(self.cfg, self.params, memory)
+
     # --------------------------------------------------------------- prefill
     @torch.no_grad()
     def prefill(self, batch: dict, *, s_max: int | None = None):
         """Forward the prompt; return last-position logits (B, 1, V) and the
-        decode caches, sized for `s_max` positions, a vlm's frontend
-        included (the prompt's length when None, as the reference's)."""
+        decode caches, their attention caches sized for `s_max` positions,
+        a vlm's frontend included (the prompt's length when None, as the
+        reference's). Whisper encodes `batch["frontend"]` first and returns
+        `(self caches, (cross_k, cross_v))`."""
         cfg = self.cfg
-        h = self._embed_inputs(batch["tokens"], batch.get("frontend"))
-        h, _, caches = decoder_stack(cfg, self.params, h, mode="prefill", s_max=s_max)
+        if cfg.arch_kind == "encdec":
+            cm = self.encode(batch["frontend"])
+            h = embed(batch["tokens"].long(), self.params["embed"])
+            h, _, self_caches = decoder_stack(cfg, self.params, h, mode="prefill", s_max=s_max,
+                                              cross_mem=cm)
+            caches = (self_caches, cm)
+        else:
+            h = self._embed_inputs(batch["tokens"], batch.get("frontend"))
+            h, _, caches = decoder_stack(cfg, self.params, h, mode="prefill", s_max=s_max)
         h = norm(h, self.params["final_norm"], cfg.norm_kind, cfg.norm_eps)
         return self._logits_head(h[:, -1:]), caches
 
@@ -268,25 +488,53 @@ class LM(nn.Module):
     @torch.no_grad()
     def decode_step(self, caches, tokens: torch.Tensor, *, bangkv: bool = False):
         """One decode step. tokens (B, 1). Returns (logits (B, 1, V), caches):
-        the caches are updated in place and returned with index + 1."""
+        the caches are updated in place and returned with index + 1. An SSM
+        layer has no KV: `bangkv` changes only the attention layers."""
         cfg = self.cfg
         mode = "decode_bangkv" if bangkv else "decode"
         h = embed(tokens.long(), self.params["embed"])
-        h, _, new_caches = decoder_stack(cfg, self.params, h, mode=mode, caches=caches)
+        if cfg.arch_kind == "encdec":
+            self_caches, cross = caches
+            h, _, new_self = decoder_stack(cfg, self.params, h, mode=mode, caches=self_caches,
+                                           cross_mem=cross)
+            new_caches = (new_self, cross)
+        else:
+            h, _, new_caches = decoder_stack(cfg, self.params, h, mode=mode, caches=caches)
         h = norm(h, self.params["final_norm"], cfg.norm_kind, cfg.norm_eps)
         return self._logits_head(h), new_caches
 
     # ----------------------------------------------------------- cache init
-    def init_decode_caches(self, batch: int, s_max: int, *, bangkv: bool = False, fill: int = 0):
-        """Zero caches at fill level `fill`, on the model's device."""
+    def init_decode_caches(self, batch: int, s_max: int, *, bangkv: bool = False, fill: int = 0,
+                           memory_len: int = 0):
+        """Zero caches at fill level `fill`, on the model's device, in the
+        layout `prefill` returns (whisper's cross K and V `memory_len` long,
+        the config's `frontend_len` when 0)."""
         cfg, dev = self.cfg, self.device
         L = cfg.n_layers
-        kv_shape = (L, batch, s_max, cfg.n_kv_heads, cfg.head_dim)
-        k = torch.zeros(kv_shape, dtype=self.dtype, device=dev)
-        v = torch.zeros(kv_shape, dtype=self.dtype, device=dev)
-        index = torch.full((L,), fill, dtype=torch.int32, device=dev)
-        if not bangkv:
-            return KVCache(k, v, index)
-        codes = torch.zeros((L, batch, s_max, cfg.n_kv_heads, cfg.bangkv_m), dtype=torch.uint8,
-                            device=dev)
-        return bkv.BangKVCache(codes, k, v, index)
+
+        def attn(n: int):
+            shape = (n, batch, s_max, cfg.n_kv_heads, cfg.head_dim)
+            k = torch.zeros(shape, dtype=self.dtype, device=dev)
+            v = torch.zeros(shape, dtype=self.dtype, device=dev)
+            index = torch.full((n,), fill, dtype=torch.int32, device=dev)
+            if not bangkv:
+                return KVCache(k, v, index)
+            codes = torch.zeros((*shape[:4], cfg.bangkv_m), dtype=torch.uint8, device=dev)
+            return bkv.BangKVCache(codes, k, v, index)
+
+        def ssm():
+            return ssm_cache_init(batch, expand=cfg.ssm_expand, d_model=cfg.d_model,
+                                  state=cfg.ssm_state, conv=cfg.ssm_conv,
+                                  head_dim=cfg.ssm_head_dim, groups=cfg.ssm_groups,
+                                  dtype=self.dtype, device=dev, layers=L)
+
+        if cfg.family == "ssm":
+            return ssm()
+        if cfg.family == "hybrid":
+            return (ssm(), attn(L // cfg.hybrid_attn_every))
+        if cfg.arch_kind == "encdec":
+            shape = (L, batch, memory_len or cfg.frontend_len, cfg.n_kv_heads, cfg.head_dim)
+            cross = (torch.zeros(shape, dtype=self.dtype, device=dev),
+                     torch.zeros(shape, dtype=self.dtype, device=dev))
+            return (attn(L), cross)
+        return attn(L)

@@ -293,15 +293,17 @@ def test_chip_smoke_hostio_phase_on_cpu(smoke, monkeypatch):
 
 def test_chip_smoke_lm_phase_on_cpu(smoke, monkeypatch):
     """Phase 7 at the reduced configs: 7a's batch prefilled and decoded,
-    7b's long request exact and BANG-KV from one state, 7c's prefill-decode
-    checks (glm4-9b and phi3.5-moe, and BANG-KV with a covering top-L),
-    7d's card-against-CPU check (CPU against CPU here), and no port kernel
-    launched."""
+    7b's long request exact and BANG-KV from one state, 7e-7g (mamba2,
+    zamba2 with its exact and BANG-KV steps from one state, whisper with
+    its encoder), 7c's prefill-decode checks (glm4-9b, phi3.5-moe, mamba2,
+    zamba2, whisper, and BANG-KV with a covering top-L where there is
+    attention), 7d's card-against-CPU check for four families (CPU against
+    CPU here), and no port kernel launched."""
     import repro_torch.configs as configs
 
     monkeypatch.setattr(smoke, "lm_config", lambda name, **kw: configs.get(name).reduced(**kw))
     for name, value in (("LM_PROMPT", 32), ("LM_DECODE", 4), ("LM_LONG", 64),
-                        ("LM_LONG_DECODE", 3), ("LM_FIT_ITERS", 3)):
+                        ("LM_LONG_DECODE", 3), ("LM_FIT_ITERS", 3), ("ENCDEC_PROMPT", 12)):
         monkeypatch.setattr(smoke, name, value)
     out = smoke.lm_phase(torch.device("cpu"), "cpu")
     assert out["arch"] == "glm4-9b-reduced" and out["params"] > 0 and out["param_bytes"] > 0
@@ -317,15 +319,75 @@ def test_chip_smoke_lm_phase_on_cpu(smoke, monkeypatch):
     assert len(long["logit_corr"]) == len(long["argmax_agree"]) == 3
     assert all(-1.0 <= c <= 1.0 for c in long["logit_corr"])
     assert long["scan_bytes_per_key"] == {"bangkv_codes": 4, "exact_k": 32}
-    dense, moe = out["consistency"]
+
+    ssm = out["ssm"]
+    assert ssm["arch"] == "mamba2-2.7b-reduced" and ssm["params"] > 0
+    assert ssm["serve"]["requests"] == 4 and ssm["long"]["prompt_tokens"] == 64
+    # conv window (bf16) and state (float32) of every layer: the same bytes
+    # a request at 32 and 64 tokens.
+    cfg = configs.get("mamba2-2.7b").reduced()
+    conv_ch = cfg.ssm_inner + 2 * cfg.ssm_groups * cfg.ssm_state
+    assert ssm["cache_bytes_per_request"] == cfg.n_layers * (
+        (cfg.ssm_conv - 1) * conv_ch * 2 + cfg.ssm_heads * cfg.ssm_head_dim * cfg.ssm_state * 4)
+    hyb = out["hybrid"]
+    assert hyb["arch"] == "zamba2-2.7b-reduced" and hyb["n_groups"] == 2
+    assert len(hyb["serve"]["step_ms"]) == 4 and len(hyb["logit_corr"]) == len(hyb["argmax_agree"]) == 3
+    assert all(-1.0 <= c <= 1.0 for c in hyb["logit_corr"])
+    assert all(0.0 <= a <= 1.0 for a in hyb["argmax_agree"])
+    enc = out["encdec"]
+    assert enc["arch"] == "whisper-medium-reduced" and enc["serve"]["prompt_tokens"] == 12
+    assert enc["serve"]["encoder_ms"] > 0 and len(enc["serve"]["step_ms"]) == 4
+    for st in (ssm["serve"], ssm["long"], hyb["serve"], enc["serve"]):
+        assert st["idle_share"] is None and st["prefill_tokens_per_s"] > 0 and st["memory"] is None
+
+    dense, moe, mamba, zamba, whisper = out["consistency"]
     assert dense["arch"] == "glm4-9b-reduced" and moe["arch"] == "phi3.5-moe-42b-a6.6b-reduced"
-    for c in (dense, moe):
+    for c in (dense, moe, whisper):
         assert c["layers"] == smoke.LM_CUT_LAYERS and c["dtype"] == "float32"
         assert c["max_abs_diff"] < 1e-5 and c["bangkv_cover_max_abs_diff"] < 1e-5
+    assert whisper["encoder_layers"] == smoke.LM_CUT_LAYERS
+    # The SSM's prefill window is rounded through bf16, as the reference's:
+    # within 7c's 2e-2 bound, not equal.
+    assert mamba["bangkv_cover_max_abs_diff"] is None and mamba["max_abs_diff"] < 2e-2
+    assert zamba["layers"] == smoke.HYBRID_CUT_LAYERS and zamba["max_abs_diff"] < 2e-2
+    assert zamba["bangkv_cover_max_abs_diff"] < 2e-2
     assert moe["capacity_factor"] == 16.0 and moe["default_capacity_factor"] == 1.25
     assert 0.0 < moe["dropped_frac_default_capacity"] < 1.0 and "dropped_frac_default_capacity" not in dense
-    cpu = out["card_vs_cpu"]
-    assert cpu["prefill_max_abs_diff"] == cpu["exact_decode_max_abs_diff"] == 0.0
-    assert cpu["bangkv_decode_max_abs_diff"] == 0.0 and cpu["top_l_overlap"] == 1.0
+    cpus = {c["arch"]: c for c in out["card_vs_cpu"]}
+    assert sorted(cpus) == ["glm4-9b-reduced", "mamba2-2.7b-reduced", "whisper-medium-reduced",
+                            "zamba2-2.7b-reduced"]
+    for name, cpu in cpus.items():
+        assert cpu["prefill_max_abs_diff"] == cpu["exact_decode_max_abs_diff"] == 0.0
+        if name != "mamba2-2.7b-reduced":
+            assert cpu["bangkv_decode_max_abs_diff"] == 0.0 and cpu["top_l_overlap"] == 1.0
+            assert cpu["prefill_k_max_abs_diff"] == cpu["prefill_v_max_abs_diff"] == 0.0
+        if name in ("mamba2-2.7b-reduced", "zamba2-2.7b-reduced"):
+            # The SSM families decode from both devices' prefill states.
+            assert cpu["own_state_exact_decode_max_abs_diff"] == 0.0
+            assert cpu["prefill_conv_entries_differing"] == 0 and cpu["prefill_conv_entries"] > 0
+            assert cpu["prefill_ssm_state_max_abs_diff"] == 0.0
+    assert "top_l_overlap" not in cpus["mamba2-2.7b-reduced"]
+    assert "own_state_exact_decode_max_abs_diff" not in cpus["glm4-9b-reduced"]
     assert out["kernel_launches"] == dict.fromkeys(smoke.kernel_counters(), 0)
     assert out["phase_s"] > 0 and out["memory_before"] is None
+
+
+def test_code_gaps_reports_each_differing_code(smoke):
+    """Phase 5b's C10 check: one line for each (row, subspace) whose codes
+    differ, with both centroids' float64 squared distances and the gap in
+    float32 ulps; none where the codes agree."""
+    import numpy as np
+
+    rng = np.random.default_rng(0)
+    cb = torch.from_numpy(rng.standard_normal((2, 256, 4)).astype(np.float32))
+    data = torch.from_numpy(rng.standard_normal((5, 8)).astype(np.float32))
+    codes = torch.from_numpy(rng.integers(0, 256, (5, 2)).astype(np.uint8))
+    assert smoke.code_gaps(cb, data, codes, codes.clone()) == []
+    other = codes.clone()
+    other[3, 1] = (int(codes[3, 1]) + 1) % 256
+    (gap,) = smoke.code_gaps(cb, data, codes, other)
+    x = data[3, 4:].double()
+    d2 = [float(((x - cb[1, int(c)].double()) ** 2).sum()) for c in (codes[3, 1], other[3, 1])]
+    assert (gap["row"], gap["subspace"]) == (3, 1) and gap["card_d2"] == d2[0] and gap["cpu_d2"] == d2[1]
+    assert gap["gap"] == abs(d2[0] - d2[1]) and gap["ulp_at_d2"] == float(np.spacing(np.float32(max(d2))))
+    assert gap["gap_in_ulps_of_terms"] == gap["gap"] / gap["ulp_at_terms"]

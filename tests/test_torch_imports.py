@@ -74,6 +74,9 @@ ELEVENTH_SLICE = {
     "repro_torch.models.retrieval_attention", "repro_torch.models.transformer",
 }
 
+# Modules of the twelfth slice: the Mamba2 / SSD blocks (ssm and hybrid).
+TWELFTH_SLICE = {"repro_torch.models.ssm"}
+
 
 def test_every_module_imports_without_jax_or_reference():
     env = dict(os.environ, PYTHONPATH=str(SRC))
@@ -83,7 +86,8 @@ def test_every_module_imports_without_jax_or_reference():
     )
     assert res.returncode == 0, res.stderr
     names = set(res.stdout.split())
-    slices = SECOND_SLICE | THIRD_SLICE | EIGHTH_SLICE | NINTH_SLICE | TENTH_SLICE | ELEVENTH_SLICE
+    slices = (SECOND_SLICE | THIRD_SLICE | EIGHTH_SLICE | NINTH_SLICE | TENTH_SLICE | ELEVENTH_SLICE
+              | TWELFTH_SLICE)
     assert len(names) >= 65 and slices <= names   # every module was walked
 
 
@@ -158,14 +162,16 @@ def test_mutable_index_and_autotune_follow_the_index_device():
     assert not mut.index.graph.adjacency.is_pinned()
 
 
-def test_lm_defaults_to_cuda():
+@pytest.mark.parametrize("name", ["glm4-9b", "mamba2-2.7b", "zamba2-2.7b", "whisper-medium"])
+def test_lm_defaults_to_cuda(name):
     """`LM(cfg)`, `init_params` and the BANG-KV cache draw on the card by
-    default: with no card they raise and never fall back to the CPU."""
+    default, every family: with no card they raise and never fall back to
+    the CPU."""
     import repro_torch.configs as configs
     from repro_torch.models import LM, init_params
     from repro_torch.models.retrieval_attention import bangkv_init
 
-    cfg = configs.get("glm4-9b").reduced(dtype="float32")
+    cfg = configs.get(name).reduced(dtype="float32")
     if torch.cuda.is_available():
         assert LM(cfg).device.type == "cuda"
     else:
@@ -174,4 +180,8 @@ def test_lm_defaults_to_cuda():
             with pytest.raises(RuntimeError, match="CUDA"):
                 make()
     lm = LM(cfg, device="cpu", generator=torch.Generator().manual_seed(0))
-    assert lm.device.type == "cpu" and lm.init_decode_caches(1, 8).k.device.type == "cpu"
+    caches, leaves = [lm.init_decode_caches(1, 8)], []
+    while caches:
+        c = caches.pop()
+        (caches if isinstance(c, tuple) else leaves).extend(c if isinstance(c, tuple) else [c])
+    assert lm.device.type == "cpu" and leaves and all(x.device.type == "cpu" for x in leaves)

@@ -31,27 +31,21 @@ from repro_torch.models import LM, init_params
 from repro_torch.models import attention, layers, moe
 from repro_torch.models.ffn import swiglu
 from repro_torch.models import retrieval_attention as bkv
-from repro_torch.models.transformer import layer_flags, static_layer_flags
+from repro_torch.models.transformer import (attention_caches, layer_flags, static_layer_flags,
+                                            with_attention_caches)
 
-RTOL, ATOL = 1e-5, 1e-6            # modules, float32
-MODEL_RTOL, MODEL_ATOL = 1e-4, 1e-5
-KEY = jax.random.PRNGKey(0)
+from _lm_parity import KEY, MODEL_ATOL, MODEL_RTOL
+from _lm_parity import close as _close
+from _lm_parity import configs_pair as _configs
+from _lm_parity import leaves as _flat
+from _lm_parity import pair as _pair
+from _lm_parity import prompt as _prompt
+from _lm_parity import randn as _randn
+from _lm_parity import t as _t
+
 DECODER_ARCHS = ["gemma3-27b", "phi3-medium-14b", "granite-3-2b", "glm4-9b",
                  "phi3.5-moe-42b-a6.6b", "llama4-scout-17b-a16e", "internvl2-1b"]
-UNPORTED_ARCHS = ["mamba2-2.7b", "zamba2-2.7b", "whisper-medium"]
-
-
-def _t(a):
-    return torch.from_numpy(np.array(a))
-
-
-def _close(got, ref, rtol=RTOL, atol=ATOL):
-    got = got.float().numpy() if isinstance(got, torch.Tensor) else np.asarray(got, np.float32)
-    np.testing.assert_allclose(got, np.asarray(ref, np.float32), rtol=rtol, atol=atol)
-
-
-def _randn(seed, *shape, scale=1.0):
-    return (scale * np.random.default_rng(seed).standard_normal(shape)).astype(np.float32)
+ALL_ARCHS = sorted(configs.ARCHS)
 
 
 # ---------------------------------------------------------------------------
@@ -177,34 +171,6 @@ def test_router_ties_take_the_lowest_expert():
 # The whole model
 # ---------------------------------------------------------------------------
 
-def _configs(name, **overrides):
-    rcfg = rconfigs.get(name).reduced(**overrides)
-    cfg = configs.get(name).reduced(**overrides)
-    if cfg.n_experts:
-        # Capacity depends on the routed batch: remove dropping so prefill and
-        # decode route alike (as tests/test_models.py does).
-        rcfg = dataclasses.replace(rcfg, capacity_factor=16.0)
-        cfg = dataclasses.replace(cfg, capacity_factor=16.0)
-    return rcfg, cfg
-
-
-def _pair(name, **overrides):
-    rcfg, cfg = _configs(name, **overrides)
-    rlm = RLM(rcfg)
-    rparams = rlm.init(KEY)
-    params = convert.lm_params_from_reference(jax.tree.map(np.asarray, rparams), cfg, device="cpu")
-    return rlm, rparams, LM(cfg, params)
-
-
-def _prompt(cfg, seed, B, S, steps):
-    rng = np.random.default_rng(seed)
-    tokens = rng.integers(0, cfg.vocab_size, (B, S + 2 * steps)).astype(np.int32)
-    batch = {"tokens": tokens[:, :S]}
-    if cfg.frontend != "none":
-        batch["frontend"] = rng.standard_normal((B, cfg.frontend_len, cfg.d_model)).astype(np.float32)
-    return tokens, batch
-
-
 def _run_both(name, dtype, steps, rtol, atol):
     """Prefill both packages from one state, then `steps` exact-KV and
     `steps` BANG-KV decode steps (the reference's codebooks, the prompt's
@@ -260,10 +226,20 @@ def test_model_matches_reference_bf16(name):
     _run_both(name, "bfloat16", 1, 2e-2, 2e-2)
 
 
-@pytest.mark.parametrize("name", DECODER_ARCHS)
+def _kinds(tree):
+    """A cache's structure: NamedTuple names and plain tuples, leaves as None."""
+    if hasattr(tree, "_fields"):
+        return type(tree).__name__
+    if isinstance(tree, tuple):
+        return tuple(_kinds(x) for x in tree)
+    return None
+
+
+@pytest.mark.parametrize("name", ALL_ARCHS)
 def test_init_matches_reference_shapes(name):
     """`init_params` draws the reference's tree: names, shapes and dtypes
-    (the layer axis a list), and `init_decode_caches` its caches."""
+    (each stacked layer axis a list: `layers`, whisper's `encoder.layers`),
+    and `init_decode_caches` its caches, every family's layout."""
     rcfg, cfg = _configs(name)
     rlm = RLM(rcfg)
     rparams = jax.eval_shape(rlm.init, KEY)
@@ -272,9 +248,11 @@ def test_init_matches_reference_shapes(name):
     want = {}
     for path, leaf in jax.tree_util.tree_leaves_with_path(rparams):
         keys = [p.key for p in path]
-        if keys[0] == "layers":
-            for i in range(cfg.n_layers):
-                want[".".join(["layers", str(i), *keys[1:]])] = (leaf.shape[1:], leaf.dtype)
+        stacked = {("layers",): cfg.n_layers, ("encoder", "layers"): cfg.n_encoder_layers}
+        lead = next((k for k in stacked if tuple(keys[:len(k)]) == k), None)
+        if lead is not None:
+            for i in range(stacked[lead]):
+                want[".".join([*lead, str(i), *keys[len(lead):]])] = (leaf.shape[1:], leaf.dtype)
         else:
             want[".".join(keys)] = (leaf.shape, leaf.dtype)
     assert set(flat) == set(want)
@@ -285,10 +263,35 @@ def test_init_matches_reference_shapes(name):
     for bangkv in (False, True):
         ref = rlm.init_decode_caches(2, 24, bangkv=bangkv, fill=5)
         got = lm.init_decode_caches(2, 24, bangkv=bangkv, fill=5)
-        assert type(got).__name__ == type(ref).__name__ and got._fields == ref._fields
-        for g, r in zip(got, ref):
+        assert _kinds(got) == _kinds(ref)
+        ref_leaves = jax.tree_util.tree_leaves(ref)
+        assert len(_flat(got)) == len(ref_leaves)
+        for g, r in zip(_flat(got), ref_leaves):
             assert tuple(g.shape) == r.shape and str(g.dtype).split(".")[1] == str(r.dtype)
-        assert got.index.tolist() == np.asarray(ref.index).tolist()
+            np.testing.assert_array_equal(g.float().numpy(), np.asarray(r, np.float32))
+
+
+@pytest.mark.parametrize("name", ALL_ARCHS)
+def test_every_config_serves_on_cpu(name):
+    """`LM(cfg, device="cpu")` constructs for every config, and `prefill`,
+    an exact-KV and, where the family has attention, a BANG-KV decode step
+    give finite logits of the vocabulary's width."""
+    cfg = configs.get(name).reduced(dtype="float32")
+    lm = LM(cfg, device="cpu", generator=torch.Generator().manual_seed(1))
+    tokens, batch = _prompt(cfg, 3, 2, 10, 1)
+    logits, caches = lm.prefill(jax.tree.map(_t, batch), s_max=20 + cfg.frontend_len)
+    for bangkv in (False, True) if "bangkv_codebooks" in lm.params else (False,):
+        out, _ = lm.decode_step(caches, _t(tokens[:, 10 + bangkv:11 + bangkv]), bangkv=bangkv)
+        for x in (logits, out):
+            assert x.shape == (2, 1, cfg.vocab_size) and bool(torch.isfinite(x).all())
+        if not bangkv and "bangkv_codebooks" in lm.params:
+            kv = attention_caches(cfg, caches)
+            codes = torch.stack([bkv.encode_keys(lm.params["bangkv_codebooks"][i], kv.k[i])
+                                 for i in range(kv.k.shape[0])])
+            caches = with_attention_caches(cfg, caches, bkv.BangKVCache(codes, kv.k, kv.v, kv.index))
+    with pytest.raises(NotImplementedError, match="ROADMAP A8d"):
+        from repro_torch.models.transformer import decoder_stack
+        decoder_stack(cfg, lm.params, torch.zeros((1, 4, cfg.d_model)), mode="train")
 
 
 @pytest.mark.parametrize("name", ["gemma3-27b", "glm4-9b"])
@@ -299,15 +302,6 @@ def test_layer_flags_match_reference(name):
     for k in ("window", "theta"):
         np.testing.assert_array_equal(flags[k].numpy(), np.asarray(rflags[k]))
     assert static_layer_flags(cfg, 4096) == r_static_layer_flags(rconfigs.get(name), 4096)
-
-
-@pytest.mark.parametrize("name", UNPORTED_ARCHS)
-def test_unported_families_raise(name):
-    cfg = configs.get(name).reduced()
-    with pytest.raises(NotImplementedError, match="ROADMAP A8"):
-        LM(cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP A8"):
-        init_params(cfg, torch.Generator(), "cpu")
 
 
 def test_every_config_resolves_as_the_reference():
@@ -354,3 +348,35 @@ def test_long_context_decode_example_runs_on_cpu(capsys):
     text = capsys.readouterr().out
     assert "[bangkv] prefill 96 tokens" in text and "[bangkv] argmax agreement:" in text
     assert "8B vs exact 64B" in text
+
+
+def _load_example():
+    import importlib.util
+    from pathlib import Path
+
+    path = Path(__file__).resolve().parents[1] / "examples" / "long_context_decode_torch.py"
+    spec = importlib.util.spec_from_file_location("long_context_decode_torch", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+@pytest.mark.parametrize("arch,caches", [("zamba2-2.7b", 2), ("whisper-medium", 4)])
+def test_long_context_decode_example_other_families_on_cpu(arch, caches, capsys):
+    """The example's `--arch` for the hybrid (the shared block's caches, one
+    a group) and whisper (the decoder's self-attention caches)."""
+    out = _load_example().main(["--device", "cpu", "--arch", arch, "--context", "96",
+                                "--decode-steps", "3"])
+    assert out["steps"] == 3 and len(out["corr"]) == 3 and out["arch"] == f"{arch}-reduced"
+    assert all(-1.0 <= c <= 1.0 for c in out["corr"]) and 0 <= out["agree"] <= 3
+    text = capsys.readouterr().out
+    assert f"prefill keys of {caches} attention caches" in text and "[bangkv] argmax agreement:" in text
+    assert ("encoder over 4 stub frame embeddings" in text) == (arch == "whisper-medium")
+
+
+def test_long_context_decode_example_refuses_mamba2(capsys):
+    """An attention-free model has no KV to retrieve from: exit 2, said plainly."""
+    with pytest.raises(SystemExit) as exc:
+        _load_example().main(["--device", "cpu", "--arch", "mamba2-2.7b"])
+    assert exc.value.code == 2
+    assert "attention-free" in capsys.readouterr().err
