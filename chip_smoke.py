@@ -125,6 +125,25 @@ Phases, each timed; any failure exits non-zero:
      and BANG-KV's top-L overlap. No port kernel lies on this path: the
      launch counts stay 0. Its numbers go into the summary line under
      "lm".
+  8. training (`train_phase`), through `runtime.train_loop` on the card:
+     8a granite-3-2b at full width and depth in bf16 with remat (2.53 B
+     parameters drawn on the card, the reference's float32 AdamW state),
+     8 steps of 2 x 4,096 tokens of the synthetic stream (warmup 2, peak
+     lr 3e-4): the step ms (median after the first), tokens/s, the
+     model-FLOPs share (6 N tokens over the step and 989.4 TFLOP/s), the
+     optimizer step alone (CUDA events), device busy, events and idle share
+     of one profiled step, peak memory, each step's loss and grad norm
+     (finite); 8b phi3.5-moe (2 layers), mamba2 (4), zamba2 (12), whisper
+     (4 + 4, 448 decoder tokens after 1,500 frames) at full width and
+     internvl2-1b at full depth, bf16, 3 steps each (step ms, peak memory,
+     finite values); 8c the reduced granite, phi3.5-moe, mamba2, zamba2 and
+     whisper at float32 on the card against the CPU from one set of
+     parameters: `LM.loss`, its metrics and the grad norm (rtol 1e-4, atol
+     1e-5), 3 `train_loop` steps' losses and grad norms, the master
+     parameters after them; 8d a failure injected at step 7 of reduced
+     granite with checkpoints every 3 steps, resumed, bit-equal to an
+     uninterrupted run. No port kernel lies on this path: the launch
+     counts stay 0. Its numbers go into the summary line under "train".
 
 Kernel times are taken cold: the timed calls cycle through copies of the
 inputs that together exceed twice the H100's 50 MB L2. Bounds count the bytes the function needs for this run's
@@ -1913,6 +1932,18 @@ def profile_batch(index, queries, cfg, variant: str, kernel_mode: str,
         batch_wall_ms)
 
 
+def port_kernel_names() -> set:
+    """The `__global__` functions of the port's CUDA sources."""
+    import re
+
+    names = set()
+    for src in (ROOT / "src" / "repro_torch" / "csrc").glob("*.cu*"):
+        names.update(re.findall(r"__global__\s+(?:__launch_bounds__\([^)]*\)\s+)?void\s+"
+                                 r"(?:__launch_bounds__\([^)]*\)\s+)?(\w+)",
+                                src.read_text()))
+    return names
+
+
 def device_profile(label: str, fn, wall_ms_unprofiled: float) -> dict | None:
     """Device time by kernel over one call of `fn` (torch.profiler), set
     against `wall_ms_unprofiled`, the mean wall of unprofiled calls.
@@ -1946,9 +1977,11 @@ def device_profile(label: str, fn, wall_ms_unprofiled: float) -> dict | None:
         log(f"[profile]   {self_us(e) / 1e3:9.3f} ms  x{e.count:<6d} {e.key[:90]}")
     for e in nccl:
         log(f"[profile]   collective {self_us(e) / 1e3:9.3f} ms  x{e.count:<6d} {e.key[:90]}")
+    port = port_kernel_names()
     for e in events:
-        # The port's own kernels (csrc/*.cu); PyTorch's lie in at::.
-        if "(anonymous namespace)::" in e.key and "at::" not in e.key:
+        # The port's own kernels (csrc/*.cu), by name: PyTorch's lie in
+        # anonymous namespaces too (`indexing_backward_kernel`).
+        if any(f"::{name}" in e.key for name in port):
             log(f"[profile]   port kernel {self_us(e) / 1e3:9.3f} ms  x{e.count:<6d} "
                 f"{self_us(e) / e.count / 1e3:.4f} ms a launch  {e.key[:80]}")
     return dict(busy_ms=busy_ms, device_events=n_events, nccl_ms=sum(self_us(e) for e in nccl) / 1e3,
@@ -2444,7 +2477,8 @@ def lm_consistency(dev, name: str, **overrides) -> dict:
     import torch
 
     from repro_torch.models import LM
-    from repro_torch.models.transformer import attention_caches, clone_caches, decoder_stack
+    from repro_torch.models.transformer import (attention_caches, clone_caches, decoder_stack,
+                                                embed_inputs)
 
     cfg = lm_config(name, **{"n_layers": LM_CUT_LAYERS, "dtype": "float32", **overrides})
     g = torch.Generator(dev).manual_seed(SEED + 1)
@@ -2474,7 +2508,7 @@ def lm_consistency(dev, name: str, **overrides) -> dict:
     if cfg.n_experts:
         # The fraction of routed assignments dropped at the published capacity.
         base = lm_config(name, n_layers=LM_CUT_LAYERS, dtype="float32")
-        h = lm._embed_inputs(tokens, None)
+        h = embed_inputs(cfg, lm.params, tokens, None)
         with torch.no_grad():
             _, aux, _ = decoder_stack(base, lm.params, h, mode="prefill")
         out["capacity_factor"] = cfg.capacity_factor
@@ -2665,6 +2699,291 @@ def lm_phase(dev, card: str) -> dict:
     return out
 
 
+# ------------------------------------------------------------- phase 8
+TRAIN_ARCH = "granite-3-2b"     # 8a: full width and depth
+TRAIN_SEQ = 4_096               # 8a, 8b: LM_SHAPES["train_4k"]'s sequence length
+TRAIN_BATCH = 2                 # 8a, 8b: LM_SHAPES["train_4k"]'s 256 sequences cut to 2 for one card
+TRAIN_STEPS, TRAIN_WARMUP, TRAIN_PEAK_LR = 8, 2, 3e-4
+CUT_TRAIN_STEPS = 3             # 8b: steps of each cut-depth family
+MOE_TRAIN_LAYERS = 2            # 8b: phi3.5-moe's cut (4 layers: 84 GB of weights, grads, AdamW)
+ENCDEC_TRAIN_TOKENS = 448       # 8b: whisper's decoder tokens (its context) after 1,500 frames
+CPU_TRAIN_STEPS = 3             # 8c: train_loop steps, card against CPU
+BF16_DENSE_FLOPS = 989.4e12     # H100 SXM bf16 dense tensor-core peak (data sheet)
+
+
+def train_run(dev, label: str, cfg, params, seq: int, steps: int, card: str, **loop) -> dict:
+    """`train_loop` on `dev` from `params` (trained in place): each step's
+    loss and grad norm (finite), the median step after the first, tokens/s
+    and peak memory. Returns the measures and the loop's summary."""
+    import torch
+
+    from repro_torch.runtime import TrainLoopConfig, train_loop
+
+    if torch.device(dev).type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    tcfg = TrainLoopConfig(steps=steps, seq_len=seq, global_batch=TRAIN_BATCH, log_every=0,
+                           seed=SEED, **loop)
+    seen = []
+    out = train_loop(cfg, tcfg, params=params, device=dev, on_step=lambda s, m: seen.append(m))
+    sync(dev)
+    losses, gnorms = [m["loss"] for m in seen], [m["grad_norm"] for m in seen]
+    if len(seen) != steps or not np.all(np.isfinite(losses + gnorms)):
+        raise AssertionError(f"8 {label}: losses {losses}, grad norms {gnorms}")
+    ms = [1e3 * t for t in out["step_s"]]
+    med = float(np.median(ms[1:]))
+    st = {"arch": cfg.name, "layers": cfg.n_layers, "encoder_layers": cfg.n_encoder_layers,
+          "dtype": cfg.dtype, "batch": TRAIN_BATCH, "seq_len": seq, "steps": steps,
+          "params": sum(p.numel() for p in out["params"].parameters()),
+          "losses": losses, "grad_norms": gnorms, "lrs": [m["lr"] for m in seen],
+          "metrics_last": seen[-1], "step_ms": ms, "ms_per_step": med,
+          "tokens_per_s": TRAIN_BATCH * seq / (med / 1e3), "memory": device_mem(dev)}
+    log(f"[train] {label} {cfg.name} ({cfg.n_layers} layers"
+        + (f" + {cfg.n_encoder_layers} encoder layers" if cfg.n_encoder_layers else "")
+        + f", d_model {cfg.d_model}, {cfg.dtype}, {st['params']:,} parameters, remat {cfg.remat}): "
+        f"{steps} steps of {TRAIN_BATCH} x {seq} tokens, {med:.1f} ms a step (median after the first; "
+        f"first {ms[0]:.1f}), {st['tokens_per_s']:.0f} tokens/s; losses "
+        + ", ".join(f"{x:.4f}" for x in losses) + "; grad norms "
+        + ", ".join(f"{x:.3f}" for x in gnorms)
+        + f"; peak device memory {(st['memory'] or {}).get('peak_bytes', 0) / 1e9:.2f} GB [{card}]")
+    return st, out
+
+
+def train_full(dev, card: str) -> dict:
+    """8a: granite-3-2b at full width and depth in bf16 with remat, its
+    parameters drawn on the card, the reference's float32 AdamW state (12
+    bytes a parameter): TRAIN_STEPS steps of TRAIN_BATCH x 4,096 tokens of
+    the synthetic stream. Then the optimizer step alone (CUDA events, on the
+    last step's gradients) and one more step under the profiler."""
+    import torch
+
+    from repro_torch.data import TokenStream
+    from repro_torch.models import LM, init_params
+    from repro_torch.optim import adamw_update
+    from repro_torch.runtime.train_loop import TrainLoopConfig, make_train_step
+    from repro_torch.tree import flat_dict
+
+    cfg = lm_config(TRAIN_ARCH)
+    free_device(dev)
+    t0 = time.perf_counter()
+    params = init_params(cfg, torch.Generator(dev).manual_seed(SEED + 6), dev)
+    sync(dev)
+    init_s = time.perf_counter() - t0
+    seq = TRAIN_SEQ
+    st, out = train_run(dev, "8a", cfg, params, seq, TRAIN_STEPS, card, warmup=TRAIN_WARMUP,
+                        peak_lr=TRAIN_PEAK_LR)
+    params, opt_state = out["params"], out["opt_state"]
+    n = cfg.param_count()   # without the BANG-KV codebooks, which training does not read
+    st["init_s"] = init_s
+    st["param_bytes"] = sum(p.numel() * p.element_size() for p in params.parameters())
+    st["state_bytes"] = st["param_bytes"] + sum(
+        t.numel() * t.element_size() for d in (opt_state.mu, opt_state.nu, opt_state.master)
+        for t in d.values())
+    st["model_flops_per_step"] = 6 * n * TRAIN_BATCH * seq
+    st["mfu"] = st["model_flops_per_step"] / (st["ms_per_step"] / 1e3) / BF16_DENSE_FLOPS
+    # The optimizer step alone, on the last step's gradients (each call
+    # updates the state once more).
+    grads = {k: p.grad for k, p in flat_dict(params).items()}
+    opt_ms = []
+    for _ in range(3):
+        if torch.device(dev).type == "cuda":
+            a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            a.record()
+            adamw_update(grads, opt_state, params, TRAIN_PEAK_LR)
+            b.record()
+            b.synchronize()
+            opt_ms.append(a.elapsed_time(b))
+        else:
+            t1 = time.perf_counter()
+            adamw_update(grads, opt_state, params, TRAIN_PEAK_LR)
+            opt_ms.append((time.perf_counter() - t1) * 1e3)
+    st["optimizer_ms"] = float(np.median(opt_ms))
+    del grads
+    prof = None
+    if torch.device(dev).type == "cuda":
+        lm_step = make_train_step(LM(cfg, params), TrainLoopConfig(
+            steps=TRAIN_STEPS, warmup=TRAIN_WARMUP, peak_lr=TRAIN_PEAK_LR))
+        batch = {k: torch.from_numpy(v).to(dev) for k, v in
+                 TokenStream(cfg.vocab_size, seq, TRAIN_BATCH, seed=SEED).batch_at(TRAIN_STEPS).items()}
+        prof = device_profile("8a one training step", lambda: lm_step(params, opt_state, None, batch),
+                              st["ms_per_step"])
+    st["device_busy_ms_per_step"] = None if prof is None else prof["busy_ms"]
+    st["device_events_per_step"] = None if prof is None else prof["device_events"]
+    st["idle_share"] = None if prof is None else 1.0 - prof["busy_ms"] / st["ms_per_step"]
+    st["memory"] = device_mem(dev)
+    log(f"[train] 8a {cfg.name}: {n:,} parameters (param_count) drawn on {dev} in {init_s:.2f} s; "
+        f"parameters and "
+        f"AdamW state {st['state_bytes'] / 1e9:.2f} GB; model FLOPs 6 N tokens = "
+        f"{st['model_flops_per_step']:.3g} a step, {100 * st['mfu']:.2f}% of {BF16_DENSE_FLOPS / 1e12:.1f} "
+        f"TFLOP/s (bf16 dense); the optimizer step alone {st['optimizer_ms']:.1f} ms (median of 3); "
+        "idle " + ("not measured" if st["idle_share"] is None else
+                   f"{100 * st['idle_share']:.1f}% ({st['device_busy_ms_per_step']:.1f} ms busy in "
+                   f"{st['device_events_per_step']} device events)")
+        + f"; peak device memory {(st['memory'] or {}).get('peak_bytes', 0) / 1e9:.2f} GB [{card}]")
+    return st
+
+
+def train_cut(dev, card: str, name: str, seq: int, **overrides) -> dict:
+    """8b: `name` at its full width in bf16, cut in depth by `overrides`,
+    CUT_TRAIN_STEPS steps from parameters drawn on the card."""
+    import torch
+
+    from repro_torch.models import init_params
+
+    cfg = lm_config(name, **overrides)
+    free_device(dev)
+    params = init_params(cfg, torch.Generator(dev).manual_seed(SEED + 7), dev)
+    st, _ = train_run(dev, "8b", cfg, params, seq, CUT_TRAIN_STEPS, card, warmup=1)
+    return st
+
+
+def train_card_vs_cpu(dev, name: str) -> dict:
+    """8c: `name` reduced, float32, one set of parameters on the card and on
+    the CPU: `LM.loss` and its metrics, the global grad norm, then
+    CPU_TRAIN_STEPS `train_loop` steps, each step's loss and grad norm, and
+    the master parameters after the last. Bounds: loss, metrics, grad
+    norms rtol 1e-4, atol 1e-5 (7d's); the masters every entry within 2e-6,
+    save at most 1 in 1,000 within 2 sum(lr) -- Adam's normalised step can
+    take the other sign where a gradient is near 0 (tests/test_torch_train_loop.py)."""
+    import copy
+
+    import torch
+
+    import repro_torch.configs as configs
+    from repro_torch.data import TokenStream
+    from repro_torch.models import LM, init_params
+    from repro_torch.optim import global_norm, warmup_cosine
+    from repro_torch.runtime import TrainLoopConfig, train_loop
+    from repro_torch.tree import flat_dict
+
+    cfg = configs.get(name).reduced(dtype="float32")
+    params = init_params(cfg, torch.Generator().manual_seed(SEED + 8), "cpu")
+    frontend = (cfg.frontend_len, cfg.d_model) if cfg.frontend != "none" else None
+    S = 24 - (cfg.frontend_len if cfg.frontend == "vision_stub" else 0)
+    batch = TokenStream(cfg.vocab_size, S, 2, seed=SEED, frontend=frontend).batch_at(0)
+    tcfg = dict(steps=CPU_TRAIN_STEPS, seq_len=24, global_batch=2, warmup=1, peak_lr=3e-4,
+                log_every=0, seed=SEED)
+    res = {}
+    for where, d in (("cpu", torch.device("cpu")), ("card", torch.device(dev))):
+        lm = LM(cfg, copy.deepcopy(params).to(d))
+        lm.params.requires_grad_(True)
+        loss, metrics = lm.loss({k: torch.from_numpy(v).to(d) for k, v in batch.items()})
+        loss.backward()
+        gnorm = global_norm(p.grad for p in lm.params.parameters())
+        seen = []
+        out = train_loop(cfg, TrainLoopConfig(**tcfg), params=copy.deepcopy(params), device=d,
+                         on_step=lambda s, m: seen.append(m))
+        res[where] = {"loss": float(loss.detach()), **{k: float(v) for k, v in metrics.items()},
+                      "grad_norm": float(gnorm), "losses": [m["loss"] for m in seen],
+                      "grad_norms": [m["grad_norm"] for m in seen],
+                      "master": {k: v.cpu() for k, v in out["opt_state"].master.items()}}
+    cpu, card = res["cpu"], res["card"]
+    out = {"arch": cfg.name}
+    for key in ("loss", "ce", "load_balance", "router_z", "dropped_frac", "grad_norm"):
+        out[f"{key}_abs_diff"] = abs(card[key] - cpu[key])
+        if out[f"{key}_abs_diff"] > 1e-5 + 1e-4 * abs(cpu[key]):
+            raise AssertionError(f"8c {cfg.name} {key}: card {card[key]} and CPU {cpu[key]}")
+    for key in ("losses", "grad_norms"):
+        a, b = np.array(cpu[key]), np.array(card[key])
+        out[f"{key}_max_abs_diff"] = float(np.abs(a - b).max())
+        if not np.allclose(b, a, rtol=1e-4, atol=1e-5):
+            raise AssertionError(f"8c {cfg.name} {key}: card {b} and CPU {a}")
+    lrs = [float(warmup_cosine(s, peak=3e-4, warmup=1, total=CPU_TRAIN_STEPS))
+           for s in range(CPU_TRAIN_STEPS)]
+    worst, flipped, total = 0.0, 0, 0
+    for k, a in cpu["master"].items():
+        d = (card["master"][k] - a).abs()
+        worst = max(worst, float(d.max()))
+        flipped += int((d > 2e-6).sum())
+        total += d.numel()
+    out.update(master_max_abs_diff=worst, master_entries_over_2e6=flipped, master_entries=total,
+               flip_allowance=2 * sum(lrs))
+    if worst > 2 * sum(lrs) or flipped > 1e-3 * total:
+        raise AssertionError(f"8c {cfg.name}: masters differ by up to {worst} in {flipped} entries")
+    log(f"[train] 8c {cfg.name} f32: card against CPU, loss diff {out['loss_abs_diff']:.3g}, grad norm "
+        f"diff {out['grad_norm_abs_diff']:.3g} (bound 1e-5 + 1e-4 |x|); {CPU_TRAIN_STEPS} train_loop "
+        f"steps: losses within {out['losses_max_abs_diff']:.3g}, grad norms "
+        f"{out['grad_norms_max_abs_diff']:.3g}, masters {worst:.3g} ({flipped} of {total} entries "
+        f"over 2e-6, allowance {out['flip_allowance']:.3g})")
+    return out
+
+
+def train_resume(dev, root: Path) -> dict:
+    """8d: reduced granite (bf16) on the card: checkpoints every 3 steps, an
+    injected failure at step 7, resumed from step 6; its losses, parameters
+    and master copies held bit-equal to an uninterrupted run. No MoE on this
+    path: the embedding's backward (`index_put_` with accumulate, which
+    PyTorch sorts on CUDA) and cuBLAS's products give the same bits run to
+    run on one card."""
+    import shutil
+
+    import torch
+
+    import repro_torch.configs as configs
+    from repro_torch.runtime import TrainLoopConfig, train_loop
+    from repro_torch.runtime.train_loop import InjectedFailure
+    from repro_torch.tree import flat_dict
+
+    cfg = configs.get(TRAIN_ARCH).reduced()
+    ckpt = root / "build" / "chip_smoke_ckpt"
+    shutil.rmtree(ckpt, ignore_errors=True)
+    common = dict(steps=8, seq_len=16, global_batch=2, log_every=0, seed=SEED)
+    try:
+        try:
+            train_loop(cfg, TrainLoopConfig(ckpt_dir=str(ckpt), ckpt_every=3, fail_at_step=7, **common),
+                       device=dev)
+            raise AssertionError("8d: the injected failure did not happen")
+        except InjectedFailure:
+            pass
+        resumed = train_loop(cfg, TrainLoopConfig(ckpt_dir=str(ckpt), ckpt_every=3, **common), device=dev)
+        whole = train_loop(cfg, TrainLoopConfig(**common), device=dev)
+    finally:
+        shutil.rmtree(ckpt, ignore_errors=True)
+    if len(resumed["losses"]) != 2 or resumed["losses"] != whole["losses"][6:]:
+        raise AssertionError(f"8d: resumed losses {resumed['losses']}, uninterrupted {whole['losses']}")
+    for a, b in ((resumed["params"], whole["params"]),
+                 (resumed["opt_state"].master, whole["opt_state"].master)):
+        fa, fb = flat_dict(a), flat_dict(b)
+        if not all(torch.equal(fa[k].detach(), fb[k].detach()) for k in fa):
+            raise AssertionError("8d: the resumed run's parameters differ from the uninterrupted run's")
+    log(f"[train] 8d {cfg.name} on {dev}: failed at step 7, resumed from step 6, losses "
+        + ", ".join(f"{x:.6f}" for x in resumed["losses"])
+        + " bit-equal to the uninterrupted run's, and every parameter and master copy")
+    return {"arch": cfg.name, "resumed_losses": resumed["losses"], "whole_losses": whole["losses"],
+            "bit_equal": True}
+
+
+def train_phase(dev, card: str) -> dict:
+    """Phase 8: training on the card. 8a granite-3-2b at full width and
+    depth; 8b phi3.5-moe, mamba2-2.7b, zamba2-2.7b, whisper-medium at full
+    width cut in depth as 7c cuts them (phi3.5-moe to MOE_TRAIN_LAYERS) and
+    internvl2-1b at full depth, all bf16; 8c five reduced configs card
+    against CPU; 8d failure and resume on the card. No port kernel lies on
+    the training path: the launch counts, set to 0 before 8a, are read after
+    8d and must all be 0."""
+    t0 = time.perf_counter()
+    reset_launches()
+    seq = TRAIN_SEQ
+    out = {"full": train_full(dev, card)}
+    out["cut"] = [
+        train_cut(dev, card, LM_MOE_ARCH, seq, n_layers=MOE_TRAIN_LAYERS),
+        train_cut(dev, card, SSM_ARCH, seq, n_layers=LM_CUT_LAYERS),
+        train_cut(dev, card, HYBRID_ARCH, seq, n_layers=HYBRID_CUT_LAYERS),
+        train_cut(dev, card, ENCDEC_ARCH, ENCDEC_TRAIN_TOKENS, n_layers=LM_CUT_LAYERS,
+                  n_encoder_layers=LM_CUT_LAYERS),
+        train_cut(dev, card, "internvl2-1b", seq),
+    ]
+    free_device(dev)
+    out["card_vs_cpu"] = [train_card_vs_cpu(dev, name) for name in
+                          (TRAIN_ARCH, LM_MOE_ARCH, SSM_ARCH, HYBRID_ARCH, ENCDEC_ARCH)]
+    out["resume"] = train_resume(dev, ROOT)
+    launches = read_launches()
+    if any(launches.values()):
+        raise AssertionError(f"the training path launched port kernels: {launches}")
+    out["kernel_launches"] = launches
+    out["phase_s"] = time.perf_counter() - t0
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -2736,6 +3055,9 @@ def main() -> int:
     lm = lm_phase(dev, card)
     log(f"[lm] phase: {lm['phase_s']:.1f} s")
 
+    train = train_phase(dev, card)
+    log(f"[train] phase: {train['phase_s']:.1f} s")
+
     keys = ("recall_at_10", "qps", "n_batches", "mean_n_iters", "mean_hops", "batch_wall_ms",
             "device_busy_ms_per_batch", "link_bytes_per_hop", "rerank_bytes_per_batch",
             "host_gather_ms_per_batch", "host_gather_share", "collective_ms_per_batch",
@@ -2753,7 +3075,7 @@ def main() -> int:
     print(json.dumps({"kernels": rows, "main_path": summary, "nn_contrast": res["nn_contrast"],
                       "vamana_build": vamana["build"], "mutation": mutation["info"],
                       "autotune": {k: at[k] for k in ("winner", "sweep", "sweep_s", "device_kind")},
-                      "small_recall_at_10": small, "lm": lm, "card": card}))
+                      "small_recall_at_10": small, "lm": lm, "train": train, "card": card}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

@@ -30,6 +30,13 @@ whisper's tuples too), so both packages can decode from one state::
     params = lm_params_from_reference(jax.tree.map(np.asarray, ref_params), cfg)
     lm = LM(cfg, params)
     caches = lm_caches_from_reference(jax.tree.map(np.asarray, ref_caches), cfg)
+
+Training state crosses too: a gradient tree has the parameters' structure,
+so `lm_params_from_reference` carries the reference's `jax.grad` output
+across as it is; `adamw_state_from_reference` and
+`compression_state_from_reference` carry the optimizer's moments and master
+copies and the int8 error-feedback residuals, keyed by the port's parameter
+paths (`tree.flat_dict`).
 """
 from __future__ import annotations
 
@@ -44,6 +51,8 @@ from .models.layers import ParamTree
 from .models.retrieval_attention import BangKVCache
 from .models.ssm import SSMCache, conv_cache_dtype
 from .models.transformer import check_family
+from .optim import AdamWState, CompressionState
+from .tree import flat_dict
 
 KEYS = ("codebooks", "codes", "adjacency", "medoid", "data")
 
@@ -156,3 +165,29 @@ def lm_caches_from_reference(caches, cfg: ModelConfig, *, device: str | torch.de
         self_c, (ck, cv) = caches
         return (attn(self_c), (_tensor(ck, dev), _tensor(cv, dev)))
     return attn(caches)
+
+
+def _flat_from_reference(tree: dict, cfg: ModelConfig, dev) -> dict:
+    """A reference tree of the parameters' structure, as {path: tensor}."""
+    return {k: v.detach() for k, v in flat_dict(lm_params_from_reference(tree, cfg,
+                                                                         device=dev)).items()}
+
+
+def adamw_state_from_reference(state, cfg: ModelConfig, *,
+                               device: str | torch.device = "cuda") -> AdamWState:
+    """A reference `AdamWState` (step, and mu, nu, master trees of the
+    parameters' structure, float32) as the port's."""
+    dev = resolve_device(device)
+    return AdamWState(
+        step=_tensor(np.asarray(state.step, np.int32), dev),
+        mu=_flat_from_reference(state.mu, cfg, dev),
+        nu=_flat_from_reference(state.nu, cfg, dev),
+        master=_flat_from_reference(state.master, cfg, dev),
+    )
+
+
+def compression_state_from_reference(state, cfg: ModelConfig, *,
+                                     device: str | torch.device = "cuda") -> CompressionState:
+    """A reference `CompressionState` (residuals of the parameters'
+    structure) as the port's."""
+    return CompressionState(err=_flat_from_reference(state.err, cfg, resolve_device(device)))

@@ -1,1 +1,2 @@
+from .tokens import TokenStream  # noqa: F401
 from .vectors import gaussian_mixture, uniform_queries  # noqa: F401

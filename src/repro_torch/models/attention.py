@@ -73,13 +73,14 @@ def chunked_causal_attention(
     c = S // n_chunks
     if n_chunks * c != S:
         raise ValueError(f"seq {S} must divide by attn chunk {chunk}")
-    in_dt = torch.bfloat16 if bf16_scores else torch.float32
+    acc = torch.promote_types(q.dtype, torch.float32)   # float32 (float64 for gradcheck)
+    in_dt = torch.bfloat16 if bf16_scores else acc
     dev = q.device
 
     qg = q.reshape(B, n_chunks, c, Hkv, G, hd).permute(1, 0, 3, 4, 2, 5)
     # (n_chunks, B, Hkv, G, c, hd); keys and values rounded to in_dt once
-    kT = k.permute(0, 2, 3, 1).to(in_dt).float()       # (B, Hkv, hd, S)
-    vT = v.permute(0, 2, 1, 3).to(in_dt).float()       # (B, Hkv, S, hd)
+    kT = k.permute(0, 2, 3, 1).to(in_dt).to(acc)       # (B, Hkv, hd, S)
+    vT = v.permute(0, 2, 1, 3).to(in_dt).to(acc)       # (B, Hkv, S, hd)
     kv_pos = torch.arange(S, dtype=torch.int32, device=dev)
 
     outs = []
@@ -90,13 +91,13 @@ def chunked_causal_attention(
             pos_c = start + torch.arange(band, dtype=torch.int32, device=dev)
         else:
             kT_c, vT_c, pos_c = kT, vT, kv_pos
-        qc = qg[ci].to(in_dt).float().reshape(B, Hkv, G * c, hd)
+        qc = qg[ci].to(in_dt).to(acc).reshape(B, Hkv, G * c, hd)
         scores = (qc @ kT_c).reshape(B, Hkv, G, c, -1) * scale   # (B, Hkv, G, c, S|band)
         q_pos = ci * c + torch.arange(c, dtype=torch.int32, device=dev)
         causal = (pos_c[None, :] <= q_pos[:, None]) & (pos_c[None, :] > q_pos[:, None] - window)
         scores.masked_fill_(~causal, float("-inf"))
         probs = torch.softmax(scores, dim=-1)
-        out = probs.to(in_dt).float().reshape(B, Hkv, G * c, -1) @ vT_c
+        out = probs.to(in_dt).to(acc).reshape(B, Hkv, G * c, -1) @ vT_c
         outs.append(out.reshape(B, Hkv, G, c, hd).to(q.dtype))
     # (n_chunks, B, Hkv, G, c, hd) -> (B, S, H, hd)
     return torch.stack(outs).permute(1, 0, 4, 2, 3, 5).reshape(B, S, H, hd)
@@ -129,17 +130,18 @@ def full_attention(
     k: torch.Tensor,        # (B, M, Hkv, hd)
     v: torch.Tensor,        # (B, M, Hkv, hd)
 ) -> torch.Tensor:
-    """Unmasked attention of every query to every key, in float32: the
-    reference's "bskgd,bmkd->bksgm" scores, softmax, and weighted sum of V.
-    Returns (B, S, H, hd) in q's dtype."""
+    """Unmasked attention of every query to every key, in float32 (float64
+    for float64 inputs): the reference's "bskgd,bmkd->bksgm" scores,
+    softmax, and weighted sum of V. Returns (B, S, H, hd) in q's dtype."""
     B, S, H, hd = q.shape
     Hkv = k.shape[2]
     G = H // Hkv
     scale = hd ** -0.5
-    qg = q.float().reshape(B, S, Hkv, G, hd).permute(0, 2, 1, 3, 4).reshape(B, Hkv, S * G, hd)
-    scores = (qg @ k.float().permute(0, 2, 3, 1)) * scale            # (B, Hkv, S*G, M)
+    acc = torch.promote_types(q.dtype, torch.float32)
+    qg = q.to(acc).reshape(B, S, Hkv, G, hd).permute(0, 2, 1, 3, 4).reshape(B, Hkv, S * G, hd)
+    scores = (qg @ k.to(acc).permute(0, 2, 3, 1)) * scale            # (B, Hkv, S*G, M)
     probs = torch.softmax(scores, dim=-1)
-    out = probs @ v.float().permute(0, 2, 1, 3)                      # (B, Hkv, S*G, hd)
+    out = probs @ v.to(acc).permute(0, 2, 1, 3)                      # (B, Hkv, S*G, hd)
     return out.reshape(B, Hkv, S, G, hd).permute(0, 2, 1, 3, 4).reshape(B, S, H, hd).to(q.dtype)
 
 
@@ -175,7 +177,7 @@ def attention_block(
     encoder's bidirectional attention with `causal=False`); else decode.
 
     Prefill returns the roped (k, v) for the caller to assemble the decode
-    cache; decode writes the new key and value into `cache` in place and
+    cache (training drops them); decode writes the new key and value into `cache` in place and
     returns it with `index + 1`. With a static int `window`, `window_skip`
     activates the banded local-attention path.
     """

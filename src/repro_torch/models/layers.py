@@ -1,4 +1,5 @@
-"""Shared layer primitives: norms, RoPE, embeddings, initialisers.
+"""Shared layer primitives: norms, RoPE, embeddings, initialisers, the
+sequence-chunked cross-entropy.
 
 The port of the reference package's `models/layers.py`. Parameters live in
 `nn.Module`s (`ParamTree`), indexed by the reference's names; the layer math
@@ -16,18 +17,21 @@ class ParamTree(nn.Module):
 
     Nested dicts become `ParamTree`s and lists `nn.ModuleList`s, so
     `p["attn"]["wq"]` and `"shared" in p` read as they do on the reference's
-    dicts. The serve path computes no gradients: the parameters are frozen.
+    dicts. The leaves are frozen unless `requires_grad`: the serve path
+    computes no gradients, and training makes them trainable
+    (`params.requires_grad_()`, as `runtime.train_loop` does).
     """
 
-    def __init__(self, tree: dict):
+    def __init__(self, tree: dict, *, requires_grad: bool = False):
         super().__init__()
         for name, value in tree.items():
             if isinstance(value, dict):
-                self.add_module(name, ParamTree(value))
+                self.add_module(name, ParamTree(value, requires_grad=requires_grad))
             elif isinstance(value, (list, tuple)):
-                self.add_module(name, nn.ModuleList(ParamTree(v) for v in value))
+                self.add_module(name, nn.ModuleList(ParamTree(v, requires_grad=requires_grad)
+                                                    for v in value))
             else:
-                self.register_parameter(name, nn.Parameter(value, requires_grad=False))
+                self.register_parameter(name, nn.Parameter(value, requires_grad=requires_grad))
 
     def __getitem__(self, name: str):
         return getattr(self, name)
@@ -99,3 +103,74 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.
 
 def embed(tokens: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
     return table[tokens]
+
+
+class _ChunkedCrossEntropy(torch.autograd.Function):
+    """Sum over tokens of logsumexp(logits) - logits[label], logits = h @ table.T
+    computed a chunk of `c` positions at a time, in float32 (float64 for a
+    float64 `h`). Forward keeps each position's logsumexp and drops the
+    chunk's logits; backward recomputes one chunk's logits at a time and
+    turns them in place into softmax - onehot, so autograd never holds
+    more than one (B, c, V) buffer: at granite-3-2b's (2, 1,024, 49,155)
+    chunk 403 MB of float32 logits, beside the table cast to float32 and
+    its float32 gradient (403 MB each)."""
+
+    @staticmethod
+    def forward(ctx, h, table, labels, c: int):
+        B, S, _ = h.shape
+        cdt = torch.promote_types(h.dtype, torch.float32)
+        tf = table.to(cdt)
+        total = torch.zeros((), dtype=cdt, device=h.device)
+        logz = torch.empty((B, S), dtype=cdt, device=h.device)
+        for s0 in range(0, S, c):
+            logits = h[:, s0:s0 + c].to(cdt) @ tf.T                  # (B, c, V)
+            lz = torch.logsumexp(logits, dim=-1)
+            gold = logits.gather(-1, labels[:, s0:s0 + c, None])[..., 0]
+            total = total + (lz - gold).sum()
+            logz[:, s0:s0 + c] = lz
+        ctx.save_for_backward(h, table, labels, logz)
+        ctx.c = c
+        return total
+
+    @staticmethod
+    def backward(ctx, grad):
+        h, table, labels, logz = ctx.saved_tensors
+        c = ctx.c
+        B, S, D = h.shape
+        cdt = logz.dtype
+        tf = table.to(cdt)
+        want_h, want_t = ctx.needs_input_grad[0], ctx.needs_input_grad[1]
+        dh = torch.empty_like(h) if want_h else None
+        dt = torch.zeros(tf.shape, dtype=cdt, device=h.device) if want_t else None
+        g = grad.to(cdt)
+        for s0 in range(0, S, c):
+            hc = h[:, s0:s0 + c].to(cdt)
+            p = hc @ tf.T                                             # (B, c, V)
+            p.sub_(logz[:, s0:s0 + c, None]).exp_()                   # softmax
+            p.scatter_add_(-1, labels[:, s0:s0 + c, None],
+                           torch.full((B, hc.shape[1], 1), -1.0, dtype=cdt, device=h.device))
+            p.mul_(g)
+            if want_h:
+                dh[:, s0:s0 + c] = p @ tf
+            if want_t:
+                dt.addmm_(p.reshape(-1, p.shape[-1]).T, hc.reshape(-1, D))
+        return dh, (dt.to(table.dtype) if want_t else None), None, None
+
+
+def unembed_chunked(h: torch.Tensor, table: torch.Tensor, labels: torch.Tensor,
+                    chunk: int) -> torch.Tensor:
+    """Sequence-chunked cross-entropy: never materialises (B, S, V) at once.
+
+    h: (B, S, D), table: (V, D) (the tied embedding, or the head transposed),
+    labels (B, S) -> the mean cross-entropy over the n_chunks * c tokens it
+    keeps: S is cut into n_chunks = max(S // chunk, 1) chunks of c = S //
+    n_chunks positions, and the last S - n_chunks * c positions are dropped
+    when `chunk` does not divide S, as the reference's scan drops them. The
+    logits are float32; under autograd one chunk's (B, c, V) logits live at a
+    time (`_ChunkedCrossEntropy` recomputes them in backward)."""
+    B, S, _ = h.shape
+    n_chunks = max(S // chunk, 1)
+    c = S // n_chunks
+    keep = n_chunks * c
+    total = _ChunkedCrossEntropy.apply(h[:, :keep], table, labels[:, :keep].long(), c)
+    return total / (B * keep)

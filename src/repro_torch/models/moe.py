@@ -74,7 +74,7 @@ def route(router: torch.Tensor, xt: torch.Tensor, top_k: int, C: int) -> Routing
     expert by a cumsum over the flattened one-hot, token-major."""
     T = xt.shape[0]
     E = router.shape[1]
-    logits = xt.float() @ router                                        # (T, E)
+    logits = xt.to(torch.promote_types(xt.dtype, torch.float32)) @ router   # (T, E)
     probs = torch.softmax(logits, dim=-1)
     gate_vals, expert_idx = stable_top_k(probs, top_k)                  # (T, k)
     gate_vals = gate_vals / gate_vals.sum(dim=-1, keepdim=True)
@@ -110,12 +110,13 @@ def moe_block(
     buf = torch.zeros((E, C, D), dtype=x.dtype, device=x.device)
     buf.index_put_((safe_e, safe_c), src, accumulate=True)
 
-    cdt = x.dtype if bf16_compute else torch.float32
+    acc = torch.promote_types(x.dtype, torch.float32)   # float32 (float64 for gradcheck)
+    cdt = x.dtype if bf16_compute else acc
 
     def bmm(a, w):
         # The reference's einsum with preferred_element_type=f32: operands in
         # cdt, products and sums in float32.
-        return torch.bmm(a.to(cdt).float(), w.to(cdt).float())
+        return torch.bmm(a.to(cdt).to(acc), w.to(cdt).to(acc))
 
     gate = torch.nn.functional.silu(bmm(buf, p["w_gate"])).to(cdt)
     up = bmm(buf, p["w_up"]).to(cdt)
@@ -129,7 +130,7 @@ def moe_block(
     y = (out_tok * w).reshape(T, top_k, D).sum(dim=1)
 
     if "shared" in p:
-        y = y + swiglu(p["shared"], xt).float()
+        y = y + swiglu(p["shared"], xt).to(acc)
 
     # Switch load-balance loss: E * sum_e f_e * P_e.
     f = onehot.sum(dim=1).float().mean(dim=0)                           # (E,)

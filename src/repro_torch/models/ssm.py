@@ -147,12 +147,15 @@ def ssd_chunked(
     Cm: torch.Tensor,      # (B, S, G, N) f32
     chunk: int,
     init_state: torch.Tensor | None = None,   # (B, H, P, N)
+    in_place: bool = True,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Chunked SSD. Returns (y (B, S, H, P), final_state (B, H, P, N)).
 
     B and C are used once a group, their H/G heads stacked into one product
     (the reference repeats them to every head first: the same dot
-    products, without the (B, S, H, N) copies)."""
+    products, without the (B, S, H, N) copies). The serve path forms the
+    (B, nc, H, Q, Q) block in place; training (`in_place=False`) forms the
+    same values out of place, since exp's backward reads its output."""
     B_, S, H, P = x.shape
     G, N = Bm.shape[2], Bm.shape[3]
     rep = H // G
@@ -170,9 +173,14 @@ def ssd_chunked(
     dt_h = dtr.permute(0, 1, 3, 2)                              # (B, nc, H, Q)
 
     # Intra-chunk (the "quadratic attention" dual form): exp(segsum) * C.B * dt.
-    w = _segsum(a_t).exp_()                                     # (B, nc, H, Q, Q)
-    w.view(B_, nc, G, rep, Q, Q).mul_((Cg @ Bg.transpose(-1, -2))[:, :, :, None])
-    w.mul_(dt_h[..., None, :])
+    cb = (Cg @ Bg.transpose(-1, -2))[:, :, :, None]              # (B, nc, G, 1, Q, Q)
+    if in_place:
+        w = _segsum(a_t).exp_()                                 # (B, nc, H, Q, Q)
+        w.view(B_, nc, G, rep, Q, Q).mul_(cb)
+        w.mul_(dt_h[..., None, :])
+    else:
+        w = (_segsum(a_t).exp().view(B_, nc, G, rep, Q, Q) * cb).view(B_, nc, H, Q, Q)
+        w = w * dt_h[..., None, :]
     y = (w @ xr.permute(0, 1, 3, 2, 4)).permute(0, 1, 3, 2, 4)  # (B, nc, Q, H, P)
     del w
 
@@ -213,12 +221,14 @@ def ssm_block(
     chunk: int,
     cache: SSMCache | None = None,
     return_cache: bool = False,
+    train: bool = False,
 ) -> tuple[torch.Tensor, SSMCache | None]:
     """Full Mamba2 block: in_proj -> conv -> SSD -> gated norm -> out_proj.
 
     cache=None -> prefill (with `return_cache`, the decode cache of the
-    prompt); else one decode step (S = 1), which writes the new conv window
-    and state into `cache` in place and returns it."""
+    prompt; with `train`, the SSD out of place, for autograd); else one
+    decode step (S = 1), which writes the new conv window and state into
+    `cache` in place and returns it."""
     B_, S, D = x.shape
     di = expand * D
     H = di // head_dim
@@ -243,7 +253,7 @@ def ssm_block(
     A = -torch.exp(p["A_log"])
 
     if cache is None:
-        y, final_state = ssd_chunked(xs, dt, A, Bm, Cm, chunk)
+        y, final_state = ssd_chunked(xs, dt, A, Bm, Cm, chunk, in_place=not train)
         if return_cache:
             tail = F.pad(xbc_tail, (0, 0, (K - 1) - xbc_tail.shape[1], 0))
             tail = tail.to(torch.bfloat16).to(conv_cache_dtype(x.dtype))

@@ -1,14 +1,26 @@
-"""The LM's serve path: every architecture family assembled from the layers.
+"""The LM: every architecture family assembled from the layers, served and
+trained.
 
 The port of the reference package's `models/transformer.py`: `init_params`,
 the per-layer flags, `_dense_layer` (with whisper's cross-attention),
 `_ssm_layer`, the stacks -- the decoders (dense, moe, vlm), the Mamba2 stack
 (ssm), zamba2's SSM groups with one weight-shared attention block after
 each (hybrid), whisper's encoder and its decoder with cross-attention
-(encdec) -- and `LM` with `prefill`, `decode_step` (exact KV or BANG-KV) and
-`init_decode_caches`. Each stack is one Python loop over the layers, the
-counterpart of both the reference's `lax.scan` and its unrolled stack; the
-per-layer window and RoPE base are Python numbers (`static_layer_flags`).
+(encdec) -- and `LM` with `loss`, `prefill`, `decode_step` (exact KV or
+BANG-KV) and `init_decode_caches`. Each stack is one Python loop over the
+layers, the counterpart of both the reference's `lax.scan` and its unrolled
+stack; the per-layer window and RoPE base are Python numbers
+(`static_layer_flags`).
+
+Training (`mode="train"`, `LM.loss`) runs the same layers with full causal
+attention and no caches, then the sequence-chunked cross-entropy
+(`layers.unembed_chunked`). Remat goes where the reference's `_scan_stack`
+puts it: with `cfg.remat`, each scanned layer body -- a decoder layer, an
+SSM layer, whisper's decoder layer -- runs under
+`torch.utils.checkpoint.checkpoint(use_reentrant=False)`, so only the layer
+boundaries are kept and a layer's activations are recomputed in backward;
+zamba2's shared attention block and whisper's encoder are not
+rematerialised, as the reference's are not.
 
 Caches keep the reference's stacked layout -- K and V (L, B, S, Hkv, hd),
 BANG-KV codes (L, B, S, Hkv, m) uint8, `index` (L,) int32, the SSM's conv
@@ -18,10 +30,6 @@ window (L, B, K-1, conv_ch) and state (L, B, H, P, N); hybrid's
 across is a copy. A decode step writes the new entries into the caches in
 place at the device index (no host sync per layer or step) and returns
 caches that share their storage, with `index + 1`.
-
-Waiting for a later slice (ROADMAP A8d): training (`LM.loss`,
-`unembed_chunked`); `decoder_stack` refuses every mode but prefill and
-decode.
 """
 from __future__ import annotations
 
@@ -29,21 +37,24 @@ from typing import Any
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ModelConfig
 from ..kernels.common import resolve_device
 from . import retrieval_attention as bkv
 from .attention import KVCache, attention_block, attn_params, cross_attention
 from .ffn import ffn_params, swiglu
-from .layers import ParamTree, embed, norm, norm_params, truncated_normal_init
+from .layers import ParamTree, embed, norm, norm_params, truncated_normal_init, unembed_chunked
 from .moe import MoEAux, moe_block, moe_params
 from .ssm import SSMCache, ssm_block, ssm_cache_init, ssm_params
 
 SERVE_FAMILIES = ("dense", "moe", "vlm", "audio", "ssm", "hybrid")
+MODES = ("train", "prefill", "decode", "decode_bangkv")
 
 
 def check_family(cfg: ModelConfig) -> None:
-    """Raise for an architecture that no serve path of the port supports."""
+    """Raise for an architecture that no serve or train path of the port
+    supports."""
     if cfg.family not in SERVE_FAMILIES or cfg.arch_kind not in ("decoder", "encdec"):
         raise NotImplementedError(
             f"{cfg.name}: family {cfg.family!r} ({cfg.arch_kind}) has no serve path")
@@ -195,6 +206,8 @@ def _dense_layer(cfg: ModelConfig, p, h, window, theta, cache, mode: str, codebo
             window=window, cache=cache if mode == "decode" else None,
             bf16_scores=cfg.opt_attn_bf16, window_skip=cfg.opt_window_skip,
         )
+        if mode == "train":
+            new_cache = None   # training keeps no K and V
     h = h + y
 
     if cross_mem is not None:   # whisper's decoder: no RoPE on the cross query
@@ -216,8 +229,8 @@ def _dense_layer(cfg: ModelConfig, p, h, window, theta, cache, mode: str, codebo
 
 
 def _ssm_layer(cfg: ModelConfig, p, h, cache, mode: str):
-    """One Mamba2 layer. Returns (h, cache): prefill's new cache, or the
-    decode step's `cache`, updated in place."""
+    """One Mamba2 layer. Returns (h, cache): prefill's new cache, the decode
+    step's `cache`, updated in place, or None in training."""
     x = norm(h, p["norm"], cfg.norm_kind, cfg.norm_eps)
     y, new_cache = ssm_block(
         p["ssm"], x,
@@ -225,7 +238,7 @@ def _ssm_layer(cfg: ModelConfig, p, h, cache, mode: str):
         head_dim=cfg.ssm_head_dim, groups=cfg.ssm_groups,
         chunk=_pick_chunk(x.shape[1], cfg.ssm_chunk),
         cache=cache if mode.startswith("decode") else None,
-        return_cache=(mode == "prefill"),
+        return_cache=(mode == "prefill"), train=(mode == "train"),
     )
     return h + y, new_cache
 
@@ -233,6 +246,21 @@ def _ssm_layer(cfg: ModelConfig, p, h, cache, mode: str):
 # ---------------------------------------------------------------------------
 # Stacks
 # ---------------------------------------------------------------------------
+
+def _remat(cfg: ModelConfig, mode: str, scanned: bool = True) -> bool:
+    """Whether a layer body is rematerialised: in training with
+    `cfg.remat`, where the reference scans the layers (it does not
+    rematerialise its unrolled dense stack, `scan_layers=False`)."""
+    return mode == "train" and cfg.remat and scanned
+
+
+def _call(remat: bool, fn, *args):
+    """fn(*args), under activation checkpointing when `remat`. The layers
+    draw no random numbers, so no RNG state is saved."""
+    if remat:
+        return checkpoint(fn, *args, use_reentrant=False, preserve_rng_state=False)
+    return fn(*args)
+
 
 def _layer(caches, i: int):
     """Layer i's view of a stacked cache (a NamedTuple of (L, ...) tensors)."""
@@ -250,7 +278,12 @@ def _kv_buffers(n: int, B: int, s_max: int, S: int, cfg: ModelConfig, like: torc
 def _ssm_layers(cfg: ModelConfig, layers, h, mode: str, caches: SSMCache | None,
                 out: SSMCache | None, lo: int, hi: int):
     """SSM layers lo..hi-1: decode updates `caches` in place; prefill writes
-    each layer's new cache into the stacked `out`."""
+    each layer's new cache into the stacked `out`; training keeps none and
+    rematerialises each layer with `cfg.remat`."""
+    if mode == "train":
+        for i in range(lo, hi):
+            h = _call(_remat(cfg, mode), lambda h, p=layers[i]: _ssm_layer(cfg, p, h, None, mode)[0], h)
+        return h
     for i in range(lo, hi):
         h, c_i = _ssm_layer(cfg, layers[i], h, _layer(caches, i) if caches is not None else None,
                             mode)
@@ -271,12 +304,21 @@ def _hybrid_stack(cfg: ModelConfig, params, h, *, mode: str, caches, s_max: int 
     the one shared attention block (the same weights, a cache of its own
     per call, window s_ref + 1, the config's RoPE base).
 
-    caches = (SSM caches (L, ...), attention caches (n_groups, ...))."""
+    caches = (SSM caches (L, ...), attention caches (n_groups, ...)); none
+    in training, where the SSM layers are rematerialised and the shared
+    block is not (as the reference's `_hybrid_stack`)."""
     every = cfg.hybrid_attn_every
     n_groups = cfg.n_layers // every
-    decode = mode != "prefill"
     B, S, _ = h.shape
     aux = _zero_aux(h.device)
+    if mode == "train":
+        for g in range(n_groups):
+            h = _ssm_layers(cfg, params["layers"], h, mode, None, None, g * every, (g + 1) * every)
+            h, _, aux_g = _dense_layer(cfg, params["shared_attn"], h, S + 1, cfg.rope_theta, None,
+                                       mode)
+            aux = _add_aux(aux, aux_g)
+        return h, aux, None
+    decode = mode != "prefill"
     if decode:
         ssm_c, attn_c = caches
         s_ref, ssm_out = attn_c.k.shape[2], None
@@ -302,14 +344,18 @@ def decoder_stack(cfg: ModelConfig, params, h: torch.Tensor, *, mode: str, cache
                   s_max: int | None = None, cross_mem=None):
     """Run the decoder layers. Returns (h, aux summed over layers, caches).
 
-    mode "prefill": caches are made here -- attention caches (L, B, s_max or
-    S, Hkv, hd) with the prompt's roped K and V in the first S slots and
-    index S, SSM caches with the prompt's conv window and final state.
-    "decode" / "decode_bangkv": `caches` are updated in place. Whisper's
-    decoder takes `cross_mem` = (cross_k, cross_v) (L, B, M, Hkv, hd)."""
+    mode "train": full causal attention, no caches (None), each layer
+    rematerialised with `cfg.remat`. "prefill": caches are made here --
+    attention caches (L, B, s_max or S, Hkv, hd) with the prompt's roped K
+    and V in the first S slots and index S, SSM caches with the prompt's
+    conv window and final state. "decode" / "decode_bangkv": `caches` are
+    updated in place. Whisper's decoder takes `cross_mem` = (cross_k,
+    cross_v) (L, B, M, Hkv, hd)."""
     check_family(cfg)
-    if mode not in ("prefill", "decode", "decode_bangkv"):
-        raise NotImplementedError(f"mode {mode!r}: training waits for a later slice (ROADMAP A8d)")
+    if mode not in MODES:
+        raise ValueError(f"mode {mode!r} is not one of {MODES}")
+    if mode == "train":
+        return _train_stack(cfg, params, h, cross_mem)
     decode = mode != "prefill"
     if cfg.family == "ssm":
         out = None if decode else _ssm_prefill_buffers(cfg, h)
@@ -340,9 +386,32 @@ def decoder_stack(cfg: ModelConfig, params, h: torch.Tensor, *, mode: str, cache
     return h, aux, KVCache(k_all, v_all, index)
 
 
+def _train_stack(cfg: ModelConfig, params, h: torch.Tensor, cross_mem):
+    """decoder_stack's training mode: (h, aux summed over layers, None)."""
+    if cfg.family == "ssm":
+        h = _ssm_layers(cfg, params["layers"], h, "train", None, None, 0, cfg.n_layers)
+        return h, _zero_aux(h.device), None
+    if cfg.family == "hybrid":
+        return _hybrid_stack(cfg, params, h, mode="train", caches=None, s_max=None)
+    wins, thetas = static_layer_flags(cfg, h.shape[1])
+    remat = _remat(cfg, "train", cfg.scan_layers)
+    aux = _zero_aux(h.device)
+    for i in range(cfg.n_layers):
+        cm_i = (cross_mem[0][i], cross_mem[1][i]) if cross_mem is not None else None
+
+        def body(h, p=params["layers"][i], w=wins[i], th=thetas[i], cm=cm_i):
+            h, _, aux_i = _dense_layer(cfg, p, h, w, th, None, "train", cross_mem=cm)
+            return h, aux_i
+
+        h, aux_i = _call(remat, body, h)
+        aux = _add_aux(aux, aux_i)
+    return h, aux, None
+
+
 def encoder_stack(cfg: ModelConfig, params, mem: torch.Tensor) -> torch.Tensor:
     """Whisper's encoder: bidirectional attention over the frame embeddings
-    (RoPE on q and k at positions 0..M-1), a SwiGLU FFN, the final norm."""
+    (RoPE on q and k at positions 0..M-1), a SwiGLU FFN, the final norm.
+    Never rematerialised (the reference scans it in mode "encode")."""
     enc = params["encoder"]
     S = mem.shape[1]
     h = mem
@@ -408,16 +477,61 @@ def clone_caches(caches):
 
 
 # ---------------------------------------------------------------------------
+# Loss
+# ---------------------------------------------------------------------------
+
+def embed_inputs(cfg: ModelConfig, params, tokens: torch.Tensor,
+                 frontend: torch.Tensor | None) -> torch.Tensor:
+    """Token embeddings, a vlm's patch embeddings (`frontend`) prepended."""
+    h = embed(tokens.long(), params["embed"])
+    if cfg.frontend == "vision_stub" and frontend is not None:
+        h = torch.cat([frontend.to(h.dtype), h], dim=1)
+    return h
+
+
+def lm_loss(cfg: ModelConfig, params, batch: dict) -> tuple[torch.Tensor, dict]:
+    """The training loss of `batch` ("tokens", "labels" (B, S); "frontend"
+    (B, M, D) for whisper's frames or a vlm's patches) and its metrics.
+
+    Whisper runs the encoder and every layer's cross K and V, then the
+    decoder; a vlm drops the patch positions after the final norm. loss =
+    ce + 0.01 load_balance + 0.001 router_z, the MoE terms summed over the
+    layers (0 for the other families); the metrics ce, load_balance,
+    router_z and dropped_frac come back detached."""
+    tokens, labels = batch["tokens"], batch["labels"]
+    frontend = batch.get("frontend")
+    if cfg.arch_kind == "encdec":
+        memory = encoder_stack(cfg, params, frontend.to(getattr(torch, cfg.dtype)))
+        cm = cross_kv(cfg, params, memory)
+        h = embed(tokens.long(), params["embed"])
+        h, aux, _ = decoder_stack(cfg, params, h, mode="train", cross_mem=cm)
+    else:
+        h = embed_inputs(cfg, params, tokens, frontend)
+        h, aux, _ = decoder_stack(cfg, params, h, mode="train")
+    h = norm(h, params["final_norm"], cfg.norm_kind, cfg.norm_eps)
+    if cfg.frontend == "vision_stub" and frontend is not None:
+        h = h[:, frontend.shape[1]:]
+    table = params["embed"] if cfg.tie_embeddings else params["lm_head"].T
+    ce = unembed_chunked(h, table, labels, _pick_chunk(h.shape[1], cfg.loss_chunk))
+    loss = ce + 0.01 * aux.load_balance + 0.001 * aux.router_z
+    metrics = {"ce": ce, "load_balance": aux.load_balance, "router_z": aux.router_z,
+               "dropped_frac": aux.dropped_frac}
+    return loss, {k: v.detach() for k, v in metrics.items()}
+
+
+# ---------------------------------------------------------------------------
 # Model API
 # ---------------------------------------------------------------------------
 
 class LM(nn.Module):
-    """One architecture's parameters and its serve path.
+    """One architecture's parameters, its training loss and its serve path.
 
     `LM(cfg)` draws random parameters on the card (`device="cuda"`, which
     raises where there is none); the tests pass `device="cpu"`, or
     parameters carried across from the reference
-    (`convert.lm_params_from_reference`)."""
+    (`convert.lm_params_from_reference`). The parameters are frozen until
+    training makes them trainable (`lm.params.requires_grad_()`); the serve
+    entry points compute no gradients either way."""
 
     def __init__(self, cfg: ModelConfig, params: ParamTree | None = None, *,
                  device: str | torch.device = "cuda", generator: torch.Generator | None = None):
@@ -443,13 +557,6 @@ class LM(nn.Module):
             raise ValueError(f"{self.cfg.name} has no attention: no BANG-KV codebooks")
         self.params["bangkv_codebooks"].copy_(codebooks)
 
-    # ---------------------------------------------------------------- embed
-    def _embed_inputs(self, tokens: torch.Tensor, frontend: torch.Tensor | None):
-        h = embed(tokens.long(), self.params["embed"])
-        if self.cfg.frontend == "vision_stub" and frontend is not None:
-            h = torch.cat([frontend.to(h.dtype), h], dim=1)
-        return h
-
     def _logits_head(self, h: torch.Tensor) -> torch.Tensor:
         """float32 logits. The head is cast to float32 on every call, as the
         reference does (2.5 GB for glm4-9b's 151,552 x 4096)."""
@@ -457,11 +564,18 @@ class LM(nn.Module):
         head = p["embed"].T if self.cfg.tie_embeddings else p["lm_head"]   # (D, V)
         return h.float() @ head.float()
 
+    @torch.no_grad()
     def encode(self, frontend: torch.Tensor):
         """Whisper: the encoder over (B, M, D) frame embeddings, then every
         decoder layer's cross K and V (L, B, M, Hkv, hd)."""
         memory = encoder_stack(self.cfg, self.params, frontend.to(self.dtype))
         return cross_kv(self.cfg, self.params, memory)
+
+    # ----------------------------------------------------------------- train
+    def loss(self, batch: dict) -> tuple[torch.Tensor, dict]:
+        """(loss, metrics) of a training batch (`lm_loss`); gradients flow
+        to the parameters that require them."""
+        return lm_loss(self.cfg, self.params, batch)
 
     # --------------------------------------------------------------- prefill
     @torch.no_grad()
@@ -479,7 +593,7 @@ class LM(nn.Module):
                                               cross_mem=cm)
             caches = (self_caches, cm)
         else:
-            h = self._embed_inputs(batch["tokens"], batch.get("frontend"))
+            h = embed_inputs(cfg, self.params, batch["tokens"], batch.get("frontend"))
             h, _, caches = decoder_stack(cfg, self.params, h, mode="prefill", s_max=s_max)
         h = norm(h, self.params["final_norm"], cfg.norm_kind, cfg.norm_eps)
         return self._logits_head(h[:, -1:]), caches

@@ -11,6 +11,8 @@
 #   resilience  -- fault injection + fault-handling policy for the host tier
 #   telemetry   -- metrics registry + exporters, request tracing (Chrome
 #                  trace JSON), per-hop profiling, fault flight recorder
+#   train_loop  -- the LM's fault-tolerant training loop: AdamW, checkpoints,
+#                  resume, failure injection, straggler monitor
 from .executor import SearchExecutor, SearchHandle, bucket_size, pad_batch  # noqa: F401
 from .hostio import (  # noqa: F401
     HostIOConfig,
@@ -29,3 +31,4 @@ from .telemetry import (  # noqa: F401
     Telemetry,
     Tracer,
 )
+from .train_loop import TrainLoopConfig, train_loop  # noqa: F401

@@ -372,6 +372,51 @@ def test_chip_smoke_lm_phase_on_cpu(smoke, monkeypatch):
     assert out["phase_s"] > 0 and out["memory_before"] is None
 
 
+def test_chip_smoke_train_phase_on_cpu(smoke, monkeypatch):
+    """Phase 8 at the reduced configs: 8a's run (8 steps, the optimizer
+    alone), 8b's five cut-depth families (3 steps each), 8c's card against
+    CPU (CPU against CPU here: every difference 0), 8d's failure and resume
+    bit-equal, and no port kernel launched."""
+    import repro_torch.configs as configs
+
+    monkeypatch.setattr(smoke, "lm_config", lambda name, **kw: configs.get(name).reduced(**kw))
+    for name, value in (("TRAIN_SEQ", 32), ("ENCDEC_TRAIN_TOKENS", 12)):
+        monkeypatch.setattr(smoke, name, value)
+    out = smoke.train_phase(torch.device("cpu"), "cpu")
+    full = out["full"]
+    assert full["arch"] == "granite-3-2b-reduced" and full["steps"] == 8 == len(full["losses"])
+    assert full["seq_len"] == 32 and full["batch"] == smoke.TRAIN_BATCH
+    assert full["lrs"][0] == 0.0 and max(full["lrs"]) == pytest.approx(smoke.TRAIN_PEAK_LR)
+    assert all(l > 0 for l in full["losses"]) and all(g > 0 for g in full["grad_norms"])
+    cfg = configs.get("granite-3-2b").reduced()
+    assert full["model_flops_per_step"] == 6 * cfg.param_count() * 2 * 32
+    assert full["optimizer_ms"] > 0 and full["tokens_per_s"] > 0 and full["mfu"] > 0
+    # Parameters (bf16 weights, float32 norms and codebooks) and the AdamW
+    # state (mu, nu, master: 12 bytes a parameter).
+    n = full["params"]
+    assert 2 * n < full["param_bytes"] < 4 * n and full["state_bytes"] == full["param_bytes"] + 12 * n
+    assert full["idle_share"] is None and full["memory"] is None
+    cut = {c["arch"]: c for c in out["cut"]}
+    assert sorted(cut) == ["internvl2-1b-reduced", "mamba2-2.7b-reduced", "phi3.5-moe-42b-a6.6b-reduced",
+                           "whisper-medium-reduced", "zamba2-2.7b-reduced"]
+    assert cut["phi3.5-moe-42b-a6.6b-reduced"]["layers"] == smoke.MOE_TRAIN_LAYERS
+    assert cut["zamba2-2.7b-reduced"]["layers"] == smoke.HYBRID_CUT_LAYERS
+    assert cut["whisper-medium-reduced"]["encoder_layers"] == smoke.LM_CUT_LAYERS
+    assert cut["whisper-medium-reduced"]["seq_len"] == 12
+    for c in cut.values():
+        assert c["steps"] == len(c["losses"]) == smoke.CUT_TRAIN_STEPS and c["dtype"] == "bfloat16"
+    assert cut["phi3.5-moe-42b-a6.6b-reduced"]["metrics_last"]["load_balance"] > 0
+    assert [c["arch"] for c in out["card_vs_cpu"]] == [
+        "granite-3-2b-reduced", "phi3.5-moe-42b-a6.6b-reduced", "mamba2-2.7b-reduced",
+        "zamba2-2.7b-reduced", "whisper-medium-reduced"]
+    for c in out["card_vs_cpu"]:
+        assert c["loss_abs_diff"] == c["grad_norm_abs_diff"] == c["losses_max_abs_diff"] == 0.0
+        assert c["master_max_abs_diff"] == 0.0 and c["master_entries"] > 0
+    res = out["resume"]
+    assert res["bit_equal"] and res["resumed_losses"] == res["whole_losses"][6:]
+    assert out["kernel_launches"] == dict.fromkeys(smoke.kernel_counters(), 0)
+    assert out["phase_s"] > 0
+
 def test_code_gaps_reports_each_differing_code(smoke):
     """Phase 5b's C10 check: one line for each (row, subspace) whose codes
     differ, with both centroids' float64 squared distances and the gap in

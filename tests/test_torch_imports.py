@@ -77,6 +77,14 @@ ELEVENTH_SLICE = {
 # Modules of the twelfth slice: the Mamba2 / SSD blocks (ssm and hybrid).
 TWELFTH_SLICE = {"repro_torch.models.ssm"}
 
+# Modules of the thirteenth slice: training.
+THIRTEENTH_SLICE = {
+    "repro_torch.tree", "repro_torch.optim", "repro_torch.optim.adamw",
+    "repro_torch.optim.schedule", "repro_torch.optim.compression", "repro_torch.checkpoint",
+    "repro_torch.checkpoint.ckpt", "repro_torch.data.tokens", "repro_torch.runtime.train_loop",
+    "repro_torch.launch", "repro_torch.launch.train",
+}
+
 
 def test_every_module_imports_without_jax_or_reference():
     env = dict(os.environ, PYTHONPATH=str(SRC))
@@ -87,8 +95,8 @@ def test_every_module_imports_without_jax_or_reference():
     assert res.returncode == 0, res.stderr
     names = set(res.stdout.split())
     slices = (SECOND_SLICE | THIRD_SLICE | EIGHTH_SLICE | NINTH_SLICE | TENTH_SLICE | ELEVENTH_SLICE
-              | TWELFTH_SLICE)
-    assert len(names) >= 65 and slices <= names   # every module was walked
+              | TWELFTH_SLICE | THIRTEENTH_SLICE)
+    assert len(names) >= 76 and slices <= names   # every module was walked
 
 
 def test_from_arrays_defaults_to_cuda():
@@ -185,3 +193,19 @@ def test_lm_defaults_to_cuda(name):
         c = caches.pop()
         (caches if isinstance(c, tuple) else leaves).extend(c if isinstance(c, tuple) else [c])
     assert lm.device.type == "cpu" and leaves and all(x.device.type == "cpu" for x in leaves)
+
+
+def test_training_defaults_to_cuda():
+    """`train_loop` and the training CLI run on the card unless asked for
+    the CPU: with no card they raise and never fall back to the CPU."""
+    import repro_torch.configs as configs
+    from repro_torch.launch import train as launch_train
+    from repro_torch.runtime import TrainLoopConfig, train_loop
+
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default device is usable")
+    cfg = configs.get("granite-3-2b").reduced()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        train_loop(cfg, TrainLoopConfig(steps=1, seq_len=8, global_batch=1, log_every=0))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        launch_train.main(["--arch", "granite-3-2b", "--reduced", "--steps", "1"])

@@ -275,7 +275,8 @@ def test_init_matches_reference_shapes(name):
 def test_every_config_serves_on_cpu(name):
     """`LM(cfg, device="cpu")` constructs for every config, and `prefill`,
     an exact-KV and, where the family has attention, a BANG-KV decode step
-    give finite logits of the vocabulary's width."""
+    give finite logits of the vocabulary's width; the training mode of the
+    stack makes no caches."""
     cfg = configs.get(name).reduced(dtype="float32")
     lm = LM(cfg, device="cpu", generator=torch.Generator().manual_seed(1))
     tokens, batch = _prompt(cfg, 3, 2, 10, 1)
@@ -289,9 +290,12 @@ def test_every_config_serves_on_cpu(name):
             codes = torch.stack([bkv.encode_keys(lm.params["bangkv_codebooks"][i], kv.k[i])
                                  for i in range(kv.k.shape[0])])
             caches = with_attention_caches(cfg, caches, bkv.BangKVCache(codes, kv.k, kv.v, kv.index))
-    with pytest.raises(NotImplementedError, match="ROADMAP A8d"):
-        from repro_torch.models.transformer import decoder_stack
-        decoder_stack(cfg, lm.params, torch.zeros((1, 4, cfg.d_model)), mode="train")
+    # Training runs too (tests/test_torch_train.py holds it): no caches.
+    from repro_torch.models.transformer import decoder_stack
+    h, _, caches = decoder_stack(cfg, lm.params, torch.zeros((1, 4, cfg.d_model)), mode="train")
+    assert caches is None and h.shape == (1, 4, cfg.d_model) and bool(torch.isfinite(h).all())
+    with pytest.raises(ValueError, match="mode"):
+        decoder_stack(cfg, lm.params, torch.zeros((1, 4, cfg.d_model)), mode="encode")
 
 
 @pytest.mark.parametrize("name", ["gemma3-27b", "glm4-9b"])
