@@ -144,6 +144,23 @@ Phases, each timed; any failure exits non-zero:
      granite with checkpoints every 3 steps, resumed, bit-equal to an
      uninterrupted run. No port kernel lies on this path: the launch
      counts stay 0. Its numbers go into the summary line under "train".
+  9. the mesh training step (`mesh_phase`) on the (1, 1) mesh, a one-rank
+     NCCL group: 9a granite-3-2b at full width and depth (8a's shape, bf16,
+     remat, 2 x 4,096 tokens, parameters drawn from 8a's seed), 3 steps of
+     `launch.specs.step_and_specs`'s train step (every weight gathered at
+     its use, the vocabulary-parallel cross-entropy, the row-parallel
+     all-reduces, the sharded global norm, all over one rank), then 3
+     plain steps (`LM.loss`, backward, `adamw_update` at lr 1e-4) from the
+     same parameters (drawn again from the seed): each step's loss and the
+     bf16 parameters after step 3, from host copies, bit-equal or within
+     the stated bound; both median step times, the mesh step's collectives
+     a step (host count), its NCCL kernels and device copies and their
+     share of device time (one step profiled on the device alone), and
+     peak memory of each; 9b `compressed_psum` over the
+     one-rank data group on granite's gradients of the profiled step,
+     bit-equal to `ef_int8_compress` (n = 1). No port kernel lies on this
+     path: the launch counts stay 0. Its numbers go into the summary line
+     under "mesh".
 
 Kernel times are taken cold: the timed calls cycle through copies of the
 inputs that together exceed twice the H100's 50 MB L2. Bounds count the bytes the function needs for this run's
@@ -1944,18 +1961,21 @@ def port_kernel_names() -> set:
     return names
 
 
-def device_profile(label: str, fn, wall_ms_unprofiled: float) -> dict | None:
+def device_profile(label: str, fn, wall_ms_unprofiled: float, cpu_ops: bool = True) -> dict | None:
     """Device time by kernel over one call of `fn` (torch.profiler), set
     against `wall_ms_unprofiled`, the mean wall of unprofiled calls.
     Returns the busy ms, the device event count and the collectives' (NCCL)
-    ms and events, or None where the profiler saw no device time."""
+    ms and events, or None where the profiler saw no device time. With
+    `cpu_ops=False` only device activity is recorded (a training step's
+    host ops take the profiler tens of seconds to process)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    activities = [ProfilerActivity.CPU] if cpu_ops else []
+    with profile(activities=activities + [ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t0) * 1e3
@@ -1984,8 +2004,10 @@ def device_profile(label: str, fn, wall_ms_unprofiled: float) -> dict | None:
         if any(f"::{name}" in e.key for name in port):
             log(f"[profile]   port kernel {self_us(e) / 1e3:9.3f} ms  x{e.count:<6d} "
                 f"{self_us(e) / e.count / 1e3:.4f} ms a launch  {e.key[:80]}")
+    copies = [e for e in events if "memcpy dtod" in e.key.lower()]
     return dict(busy_ms=busy_ms, device_events=n_events, nccl_ms=sum(self_us(e) for e in nccl) / 1e3,
-                nccl_events=sum(e.count for e in nccl))
+                nccl_events=sum(e.count for e in nccl),
+                copy_ms=sum(self_us(e) for e in copies) / 1e3, copy_events=sum(e.count for e in copies))
 
 
 def small_vs_cpu(dev) -> float:
@@ -2984,6 +3006,193 @@ def train_phase(dev, card: str) -> dict:
     return out
 
 
+# ------------------------------------------------------------- phase 9
+MESH_STEPS = 3                  # 9a: steps each way, mesh step then plain step
+
+
+def bf16_within(a, b, lr: float, steps: int) -> tuple[int, float, bool]:
+    """(entries that differ, the largest difference, within the bound):
+    at most 1 in 1,000 entries differ, each by at most 2 lr a step plus one
+    bf16 ulp of its value (ROADMAP C15's bound, in the parameters' dtype)."""
+    import torch
+
+    if torch.equal(a, b):
+        return 0, 0.0, True
+    d = (a.float() - b.float()).abs()
+    differ = d > 0
+    n = int(differ.sum())
+    worst = float(d.max()) if n else 0.0
+    ulp = b.float().abs() * 2.0 ** -7
+    ok = n <= 1e-3 * d.numel() and bool((d <= 2 * lr * steps + ulp).all())
+    return n, worst, ok
+
+
+def mesh_phase(dev, card: str) -> dict:
+    """Phase 9: the mesh training step on the (1, 1) mesh (a one-rank
+    NCCL group on the card, gloo on the CPU). 9a: granite-3-2b at 8a's
+    shape, MESH_STEPS steps of `step_and_specs`'s train step, one more
+    under the profiler, then MESH_STEPS plain steps from the same
+    parameters (the two sets of state do not fit the card together); 9b:
+    `compressed_psum` on the data group against `ef_int8_compress`. The
+    launch counts, set to 0 first, must all be 0 after."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.data import TokenStream
+    from repro_torch.distributed import make_mesh, shard_tree
+    from repro_torch.launch.specs import LR, step_and_specs
+    from repro_torch.models import LM, init_params
+    from repro_torch.optim import (adamw_init, adamw_update, compressed_psum, compression_init,
+                                   ef_int8_compress)
+    from repro_torch.tree import flat_dict
+
+    t_phase = time.perf_counter()
+    reset_launches()
+    cfg = lm_config(TRAIN_ARCH)
+    seq = TRAIN_SEQ
+    free_device(dev)
+    made = not dist.is_initialized()
+    mesh = make_mesh((1, 1), ("data", "model"), dev)
+    out = {"arch": cfg.name, "mesh": dict(mesh.shape), "backend": dist.get_backend(),
+           "steps": MESH_STEPS, "batch": TRAIN_BATCH, "seq_len": seq, "lr": LR}
+    try:
+        stream = TokenStream(cfg.vocab_size, seq, TRAIN_BATCH, seed=SEED)
+        batches = [{k: torch.from_numpy(v).to(dev) for k, v in stream.batch_at(s).items()}
+                   for s in range(MESH_STEPS + 1)]
+        # The plain steps draw the same parameters again from the seed:
+        # each tensor's float64 sum is held equal.
+        params = init_params(cfg, torch.Generator(dev).manual_seed(SEED + 6), dev)
+        sums = torch.stack([p.detach().double().sum() for p in params.parameters()]).cpu()
+        step, _, place = step_and_specs(cfg, ShapeSpec("train_4k", "train", seq, TRAIN_BATCH), mesh)
+        mparams = shard_tree(params, place[0], mesh)   # one rank: a copy
+        del params
+        opt = adamw_init(mparams)
+        free_device(dev)
+        mc = step.mesh_context
+        mesh_ms, mesh_losses = [], []
+        for s in range(MESH_STEPS):
+            sync(dev)
+            t0 = time.perf_counter()
+            mparams, opt, loss = step(mparams, opt, shard_tree(batches[s], place[2], mesh))
+            mesh_losses.append(loss.item())
+            sync(dev)
+            mesh_ms.append((time.perf_counter() - t0) * 1e3)
+        counts = {k: v / MESH_STEPS for k, v in mc.counts.items()}
+        mem = device_mem(dev)
+        t0 = time.perf_counter()
+        mesh_after = {k: p.detach().cpu() for k, p in flat_dict(mparams).items()}
+        copy_s = time.perf_counter() - t0
+        med = float(np.median(mesh_ms[1:]))
+        prof = None
+        t0 = time.perf_counter()
+        if torch.device(dev).type == "cuda":
+            prof = device_profile("9a one mesh step (1, 1)", lambda: step(
+                mparams, opt, shard_tree(batches[MESH_STEPS], place[2], mesh)), med, cpu_ops=False)
+        profile_s = time.perf_counter() - t0
+        out["mesh_step"] = {
+            "losses": mesh_losses, "step_ms": mesh_ms, "ms_per_step": med,
+            "tokens_per_s": TRAIN_BATCH * seq / (med / 1e3), "collectives_per_step": counts,
+            "memory": mem,
+            "device_profile": prof,
+            "nccl_share_of_device_time": None if prof is None else prof["nccl_ms"] / prof["busy_ms"],
+            "idle_share": None if prof is None else 1.0 - prof["busy_ms"] / med}
+        log(f"[mesh] 9a {cfg.name} on the {dict(mesh.shape)} mesh ({dist.get_backend()}, one rank), "
+            f"{MESH_STEPS} steps of {TRAIN_BATCH} x {seq} tokens: {med:.1f} ms a step (median after the "
+            f"first; first {mesh_ms[0]:.1f}); losses " + ", ".join(f"{x:.6f}" for x in mesh_losses)
+            + "; collectives a step " + ", ".join(f"{k} {v:.0f}" for k, v in sorted(counts.items()))
+            + ("; NCCL not measured" if prof is None else
+               f"; NCCL {prof['nccl_events']} kernels, {prof['nccl_ms']:.2f} ms = "
+               f"{100 * prof['nccl_ms'] / prof['busy_ms']:.2f}% of {prof['busy_ms']:.1f} ms device busy "
+               f"({prof['device_events']} events, idle {100 * (1 - prof['busy_ms'] / med):.1f}%); device "
+               f"copies {prof['copy_events']}, {prof['copy_ms']:.2f} ms")
+            + f"; peak device memory {(mem or {}).get('peak_bytes', 0) / 1e9:.2f} GB [{card}]")
+
+        # 9b: the profiled step's gradients, the optimizer state freed first.
+        grads = {k: p.grad for k, p in flat_dict(mparams).items() if p.grad is not None}
+        del opt, mparams
+        free_device(dev)
+        sync(dev)
+        t0 = time.perf_counter()
+        deq, state = compressed_psum(grads, mesh.group("data"), compression_init(grads))
+        sync(dev)
+        psum_ms = (time.perf_counter() - t0) * 1e3
+        ef_deq, ef_state = ef_int8_compress(grads, compression_init(grads))
+        equal = all(torch.equal(deq[k], ef_deq[k]) and torch.equal(state.err[k], ef_state.err[k])
+                    for k in grads)
+        n_entries = sum(g.numel() for g in grads.values())
+        del deq, state, ef_deq, ef_state, grads
+        if not equal:
+            raise AssertionError("9b: compressed_psum over one rank differs from ef_int8_compress")
+        out["compressed_psum"] = {"bit_equal_to_ef_int8": equal, "ms": psum_ms, "entries": n_entries}
+        log(f"[mesh] 9b compressed_psum over the one-rank data group, {n_entries:,} gradient entries: "
+            f"dequantised sums and residuals bit-equal to ef_int8_compress; {psum_ms:.1f} ms [{card}]")
+
+        # 9a's plain steps from the same parameters.
+        free_device(dev)
+        params = init_params(cfg, torch.Generator(dev).manual_seed(SEED + 6), dev)
+        again = torch.stack([p.detach().double().sum() for p in params.parameters()]).cpu()
+        if not torch.equal(sums, again):
+            raise AssertionError("9a: the parameters drawn again from the seed differ")
+        lm = LM(cfg, params)
+        popt = adamw_init(params)
+        params.requires_grad_(True)
+        plain_ms, plain_losses = [], []
+        for s in range(MESH_STEPS):
+            sync(dev)
+            t0 = time.perf_counter()
+            for p in params.parameters():
+                p.grad = None
+            loss, _ = lm.loss(batches[s])
+            loss.backward()
+            _, popt, _ = adamw_update({k: p.grad for k, p in flat_dict(params).items()}, popt, params, LR)
+            plain_losses.append(loss.item())
+            sync(dev)
+            plain_ms.append((time.perf_counter() - t0) * 1e3)
+        pmem = device_mem(dev)
+        t0 = time.perf_counter()
+        plain_after = {k: p.detach().cpu() for k, p in flat_dict(params).items()}
+        copy_s += time.perf_counter() - t0
+        del lm, params, popt
+        free_device(dev)
+        pmed = float(np.median(plain_ms[1:]))
+        out["plain_step"] = {"losses": plain_losses, "step_ms": plain_ms, "ms_per_step": pmed,
+                             "memory": pmem}
+        loss_bits = mesh_losses == plain_losses
+        if not loss_bits and not np.allclose(mesh_losses, plain_losses, rtol=1e-5, atol=0):
+            raise AssertionError(f"9a: mesh losses {mesh_losses}, plain {plain_losses}")
+        t0 = time.perf_counter()
+        differ, worst, total = 0, 0.0, 0
+        for k, a in mesh_after.items():
+            n, w, ok = bf16_within(a, plain_after[k], LR, MESH_STEPS)
+            if not ok:
+                raise AssertionError(f"9a: {k} differs in {n} entries, by up to {w}")
+            differ, worst, total = differ + n, max(worst, w), total + a.numel()
+        out["seconds"] = {"host_copies": copy_s, "profiled_step": profile_s,
+                          "compare": time.perf_counter() - t0}
+        out["parity"] = {"losses_bit_equal": loss_bits, "param_entries": total,
+                         "param_entries_differing": differ, "param_max_abs_diff": worst,
+                         "bit_equal": loss_bits and differ == 0}
+        out["mesh_over_plain"] = med / pmed
+        log(f"[mesh] 9a plain steps from the same parameters: {pmed:.1f} ms a step (first "
+            f"{plain_ms[0]:.1f}); losses " + ", ".join(f"{x:.6f}" for x in plain_losses)
+            + f"; mesh / plain step time {med / pmed:.4f}; peak device memory "
+            f"{(pmem or {}).get('peak_bytes', 0) / 1e9:.2f} GB; losses "
+            + ("bit-equal" if loss_bits else "within rtol 1e-5")
+            + f", bf16 parameters after step {MESH_STEPS}: {differ} of {total:,} entries differ "
+            f"(max {worst:.3g}); host copies {copy_s:.1f} s, the profiled step {profile_s:.1f} s, "
+            f"the comparison {out['seconds']['compare']:.1f} s [{card}]")
+    finally:
+        if made and dist.is_initialized():
+            dist.destroy_process_group()
+    launches = read_launches()
+    if any(launches.values()):
+        raise AssertionError(f"the mesh training path launched port kernels: {launches}")
+    out["kernel_launches"] = launches
+    out["phase_s"] = time.perf_counter() - t_phase
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -3058,6 +3267,9 @@ def main() -> int:
     train = train_phase(dev, card)
     log(f"[train] phase: {train['phase_s']:.1f} s")
 
+    mesh = mesh_phase(dev, card)
+    log(f"[mesh] phase: {mesh['phase_s']:.1f} s")
+
     keys = ("recall_at_10", "qps", "n_batches", "mean_n_iters", "mean_hops", "batch_wall_ms",
             "device_busy_ms_per_batch", "link_bytes_per_hop", "rerank_bytes_per_batch",
             "host_gather_ms_per_batch", "host_gather_share", "collective_ms_per_batch",
@@ -3075,7 +3287,8 @@ def main() -> int:
     print(json.dumps({"kernels": rows, "main_path": summary, "nn_contrast": res["nn_contrast"],
                       "vamana_build": vamana["build"], "mutation": mutation["info"],
                       "autotune": {k: at[k] for k in ("winner", "sweep", "sweep_s", "device_kind")},
-                      "small_recall_at_10": small, "lm": lm, "train": train, "card": card}))
+                      "small_recall_at_10": small, "lm": lm, "train": train, "mesh": mesh,
+                      "card": card}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

@@ -13,7 +13,10 @@ memory before the thread starts, since the loop updates them in place.
 
 Restore loads the arrays on the host and places each on a device: the
 template leaf's, `device`, or what `placement_fn(key, array)` returns --
-the counterpart of the reference's `sharding_fn`.
+the counterpart of the reference's `sharding_fn`. A `placement_fn` may
+instead return a part of the array (a numpy array: this rank's block, cut
+by `distributed.partitioning.shard_slices`), which is restored in its
+place: a checkpoint of gathered tensors restores onto any mesh.
 """
 from __future__ import annotations
 
@@ -110,7 +113,10 @@ def load_checkpoint(directory: str, template: Any, *, step: int | None = None,
     a new `ParamTree`), each leaf cast to the template leaf's dtype.
 
     Each array goes to `placement_fn(key, host_array)` when that returns a
-    device, else to `device`, else to the template leaf's device."""
+    device, else to `device`, else to the template leaf's device. Where
+    `placement_fn` returns a numpy array (a block of the host array: bf16
+    arrays come as their uint16 view, which cuts alike), that block is the
+    leaf, on `device` or the template leaf's device."""
     if step is None:
         step = latest_step(directory)
         if step is None:
@@ -123,11 +129,13 @@ def load_checkpoint(directory: str, template: Any, *, step: int | None = None,
     for p, leaf in flatten_with_path(template):
         key = path_key(p)
         arr = data[key]
+        dev = placement_fn(key, arr) if placement_fn is not None else None
+        if isinstance(dev, (np.ndarray, np.generic)):   # a block (a 0-d one comes as a scalar)
+            arr, dev = np.array(dev), None
         if dtypes.get(key) == "bfloat16":
             t = torch.from_numpy(arr.view(np.int16)).view(torch.bfloat16)
         else:
             t = torch.from_numpy(arr)
-        dev = placement_fn(key, arr) if placement_fn is not None else None
         if dev is None:
             dev = device if device is not None else getattr(leaf, "device", "cpu")
         dtype = leaf.dtype if isinstance(leaf, torch.Tensor) else t.dtype

@@ -15,8 +15,10 @@ as the reference's default `make_mesh((1, n_devices))` needs no launcher.
 Several ranks come from a launcher (`torchrun --nproc-per-node=N`), or
 from `dist.init_process_group` called by the program, before `make_mesh`.
 
-The reference's production 16 x 16 mesh and its TPU constants have no
-counterpart here.
+`AbstractMesh` is the counterpart of JAX's shape-only mesh: axis names and
+sizes, no process group. The sharding rules (`distributed.partitioning`)
+read only axis sizes, so they run on it for meshes no host here holds (the
+production 16 x 16 and 2 x 16 x 16 of `launch.mesh`).
 """
 from __future__ import annotations
 
@@ -52,6 +54,15 @@ class Mesh:
         """True while the default process group this mesh was made on
         still exists."""
         return dist.is_initialized() and _default_group() is self._world
+
+
+@dataclasses.dataclass(frozen=True)
+class AbstractMesh:
+    """A mesh's axis names and sizes with no ranks behind them:
+    `AbstractMesh({"pod": 2, "data": 16, "model": 16})`. `shape` maps axis
+    names to sizes in mesh order, as `Mesh.shape` does."""
+
+    shape: dict
 
 
 def _default_group():

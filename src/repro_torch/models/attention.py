@@ -15,6 +15,22 @@ place: the new key and value are written at the device index
 Whisper's encoder attends bidirectionally (no mask) and its decoder's
 `cross_attention` attends to the encoder memory: both one float32 softmax
 over every key (`full_attention`), as the reference's einsums.
+
+Training on a mesh (`HeadPlan`, with a `distributed.collectives.MeshContext`)
+writes out the reference's `constrain` sites (`_qkv`, the output
+projection): Megatron TP over `model` with FSDP gather-before-use over
+`data`. Each rank computes the query heads whose columns of `wq` it holds,
+the KV heads they read, and multiplies its heads' outputs by its rows of
+`wo`; one (B, S, D) all-reduce over `model` sums them. Where a rank's block
+of a weight would not hold whole heads, that weight is gathered whole over
+`model` at its use and its heads are computed on every `model` rank, as
+GSPMD's reshard would. Of the dense and vlm configs, the KV projections
+`wk` and `wv` take this route when `model` does not divide n_kv_heads:
+glm4-9b (2 KV heads) and internvl2-1b (2) at `model` 4 and 16,
+phi3-medium-14b (10) at 4 and 16, granite-3-2b (8) at 16; the query
+projection `wq` when `model` does not divide n_heads: phi3-medium-14b (40
+heads) at 16, internvl2-1b (14) at 4 and 16. gemma3-27b (32 and 16 heads)
+never does. At `model` 2 none does.
 """
 from __future__ import annotations
 
@@ -39,6 +55,68 @@ def attn_params(generator: torch.Generator, d_model: int, n_heads: int, n_kv_hea
         "wv": truncated_normal_init((d_model, n_kv_heads * head_dim), generator, dtype=dtype),
         "wo": truncated_normal_init((n_heads * head_dim, d_model), generator, dtype=dtype),
     }
+
+
+class HeadPlan:
+    """Which heads this rank computes in a training attention block on a
+    mesh, and how it gets each weight.
+
+    `split`: `wo`'s rows (the heads' outputs) lie over `model`, so the block
+    is split over `model` and ends in one all-reduce; otherwise every
+    `model` rank computes the whole block with whole weights. Query heads
+    [q0, q0 + n_q): this rank's block of `wq` when it holds whole heads, else
+    every head (`wq` gathered whole) and `o_cols` picks the columns of the
+    output that meet this rank's rows of `wo`. `kv`: the KV heads those
+    query heads read, out of the whole projections (a slice, or one index a
+    query head where they do not group evenly), or None for this rank's
+    block of `wk` and `wv`."""
+
+    def __init__(self, mesh, n_heads: int, n_kv_heads: int, head_dim: int):
+        M, m = mesh.n_model, mesh.model_index
+        self.mesh, self.head_dim = mesh, head_dim
+        self.split = mesh.model_sharded("wo", 0)
+        q_local = self.split and n_heads % M == 0
+        kv_local = q_local and n_kv_heads % M == 0
+        whole = "partial" if self.split else "replicated"
+        self.q_use = "shard" if q_local else whole
+        self.kv_use = "shard" if kv_local else whole
+        self.q0, self.n_q = (m * n_heads // M, n_heads // M) if q_local else (0, n_heads)
+        self.o_cols = None
+        if self.split and not q_local:
+            cols = n_heads * head_dim // M
+            self.o_cols = slice(m * cols, (m + 1) * cols)
+        self.kv = None
+        if not kv_local:
+            G = n_heads // n_kv_heads
+            ids = [(self.q0 + i) // G for i in range(self.n_q)]
+            n = ids[-1] - ids[0] + 1
+            even = self.n_q % n == 0 and ids == [ids[0] + i // (self.n_q // n) for i in range(self.n_q)]
+            self.kv = slice(ids[0], ids[0] + n) if even else ids
+
+    def qkv(self, p, x: torch.Tensor):
+        """q, k, v of this rank's heads from x (B, S, D), replicated over
+        `model` (its gradient summed there when the block is split)."""
+        mc, hd = self.mesh, self.head_dim
+        B, S, _ = x.shape
+        if self.split:
+            x = mc.to_model(x)
+        q = (x @ mc.weight(p["wq"], "wq", self.q_use)).reshape(B, S, self.n_q, hd)
+        k = (x @ mc.weight(p["wk"], "wk", self.kv_use)).reshape(B, S, -1, hd)
+        v = (x @ mc.weight(p["wv"], "wv", self.kv_use)).reshape(B, S, -1, hd)
+        if self.kv is not None:
+            k, v = k[:, :, self.kv], v[:, :, self.kv]
+        return q, k, v
+
+    def out(self, p, out: torch.Tensor) -> torch.Tensor:
+        """The output projection of this rank's heads (B, S, n_q, hd), summed
+        over `model` when the block is split."""
+        B, S = out.shape[:2]
+        o = out.reshape(B, S, -1)
+        if self.o_cols is not None:
+            o = o[..., self.o_cols]
+        mc = self.mesh
+        y = o @ mc.weight(p["wo"], "wo", "shard" if self.split else "replicated")
+        return mc.from_model(y) if self.split else y
 
 
 def _qkv(p, x: torch.Tensor, n_heads: int, n_kv_heads: int, head_dim: int):
@@ -172,6 +250,7 @@ def attention_block(
     cache: KVCache | None = None,
     bf16_scores: bool = False,
     window_skip: bool = False,
+    mesh=None,
 ) -> tuple[torch.Tensor, KVCache | tuple | None]:
     """Full attention sublayer. cache=None -> prefill (causal, or the
     encoder's bidirectional attention with `causal=False`); else decode.
@@ -179,10 +258,17 @@ def attention_block(
     Prefill returns the roped (k, v) for the caller to assemble the decode
     cache (training drops them); decode writes the new key and value into `cache` in place and
     returns it with `index + 1`. With a static int `window`, `window_skip`
-    activates the banded local-attention path.
+    activates the banded local-attention path. With `mesh` (a
+    `MeshContext`: training on a mesh, causal, no cache) this rank computes
+    its heads (`HeadPlan`) and returns (y, None).
     """
     B, S, _ = x.shape
-    q, k, v = _qkv(p, x, n_heads, n_kv_heads, head_dim)
+    plan = None
+    if mesh is not None:
+        if cache is not None or not causal:
+            raise ValueError("attention on a mesh is training's: causal, with no cache")
+        plan = HeadPlan(mesh, n_heads, n_kv_heads, head_dim)
+    q, k, v = _qkv(p, x, n_heads, n_kv_heads, head_dim) if plan is None else plan.qkv(p, x)
 
     if cache is None:
         pos = torch.arange(S, dtype=torch.int32, device=x.device)[None, :]
@@ -207,5 +293,7 @@ def attention_block(
         new_cache = KVCache(cache.k, cache.v, cache.index + 1)
         out = decode_attention(q, new_cache, window=window)
 
+    if plan is not None:
+        return plan.out(p, out), None
     y = out.reshape(B, S, n_heads * head_dim) @ p["wo"]
     return y, new_cache

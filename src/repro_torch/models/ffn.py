@@ -1,7 +1,14 @@
 """SwiGLU feed-forward (LLaMA/phi/gemma family standard).
 
-The port of the reference package's `models/ffn.py`. On one card the
-reference's partitioning constraints have no counterpart.
+The port of the reference package's `models/ffn.py`. With a mesh (the
+mesh training step, `distributed.collectives.MeshContext`) the reference's
+`constrain` sites become explicit collectives: a Megatron-TP pair with
+FSDP gather-before-use -- the three weights gathered over `data` at their
+use, the hidden activations split over `model` between the up- and
+down-projections, and one (B, S, D) all-reduce over `model` after
+`w_down`. Where the rules leave d_ff whole over `model` (it does not divide
+the axis), every `model` rank computes the whole block and nothing is
+reduced. With no mesh the code is the single-device one.
 """
 from __future__ import annotations
 
@@ -18,8 +25,22 @@ def ffn_params(generator: torch.Generator, d_model: int, d_ff: int, dtype) -> di
     }
 
 
-def swiglu(p, x: torch.Tensor) -> torch.Tensor:
+def swiglu(p, x: torch.Tensor, mesh=None) -> torch.Tensor:
+    if mesh is not None:
+        return _mesh_swiglu(p, x, mesh)
     gate = x @ p["w_gate"]
     up = x @ p["w_up"]
     gate = torch.nn.functional.silu(gate.float()).to(x.dtype)
     return (gate * up) @ p["w_down"]
+
+
+def _mesh_swiglu(p, x: torch.Tensor, mesh) -> torch.Tensor:
+    split = mesh.model_sharded("w_down", 0)   # d_ff over `model`
+    use = "shard" if split else "replicated"
+    if split:
+        x = mesh.to_model(x)
+    gate = x @ mesh.weight(p["w_gate"], "w_gate", use)
+    up = x @ mesh.weight(p["w_up"], "w_up", use)
+    gate = torch.nn.functional.silu(gate.float()).to(x.dtype)
+    y = (gate * up) @ mesh.weight(p["w_down"], "w_down", use)
+    return mesh.from_model(y) if split else y

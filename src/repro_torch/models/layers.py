@@ -5,11 +5,20 @@ The port of the reference package's `models/layers.py`. Parameters live in
 `nn.Module`s (`ParamTree`), indexed by the reference's names; the layer math
 is plain functions on tensors, computed on their inputs' device. Compute
 dtype is bf16 by default; norms and softmax accumulate in float32.
+
+`embed` and `unembed_chunked` take an optional mesh (a
+`distributed.collectives.MeshContext`, the mesh training step): the table
+is then this rank's block of the parameter, gathered over `data` at its
+use, and where the rules split the vocabulary over `model` the lookup and
+the cross-entropy are vocabulary-parallel; where they leave it whole
+(granite's odd 49,155) both run on the whole table on every `model` rank.
 """
 from __future__ import annotations
 
 import torch
 from torch import nn
+
+from ..distributed.collectives import vocab_parallel_cross_entropy, vocab_parallel_embed
 
 
 class ParamTree(nn.Module):
@@ -101,7 +110,12 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.
     return out.to(x.dtype)
 
 
-def embed(tokens: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
+def embed(tokens: torch.Tensor, table: torch.Tensor, mesh=None) -> torch.Tensor:
+    if mesh is not None:
+        block = mesh.vocab_block("embed")
+        table = mesh.weight(table, "embed", "replicated" if block is None else "shard")
+        if block is not None:
+            return vocab_parallel_embed(tokens, table, block[0], mesh)
     return table[tokens]
 
 
@@ -158,7 +172,7 @@ class _ChunkedCrossEntropy(torch.autograd.Function):
 
 
 def unembed_chunked(h: torch.Tensor, table: torch.Tensor, labels: torch.Tensor,
-                    chunk: int) -> torch.Tensor:
+                    chunk: int, mesh=None, name: str = "embed") -> torch.Tensor:
     """Sequence-chunked cross-entropy: never materialises (B, S, V) at once.
 
     h: (B, S, D), table: (V, D) (the tied embedding, or the head transposed),
@@ -167,7 +181,16 @@ def unembed_chunked(h: torch.Tensor, table: torch.Tensor, labels: torch.Tensor,
     n_chunks positions, and the last S - n_chunks * c positions are dropped
     when `chunk` does not divide S, as the reference's scan drops them. The
     logits are float32; under autograd one chunk's (B, c, V) logits live at a
-    time (`_ChunkedCrossEntropy` recomputes them in backward)."""
+    time (`_ChunkedCrossEntropy` recomputes them in backward).
+
+    With `mesh`, `table` is this rank's block of the parameter `name`:
+    "embed" (V, D), or "lm_head" (D, V), which is used transposed."""
+    if mesh is not None:
+        block = mesh.vocab_block(name)
+        table = mesh.weight(table, name, "replicated" if block is None else "shard")
+        table = table.T if name == "lm_head" else table
+        if block is not None:
+            return vocab_parallel_cross_entropy(h, table, labels, chunk, block[0], mesh)
     B, S, _ = h.shape
     n_chunks = max(S // chunk, 1)
     c = S // n_chunks

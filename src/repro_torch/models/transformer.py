@@ -22,6 +22,17 @@ boundaries are kept and a layer's activations are recomputed in backward;
 zamba2's shared attention block and whisper's encoder are not
 rematerialised, as the reference's are not.
 
+On a mesh (`lm_loss(..., mesh=)`, a `distributed.collectives.MeshContext`:
+the mesh training step of `launch.specs`), the dense and vlm families hold
+this rank's blocks of the parameters and its slice of the batch; the
+embedding, each layer's attention and FFN, and the cross-entropy gather
+their weights at their use and run Megatron TP over `model`
+(`models.attention.HeadPlan`, `ffn.swiglu`, `layers.embed`,
+`layers.unembed_chunked`). Under remat the gathers run inside the
+rematerialised layer body, so a gathered weight is gathered again in
+backward and never held across layers. The other families raise on a mesh
+of more than one rank (ROADMAP A8e-2).
+
 Caches keep the reference's stacked layout -- K and V (L, B, S, Hkv, hd),
 BANG-KV codes (L, B, S, Hkv, m) uint8, `index` (L,) int32, the SSM's conv
 window (L, B, K-1, conv_ch) and state (L, B, H, P, N); hybrid's
@@ -40,6 +51,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ModelConfig
+from ..distributed.collectives import MESH_FAMILIES, check_mesh_family
 from ..kernels.common import resolve_device
 from . import retrieval_attention as bkv
 from .attention import KVCache, attention_block, attn_params, cross_attention
@@ -116,6 +128,15 @@ def _codebooks(cfg: ModelConfig, g: torch.Generator, n: int) -> torch.Tensor:
                         for _ in range(n)])
 
 
+class _MetaGenerator(torch.Generator):
+    """A CPU generator that says it lies on the `meta` device, so the
+    initialisers make meta tensors (no storage, nothing drawn)."""
+
+    @property
+    def device(self) -> torch.device:
+        return torch.device("meta")
+
+
 def init_params(cfg: ModelConfig, generator: torch.Generator | None = None,
                 device: str | torch.device = "cuda") -> ParamTree:
     """Random parameters, drawn on `device` from `generator` (a generator on
@@ -124,10 +145,14 @@ def init_params(cfg: ModelConfig, generator: torch.Generator | None = None,
     reference's names, with each stacked layer axis as a list of layers:
     `layers` (and whisper's `encoder.layers`), zamba2's one `shared_attn`
     block, and BANG-KV codebooks for every attention cache (none for
-    mamba2)."""
+    mamba2). On `device="meta"` the tree holds shapes and dtypes only."""
     check_family(cfg)
-    dev = resolve_device(device)
-    g = torch.Generator(dev).manual_seed(0) if generator is None else generator
+    if torch.device(device).type == "meta":   # shapes and dtypes only (`launch.specs`)
+        dev = torch.device("meta")
+        g = _MetaGenerator() if generator is None else generator
+    else:
+        dev = resolve_device(device)
+        g = torch.Generator(dev).manual_seed(0) if generator is None else generator
     if g.device.type != dev.type:
         raise ValueError(f"generator on {g.device}, parameters asked on {dev}")
     dtype = getattr(torch, cfg.dtype)
@@ -186,9 +211,10 @@ def static_layer_flags(cfg: ModelConfig, s_ref: int) -> tuple[list, list]:
 # ---------------------------------------------------------------------------
 
 def _dense_layer(cfg: ModelConfig, p, h, window, theta, cache, mode: str, codebooks=None,
-                 cross_mem=None):
+                 cross_mem=None, mesh=None):
     """One dense/moe decoder layer (whisper's with its cross-attention into
-    `cross_mem` = (k, v) (B, M, Hkv, hd)). Returns (h, new_cache, aux)."""
+    `cross_mem` = (k, v) (B, M, Hkv, hd)). Returns (h, new_cache, aux).
+    `mesh`: a dense layer's training on a mesh."""
     aux = _zero_aux(h.device)
     x = norm(h, p["attn_norm"], cfg.norm_kind, cfg.norm_eps)
     if mode == "decode_bangkv":
@@ -204,7 +230,7 @@ def _dense_layer(cfg: ModelConfig, p, h, window, theta, cache, mode: str, codebo
             n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads, head_dim=cfg.head_dim,
             rope_theta=theta, attn_chunk=_pick_chunk(x.shape[1], cfg.attn_chunk),
             window=window, cache=cache if mode == "decode" else None,
-            bf16_scores=cfg.opt_attn_bf16, window_skip=cfg.opt_window_skip,
+            bf16_scores=cfg.opt_attn_bf16, window_skip=cfg.opt_window_skip, mesh=mesh,
         )
         if mode == "train":
             new_cache = None   # training keeps no K and V
@@ -224,7 +250,7 @@ def _dense_layer(cfg: ModelConfig, p, h, window, theta, cache, mode: str, codebo
             capacity_factor=cfg.capacity_factor, bf16_compute=cfg.opt_moe_bf16,
         )
     else:
-        y = swiglu(p["ffn"], x)
+        y = swiglu(p["ffn"], x, mesh)
     return h + y, new_cache, aux
 
 
@@ -341,7 +367,7 @@ def _hybrid_stack(cfg: ModelConfig, params, h, *, mode: str, caches, s_max: int 
 
 
 def decoder_stack(cfg: ModelConfig, params, h: torch.Tensor, *, mode: str, caches=None,
-                  s_max: int | None = None, cross_mem=None):
+                  s_max: int | None = None, cross_mem=None, mesh=None):
     """Run the decoder layers. Returns (h, aux summed over layers, caches).
 
     mode "train": full causal attention, no caches (None), each layer
@@ -350,12 +376,15 @@ def decoder_stack(cfg: ModelConfig, params, h: torch.Tensor, *, mode: str, cache
     and V in the first S slots and index S, SSM caches with the prompt's
     conv window and final state. "decode" / "decode_bangkv": `caches` are
     updated in place. Whisper's decoder takes `cross_mem` = (cross_k,
-    cross_v) (L, B, M, Hkv, hd)."""
+    cross_v) (L, B, M, Hkv, hd). `mesh` (a `MeshContext`, mode "train"
+    only): this rank's part of a dense or vlm stack on a mesh."""
     check_family(cfg)
     if mode not in MODES:
         raise ValueError(f"mode {mode!r} is not one of {MODES}")
+    if mesh is not None and mode != "train":
+        raise NotImplementedError(f"{mode} on a mesh waits for ROADMAP A8e-2")
     if mode == "train":
-        return _train_stack(cfg, params, h, cross_mem)
+        return _train_stack(cfg, params, h, cross_mem, _mesh_for(cfg, mesh))
     decode = mode != "prefill"
     if cfg.family == "ssm":
         out = None if decode else _ssm_prefill_buffers(cfg, h)
@@ -386,7 +415,17 @@ def decoder_stack(cfg: ModelConfig, params, h: torch.Tensor, *, mode: str, cache
     return h, aux, KVCache(k_all, v_all, index)
 
 
-def _train_stack(cfg: ModelConfig, params, h: torch.Tensor, cross_mem):
+def _mesh_for(cfg: ModelConfig, mesh):
+    """`mesh` where the family runs on it; None for a family the mesh step
+    does not cover on a one-rank mesh (its plain code is the same step);
+    raises for such a family on more ranks."""
+    if mesh is None:
+        return None
+    check_mesh_family(cfg, mesh.mesh)
+    return mesh if cfg.family in MESH_FAMILIES else None
+
+
+def _train_stack(cfg: ModelConfig, params, h: torch.Tensor, cross_mem, mesh=None):
     """decoder_stack's training mode: (h, aux summed over layers, None)."""
     if cfg.family == "ssm":
         h = _ssm_layers(cfg, params["layers"], h, "train", None, None, 0, cfg.n_layers)
@@ -400,7 +439,7 @@ def _train_stack(cfg: ModelConfig, params, h: torch.Tensor, cross_mem):
         cm_i = (cross_mem[0][i], cross_mem[1][i]) if cross_mem is not None else None
 
         def body(h, p=params["layers"][i], w=wins[i], th=thetas[i], cm=cm_i):
-            h, _, aux_i = _dense_layer(cfg, p, h, w, th, None, "train", cross_mem=cm)
+            h, _, aux_i = _dense_layer(cfg, p, h, w, th, None, "train", cross_mem=cm, mesh=mesh)
             return h, aux_i
 
         h, aux_i = _call(remat, body, h)
@@ -481,15 +520,16 @@ def clone_caches(caches):
 # ---------------------------------------------------------------------------
 
 def embed_inputs(cfg: ModelConfig, params, tokens: torch.Tensor,
-                 frontend: torch.Tensor | None) -> torch.Tensor:
-    """Token embeddings, a vlm's patch embeddings (`frontend`) prepended."""
-    h = embed(tokens.long(), params["embed"])
+                 frontend: torch.Tensor | None, mesh=None) -> torch.Tensor:
+    """Token embeddings, a vlm's patch embeddings (`frontend`) prepended.
+    On a mesh, tokens and patches are this rank's slice of the batch."""
+    h = embed(tokens.long(), params["embed"], mesh)
     if cfg.frontend == "vision_stub" and frontend is not None:
         h = torch.cat([frontend.to(h.dtype), h], dim=1)
     return h
 
 
-def lm_loss(cfg: ModelConfig, params, batch: dict) -> tuple[torch.Tensor, dict]:
+def lm_loss(cfg: ModelConfig, params, batch: dict, mesh=None) -> tuple[torch.Tensor, dict]:
     """The training loss of `batch` ("tokens", "labels" (B, S); "frontend"
     (B, M, D) for whisper's frames or a vlm's patches) and its metrics.
 
@@ -497,7 +537,11 @@ def lm_loss(cfg: ModelConfig, params, batch: dict) -> tuple[torch.Tensor, dict]:
     decoder; a vlm drops the patch positions after the final norm. loss =
     ce + 0.01 load_balance + 0.001 router_z, the MoE terms summed over the
     layers (0 for the other families); the metrics ce, load_balance,
-    router_z and dropped_frac come back detached."""
+    router_z and dropped_frac come back detached.
+
+    With `mesh` (a `MeshContext`), `params` are this rank's blocks and
+    `batch` its slice of the batch: the loss is the mean over this slice."""
+    mesh = _mesh_for(cfg, mesh)
     tokens, labels = batch["tokens"], batch["labels"]
     frontend = batch.get("frontend")
     if cfg.arch_kind == "encdec":
@@ -506,13 +550,18 @@ def lm_loss(cfg: ModelConfig, params, batch: dict) -> tuple[torch.Tensor, dict]:
         h = embed(tokens.long(), params["embed"])
         h, aux, _ = decoder_stack(cfg, params, h, mode="train", cross_mem=cm)
     else:
-        h = embed_inputs(cfg, params, tokens, frontend)
-        h, aux, _ = decoder_stack(cfg, params, h, mode="train")
+        h = embed_inputs(cfg, params, tokens, frontend, mesh)
+        h, aux, _ = decoder_stack(cfg, params, h, mode="train", mesh=mesh)
     h = norm(h, params["final_norm"], cfg.norm_kind, cfg.norm_eps)
     if cfg.frontend == "vision_stub" and frontend is not None:
         h = h[:, frontend.shape[1]:]
-    table = params["embed"] if cfg.tie_embeddings else params["lm_head"].T
-    ce = unembed_chunked(h, table, labels, _pick_chunk(h.shape[1], cfg.loss_chunk))
+    chunk = _pick_chunk(h.shape[1], cfg.loss_chunk)
+    if mesh is None:
+        table = params["embed"] if cfg.tie_embeddings else params["lm_head"].T
+        ce = unembed_chunked(h, table, labels, chunk)
+    else:
+        name = "embed" if cfg.tie_embeddings else "lm_head"
+        ce = unembed_chunked(h, params[name], labels, chunk, mesh, name)
     loss = ce + 0.01 * aux.load_balance + 0.001 * aux.router_z
     metrics = {"ce": ce, "load_balance": aux.load_balance, "router_z": aux.router_z,
                "dropped_frac": aux.dropped_frac}

@@ -14,6 +14,13 @@ which the loss does not read) is updated as if its gradient were zero, so
 only weight decay moves it -- unlike `torch.optim.AdamW`, which skips it.
 The clip, the bias correction and the master copies follow the reference,
 which `torch.optim` does not; its update is per-leaf torch ops.
+
+On a mesh (the mesh training step) the parameters, gradients and state are
+this rank's blocks and the update is elementwise on them; only the global
+norm reads across the mesh: each rank sums the squares of its own blocks,
+counting a block only on the first rank of every mesh axis its partition
+spec leaves it whole on (each parameter once, not once a replica), and the
+sums are all-reduced over `model` and then over `data`.
 """
 from __future__ import annotations
 
@@ -21,7 +28,9 @@ import dataclasses
 from typing import NamedTuple
 
 import torch
+import torch.distributed as dist
 
+from ..distributed.partitioning import dim_axes
 from ..tree import flat_dict
 
 
@@ -55,28 +64,55 @@ def adamw_init(params) -> AdamWState:
     )
 
 
-def global_norm(tensors) -> torch.Tensor:
+def global_norm(tensors, *, mesh=None, specs=None) -> torch.Tensor:
     """sqrt of the sum of every entry squared, in float32 (None entries are
-    zeros), the leaves' sums added in order as the reference's."""
+    zeros), the leaves' sums added in order as the reference's.
+
+    With `mesh` (a runnable `Mesh`), `tensors` are this rank's blocks and
+    `specs` their partition specs, in the same order: a block enters this
+    rank's sum only where the rank is first on every axis the spec does not
+    name, and the sums are all-reduced over `model`, then over `data`
+    (every rank calls it)."""
+    tensors = list(tensors)
+    dev = next((x.device for x in tensors if x is not None), None)
+    if dev is None:
+        raise ValueError("no gradient to take the norm of")
+    if mesh is not None:
+        tensors = [x if x is not None and _counts_here(x, spec, mesh) else None
+                   for x, spec in zip(tensors, specs)]
     total = None
     for x in tensors:
         if x is None:
             continue
         s = torch.sum(torch.square(x.float()))
         total = s if total is None else total + s
-    if total is None:
-        raise ValueError("no gradient to take the norm of")
+    if mesh is not None:
+        if total is None:   # this rank holds no block it counts
+            total = torch.zeros((), dtype=torch.float32, device=dev)
+        for axis in ("model", "data"):
+            dist.all_reduce(total, group=mesh.group(axis))
     return torch.sqrt(total)
 
 
+def _counts_here(x: torch.Tensor, spec, mesh) -> bool:
+    """Whether this rank's block of a tensor under `spec` enters its sum:
+    the rank is first along every mesh axis the spec does not name."""
+    named = {n for names in dim_axes(spec, x.dim(), mesh) for n in names}
+    return all(mesh.index(axis) == 0 for axis in mesh.shape if axis not in named)
+
+
 @torch.no_grad()
-def adamw_update(grads: dict, state: AdamWState, params, lr, cfg: AdamWConfig = AdamWConfig()):
+def adamw_update(grads: dict, state: AdamWState, params, lr, cfg: AdamWConfig = AdamWConfig(), *,
+                 mesh=None, specs: dict | None = None):
     """One optimizer step: `grads` {path: tensor or None} in `params`' flat
     layout (`tree.flat_dict`). Updates `state` and `params` in place and
     returns (params, state with the new step, metrics): grad_norm is the
-    norm before clipping, lr the step size as a float32 scalar."""
+    norm before clipping, lr the step size as a float32 scalar. On a mesh
+    every tensor is this rank's block and `specs` {path: partition spec}
+    says how each was cut (the global norm counts each parameter once)."""
     flat = flat_dict(params)
-    gnorm = global_norm(grads.get(k) for k in flat)
+    gnorm = global_norm((grads.get(k) for k in flat), mesh=mesh,
+                        specs=None if specs is None else [specs[k] for k in flat])
     scale = torch.clamp(cfg.clip_norm / (gnorm + 1e-9), max=1.0)
     step = state.step + 1
     stepf = step.float()

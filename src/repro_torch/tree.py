@@ -64,6 +64,26 @@ def flat_dict(tree) -> dict[str, Any]:
     return {path_key(p): leaf for p, leaf in flatten_with_path(tree)}
 
 
+def map_with_path(fn, tree):
+    """A tree of `tree`'s structure with `fn(path, leaf)` in each leaf: an
+    `nn.Module` (a `ParamTree`) comes back as nested dicts, its
+    `nn.ModuleList`s as lists, so the result may hold leaves that are not
+    tensors (partition specs)."""
+
+    def walk(node, path):
+        if isinstance(node, nn.ModuleList):
+            return [walk(m, path + (str(i),)) for i, m in enumerate(node)]
+        if isinstance(node, nn.Module) or isinstance(node, dict):
+            return {k: walk(v, path + (k,)) for k, v in _children(node)}
+        if _is_namedtuple(node):
+            return type(node)(*(walk(v, path + (k,)) for k, v in _children(node)))
+        if isinstance(node, (list, tuple)):
+            return type(node)(walk(v, path + (k,)) for k, v in _children(node))
+        return fn(path, node)
+
+    return walk(tree, ())
+
+
 def unflatten(template, new_leaves: list):
     """A tree of `template`'s structure with `new_leaves` in its leaves'
     order. An `nn.Module` (a `ParamTree`) comes back as a new `ParamTree`

@@ -417,6 +417,35 @@ def test_chip_smoke_train_phase_on_cpu(smoke, monkeypatch):
     assert out["kernel_launches"] == dict.fromkeys(smoke.kernel_counters(), 0)
     assert out["phase_s"] > 0
 
+def test_chip_smoke_mesh_phase_on_cpu(smoke, monkeypatch):
+    """Phase 9 at reduced granite on a one-rank gloo mesh in this process
+    (made and destroyed by the phase): 9a's mesh steps and plain steps,
+    losses and parameters bit-equal, the collectives counted; 9b's
+    compressed_psum bit-equal to ef_int8_compress; no port kernel
+    launched."""
+    import torch.distributed as dist
+
+    import repro_torch.configs as configs
+
+    monkeypatch.setattr(smoke, "lm_config", lambda name, **kw: configs.get(name).reduced(**kw))
+    monkeypatch.setattr(smoke, "TRAIN_SEQ", 32)
+    out = smoke.mesh_phase(torch.device("cpu"), "cpu")
+    assert not dist.is_initialized()
+    assert out["arch"] == "granite-3-2b-reduced" and out["mesh"] == {"data": 1, "model": 1}
+    assert out["backend"] == "gloo" and out["seq_len"] == 32 and out["lr"] == 1e-4
+    ms, plain = out["mesh_step"], out["plain_step"]
+    assert len(ms["losses"]) == len(plain["losses"]) == smoke.MESH_STEPS
+    assert ms["losses"] == plain["losses"] and all(l > 0 for l in ms["losses"])
+    assert out["parity"]["bit_equal"] and out["parity"]["param_entries"] > 0
+    assert out["parity"]["param_entries_differing"] == 0
+    counts = ms["collectives_per_step"]
+    assert counts["all_gather"] > 0 and counts["all_reduce"] > 0
+    assert ms["device_profile"] is None and ms["idle_share"] is None and ms["memory"] is None
+    assert out["compressed_psum"]["bit_equal_to_ef_int8"] and out["compressed_psum"]["entries"] > 0
+    assert out["kernel_launches"] == dict.fromkeys(smoke.kernel_counters(), 0)
+    assert out["phase_s"] > 0 and out["mesh_over_plain"] > 0
+
+
 def test_code_gaps_reports_each_differing_code(smoke):
     """Phase 5b's C10 check: one line for each (row, subspace) whose codes
     differ, with both centroids' float64 squared distances and the gap in

@@ -85,6 +85,13 @@ THIRTEENTH_SLICE = {
     "repro_torch.launch", "repro_torch.launch.train",
 }
 
+# Modules of the fourteenth slice: the sharding rules, the mesh step's
+# collectives, the launch layer's mesh and specs.
+FOURTEENTH_SLICE = {
+    "repro_torch.distributed.partitioning", "repro_torch.distributed.collectives",
+    "repro_torch.launch.mesh", "repro_torch.launch.specs",
+}
+
 
 def test_every_module_imports_without_jax_or_reference():
     env = dict(os.environ, PYTHONPATH=str(SRC))
@@ -95,8 +102,8 @@ def test_every_module_imports_without_jax_or_reference():
     assert res.returncode == 0, res.stderr
     names = set(res.stdout.split())
     slices = (SECOND_SLICE | THIRD_SLICE | EIGHTH_SLICE | NINTH_SLICE | TENTH_SLICE | ELEVENTH_SLICE
-              | TWELFTH_SLICE | THIRTEENTH_SLICE)
-    assert len(names) >= 76 and slices <= names   # every module was walked
+              | TWELFTH_SLICE | THIRTEENTH_SLICE | FOURTEENTH_SLICE)
+    assert len(names) >= 80 and slices <= names   # every module was walked
 
 
 def test_from_arrays_defaults_to_cuda():
@@ -209,3 +216,17 @@ def test_training_defaults_to_cuda():
         train_loop(cfg, TrainLoopConfig(steps=1, seq_len=8, global_batch=1, log_every=0))
     with pytest.raises(RuntimeError, match="CUDA"):
         launch_train.main(["--arch", "granite-3-2b", "--reduced", "--steps", "1"])
+
+
+def test_mesh_step_defaults_to_cuda():
+    """The mesh of the training step (`launch.mesh.make_test_mesh`) is made
+    on the card unless asked for the CPU: with no card it raises before any
+    process group exists, and never falls back to gloo on the CPU."""
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_test_mesh
+
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default device is usable")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        make_test_mesh((1, 1))
+    assert not dist.is_initialized()
