@@ -161,6 +161,18 @@ Phases, each timed; any failure exits non-zero:
      bit-equal to `ef_int8_compress` (n = 1). No port kernel lies on this
      path: the launch counts stay 0. Its numbers go into the summary line
      under "mesh".
+  10. prefill and decode on the (1, 1) mesh (`mesh_serve_phase`), after
+     phase 9: glm4-9b at full width and depth in bf16 with
+     `opt_hier_topk`, its parameters drawn again from 7a's seed; 10a 7a's
+     requests prefilled and decoded 32 greedy exact-KV steps by the plain
+     `LM` and by `launch.specs.step_and_specs`'s prefill and decode steps;
+     10b 16 greedy BANG-KV steps of each from 7b's state (host copies kept
+     by phase 7), the mesh's top-L the hierarchical one. Logits, tokens,
+     caches and every layer's top-L ids bit-equal; step times against the
+     plain steps, the collectives a step (host count) and the host us of
+     one collective, one profiled mesh step each, peak memory. No port
+     kernel lies on this path: the launch counts stay 0. Its numbers go
+     into the summary line under "mesh_serve".
 
 Kernel times are taken cold: the timed calls cycle through copies of the
 inputs that together exceed twice the H100's 50 MB L2. Bounds count the bytes the function needs for this run's
@@ -2102,10 +2114,12 @@ def finite(name: str, x, shape: tuple) -> None:
         raise AssertionError(f"{name}: shape {tuple(x.shape)} (expected {shape}) or non-finite values")
 
 
-def decode_run(lm, caches, tok, steps: int, dev, *, bangkv: bool = False, forced=None):
-    """`steps` decode steps from `tok` (B, 1): greedy, or fed `forced`
-    (steps, B, 1). Returns logits (steps, B, V), the tokens fed, the host
-    ms of each step (ending in a synchronise) and the caches."""
+def greedy_run(step, caches, tok, steps: int, dev, *, forced=None, peaks: list | None = None):
+    """`steps` decode steps of `step(caches, tokens) -> (logits, caches)`
+    from `tok` (B, 1): greedy, or fed `forced` (steps, B, 1). Returns logits
+    (steps, B, V), the tokens fed, the host ms of each step (ending in a
+    synchronise) and the caches. On the card, each step's peak device
+    memory is appended to `peaks` (the peak is reset after each)."""
     import torch
 
     logits, fed, ms = [], [], []
@@ -2113,14 +2127,24 @@ def decode_run(lm, caches, tok, steps: int, dev, *, bangkv: bool = False, forced
         if forced is not None:
             tok = forced[s]
         t0 = time.perf_counter()
-        out, caches = lm.decode_step(caches, tok, bangkv=bangkv)
+        out, caches = step(caches, tok)
         nxt = out[:, 0].argmax(dim=-1, keepdim=True).to(torch.int32)
         sync(dev)
         ms.append((time.perf_counter() - t0) * 1e3)
+        if peaks is not None and torch.device(dev).type == "cuda":
+            peaks.append(torch.cuda.max_memory_allocated())
+            torch.cuda.reset_peak_memory_stats()
         logits.append(out[:, 0])
         fed.append(tok)
         tok = nxt
     return torch.stack(logits), torch.stack(fed), ms, caches
+
+
+def decode_run(lm, caches, tok, steps: int, dev, *, bangkv: bool = False, forced=None):
+    """`steps` decode steps of `lm` from `tok` (B, 1): greedy, or fed
+    `forced` (steps, B, 1) (`greedy_run`)."""
+    return greedy_run(lambda c, t: lm.decode_step(c, t, bangkv=bangkv), caches, tok, steps, dev,
+                      forced=forced)
 
 
 def profile_step(dev, label: str, lm, caches, tok, stats: dict, *, bangkv: bool = False) -> None:
@@ -2244,6 +2268,10 @@ def lm_serve(dev, card: str) -> dict:
     tok = logits[:, 0].argmax(dim=-1, keepdim=True).to(torch.int32)
     mass = kept_attention_mass(lm, tok, bang)
     le, fed, ms_e, exact = decode_run(lm, exact, tok, LM_LONG_DECODE, dev)
+    # Phase 10 decodes on a mesh from this state: host copies, made between
+    # the timed runs.
+    ctx = {"bang": type(bang)(*(t.cpu() for t in bang)), "codebooks": codebooks.cpu(),
+           "token": tok.cpu()}
     lb, _, ms_b, bang = decode_run(lm, bang, tok, LM_LONG_DECODE, dev, bangkv=True, forced=fed)
     finite("7b exact logits", le, (LM_LONG_DECODE, 1, V))
     finite("7b BANG-KV logits", lb, (LM_LONG_DECODE, 1, V))
@@ -2277,7 +2305,7 @@ def lm_serve(dev, card: str) -> dict:
         f"{sum(agree)}/{len(agree)}; the scan reads {cfg.bangkv_m} B a key against "
         f"{2 * cfg.head_dim} B of full-precision K [{card}]")
     return {"arch": cfg.name, "params": n_params, "param_bytes": param_bytes, "init_s": init_s,
-            "serve": serve, "long": long}
+            "serve": serve, "long": long, "ctx": ctx}
 
 
 def cache_bytes(caches) -> int:
@@ -2689,7 +2717,9 @@ def lm_phase(dev, card: str) -> dict:
     HYBRID_CUT_LAYERS (two groups) and whisper to LM_CUT_LAYERS + LM_CUT_LAYERS;
     7d holds the card against the CPU on the reduced glm4-9b, mamba2,
     zamba2 and whisper. No port kernel lies on this path: the launch
-    counts, set to 0 before 7a, are read after 7d and must all be 0."""
+    counts, set to 0 before 7a, are read after 7d and must all be 0. The
+    result's "ctx" holds host copies of 7b's BANG-KV state before its
+    decode, its codebooks and first token (phase 10 decodes from them)."""
     t0 = time.perf_counter()
     mem = free_device(dev)
     if mem is not None:
@@ -3008,6 +3038,8 @@ def train_phase(dev, card: str) -> dict:
 
 # ------------------------------------------------------------- phase 9
 MESH_STEPS = 3                  # 9a: steps each way, mesh step then plain step
+# ------------------------------------------------------------ phase 10
+COLLECTIVE_REPS = 200           # 10a: one-element collectives timed on the one-rank group
 
 
 def bf16_within(a, b, lr: float, steps: int) -> tuple[int, float, bool]:
@@ -3193,6 +3225,242 @@ def mesh_phase(dev, card: str) -> dict:
     return out
 
 
+# ------------------------------------------------------------ phase 10
+def recorded_top_l(run):
+    """run() with every BANG-KV top-L selection's ids kept: (its result,
+    the ids of each layer and step stacked)."""
+    import torch
+
+    from repro_torch.models import retrieval_attention as bkv
+
+    taken, ids = bkv._retrieve_top_l, []
+
+    def recording(*args, **kwargs):
+        top = taken(*args, **kwargs)
+        ids.append(top.clone())   # the flat selection is a view of the whole sort's indices
+        return top
+
+    bkv._retrieve_top_l = recording
+    try:
+        return run(), torch.stack(ids)
+    finally:
+        bkv._retrieve_top_l = taken
+
+
+def same(name: str, a, b) -> None:
+    import torch
+
+    if a.shape != b.shape or a.dtype != b.dtype or not torch.equal(a, b):
+        raise AssertionError(f"10: the mesh path's {name} differ from the plain path's")
+
+
+def mesh_serve_phase(dev, card: str, long_ctx: dict) -> dict:
+    """Phase 10: prefill and decode on the (1, 1) mesh (a one-rank NCCL
+    group on the card, gloo on the CPU), through `launch.specs.step_and_specs`'s
+    prefill and decode steps, glm4-9b at full width and depth in bf16 with
+    `opt_hier_topk` on, its parameters drawn again from 7a's seed and cut
+    to this rank's blocks (a copy on one rank). 10a: 7a's LM_REQUESTS x
+    LM_PROMPT tokens (7a's draw), prefilled and decoded LM_DECODE greedy
+    exact-KV steps by the plain `LM` and by the mesh steps, on the same
+    parameter tensors; 10b: LM_LONG_DECODE greedy BANG-KV steps of each
+    from 7b's state before its decode (`long_ctx`: host copies, its
+    codebooks set), the mesh's top-L the hierarchical one. Logits, tokens,
+    caches and every layer's top-L ids must be the plain path's bit for
+    bit. One more mesh step of each is then profiled on the device alone.
+    The launch counts, set to 0 before 10a, must all be 0 after 10b."""
+    import dataclasses
+
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.distributed import make_mesh, shard_caches, shard_tree
+    from repro_torch.distributed.collectives import MeshContext
+    from repro_torch.launch.specs import step_and_specs
+    from repro_torch.models import LM
+
+    t_phase = time.perf_counter()
+    cfg = dataclasses.replace(lm_config(LM_ARCH), opt_hier_topk=True)
+    free_device(dev)
+    made = not dist.is_initialized()
+    mesh = make_mesh((1, 1), ("data", "model"), dev)
+    out = {"arch": cfg.name, "mesh": dict(mesh.shape), "backend": dist.get_backend(),
+           "hier_topk": cfg.opt_hier_topk}
+    try:
+        reset_launches()
+        g = torch.Generator(dev).manual_seed(SEED)
+        full = LM(cfg, device=dev, generator=g).params
+        B, S, V = LM_REQUESTS, LM_PROMPT, cfg.vocab_size
+        tokens = torch.randint(0, V, (B, S), generator=g, device=dev)   # 7a's prompts
+        s_max = S + LM_DECODE + 1   # the steps and one profiled step
+        prefill, _, (p_place, b_place) = step_and_specs(
+            cfg, ShapeSpec("prefill_7a", "prefill", S, B), mesh)
+        serve, _, _ = step_and_specs(cfg, ShapeSpec("decode_7a", "decode", s_max, B), mesh)
+        params = shard_tree(full, p_place, mesh)   # one rank: the whole tensors, copied
+        del full
+        lm = LM(cfg, params)                       # the plain path on the same tensors
+
+        # 10a: 7a's requests, plain then mesh; the plain run's results on the host.
+        runs = {}
+        for name in ("plain", "mesh"):
+            resident = free_device(dev)
+            sync(dev)
+            t0 = time.perf_counter()
+            if name == "plain":
+                logits, caches = lm.prefill({"tokens": tokens}, s_max=s_max)
+                step = lambda c, t: lm.decode_step(c, t)   # noqa: E731
+            else:
+                logits, caches = prefill(params, shard_tree({"tokens": tokens}, b_place, mesh),
+                                         s_max=s_max)
+                step = lambda c, t: serve(params, c, t)   # noqa: E731
+            sync(dev)
+            prefill_ms = (time.perf_counter() - t0) * 1e3
+            finite(f"10a {name} prefill logits", logits, (B, 1, V))
+            tok = logits[:, 0].argmax(dim=-1, keepdim=True).to(torch.int32)
+            dl, fed, ms, caches = greedy_run(step, caches, tok, LM_DECODE, dev)
+            finite(f"10a {name} decode logits", dl, (LM_DECODE, B, V))
+            runs[name] = {"prefill_ms": prefill_ms, **step_stats(ms, B), "memory": device_mem(dev),
+                          "memory_at_start": resident,
+                          "host": [x.cpu() for x in (logits, dl, fed, *caches)]}
+            del logits, dl
+            if name == "plain":
+                del caches, fed
+        for what, a, b in zip(("prefill logits", "decode logits", "tokens", "K caches", "V caches",
+                               "cache indices"), runs["plain"].pop("host"), runs["mesh"].pop("host")):
+            same(f"10a {what}", a, b)
+        exact = runs
+        exact["mesh"]["prefill_collectives"] = dict(prefill.mesh_context.counts)
+        exact["mesh"]["collectives_per_step"] = {k: v / LM_DECODE
+                                                 for k, v in serve.mesh_context.counts.items()}
+        exact["mesh_over_plain"] = exact["mesh"]["ms_per_step"] / exact["plain"]["ms_per_step"]
+        exact["prefill_mesh_over_plain"] = exact["mesh"]["prefill_ms"] / exact["plain"]["prefill_ms"]
+        tok = fed[-1]
+        prof = None
+        if torch.device(dev).type == "cuda":
+            prof = device_profile("10a one mesh exact-KV decode step (1, 1)",
+                                  lambda: serve(params, caches, tok), exact["mesh"]["ms_per_step"],
+                                  cpu_ops=False)
+        exact["mesh"]["device_profile"] = prof
+        del caches, fed
+        out["exact"] = exact
+        # The host time of one collective on the one-rank group, which the
+        # mesh step issues hundreds of: one-element all-reduces and
+        # all-gathers through a context of their own (its counts apart),
+        # and through torch.distributed directly.
+        own = MeshContext(mesh, cfg)
+        x = torch.zeros(1, device=dev)
+        group = mesh.group("model")
+        cost = {}
+        for kind, fn in (("all_reduce", lambda: own.reduce_model(x)),
+                         ("all_gather", lambda: own.gather_model(x, 0)),
+                         ("dist.all_reduce", lambda: dist.all_reduce(x, group=group)),
+                         ("dist.all_gather", lambda: dist.all_gather([torch.empty_like(x)], x,
+                                                                     group=group))):
+            fn()
+            sync(dev)
+            t0 = time.perf_counter()
+            for _ in range(COLLECTIVE_REPS):
+                fn()
+            sync(dev)
+            cost[kind] = (time.perf_counter() - t0) * 1e6 / COLLECTIVE_REPS
+        per_step = exact["mesh"]["collectives_per_step"]
+        out["collective_host_us"] = cost
+        out["collectives_host_ms_per_step"] = sum(per_step[k] * cost[k] for k in per_step) / 1e3
+        log(f"[mesh-serve] 10a {cfg.name} on the {dict(mesh.shape)} mesh ({dist.get_backend()}, "
+            f"one rank), {B} x {S} tokens: prefill {exact['mesh']['prefill_ms']:.1f} ms against the "
+            f"plain {exact['plain']['prefill_ms']:.1f} ({exact['prefill_mesh_over_plain']:.4f}); "
+            f"exact-KV decode {exact['mesh']['ms_per_step']:.2f} ms a step against "
+            f"{exact['plain']['ms_per_step']:.2f} ({exact['mesh_over_plain']:.4f}; medians of steps "
+            f"2-{LM_DECODE}); collectives: prefill "
+            + ", ".join(f"{k} {v}" for k, v in sorted(exact["mesh"]["prefill_collectives"].items()))
+            + ", a decode step "
+            + ", ".join(f"{k} {v:.0f}" for k, v in sorted(exact["mesh"]["collectives_per_step"].items()))
+            + ("; NCCL not measured" if prof is None else
+               f"; one profiled step: {prof['nccl_events']} NCCL kernels, {prof['device_events']} "
+               f"device events, {prof['busy_ms']:.2f} ms busy, device copies {prof['copy_events']} "
+               f"({prof['copy_ms']:.3f} ms)")
+            + f"; peak device memory {(exact['mesh']['memory'] or {}).get('peak_bytes', 0) / 1e9:.2f} "
+            f"GB against {(exact['plain']['memory'] or {}).get('peak_bytes', 0) / 1e9:.2f}; logits, "
+            f"tokens and caches bit-equal [{card}]")
+        log(f"[mesh-serve] 10a one collective on the one-rank group, host us (the mean of "
+            f"{COLLECTIVE_REPS}): all_reduce {cost['all_reduce']:.1f}, all_gather "
+            f"{cost['all_gather']:.1f} (torch.distributed's alone: {cost['dist.all_reduce']:.1f}, "
+            f"{cost['dist.all_gather']:.1f}); the mesh context's times the decode step's counts: "
+            f"{out['collectives_host_ms_per_step']:.1f} ms a step [{card}]")
+
+        # 10b: 7b's state, BANG-KV with the hierarchical top-L.
+        host = long_ctx["bang"]
+        lm.set_codebooks(long_ctx["codebooks"].to(dev))   # the tensor the mesh step reads too
+        s_long = host.k.shape[2]
+        bang_step, _, _ = step_and_specs(cfg, ShapeSpec("long_500k", "decode", s_long, 1), mesh)
+        if not bang_step.bangkv:
+            raise AssertionError("10b: the long_500k decode step does not decode with BANG-KV")
+        tok = long_ctx["token"].to(dev)
+        runs, kept = {}, {}
+        for name in ("plain", "mesh"):
+            resident = free_device(dev)
+            if name == "plain":
+                state = type(host)(*(t.to(dev) for t in host))
+                step = lambda c, t: lm.decode_step(c, t, bangkv=True)   # noqa: E731
+            else:
+                state = type(host)(*(t.to(dev) for t in shard_caches(host, mesh, batch_divisible=True)))
+                step = lambda c, t: bang_step(params, c, t)   # noqa: E731
+            peaks = []
+            (dl, fed, ms, state), ids = recorded_top_l(
+                lambda: greedy_run(step, state, tok, LM_LONG_DECODE, dev, peaks=peaks))
+            finite(f"10b {name} BANG-KV logits", dl, (LM_LONG_DECODE, 1, V))
+            mem = device_mem(dev)
+            if mem is not None:   # the run's peak: the largest of its steps'
+                mem["peak_bytes"] = max(peaks)
+            runs[name] = {**step_stats(ms, 1), "memory": mem, "memory_at_start": resident,
+                          "step_peak_bytes": peaks}
+            kept[name] = (dl, fed, ids, *state)
+            if name == "plain":   # on the host, out of the mesh run's memory
+                kept[name] = tuple(x.cpu() for x in kept[name])
+                del dl, fed, ids, state
+        for what, a, b in zip(("logits", "tokens", "top-L ids", "codes", "K caches", "V caches",
+                               "cache indices"), kept["plain"], kept["mesh"]):
+            same(f"10b {what}", a, b.cpu())
+        n_ids = kept["mesh"][2].numel()
+        del kept["plain"]
+        bang = runs
+        bang["mesh"]["collectives_per_step"] = {k: v / LM_LONG_DECODE
+                                                for k, v in bang_step.mesh_context.counts.items()}
+        bang["mesh_over_plain"] = bang["mesh"]["ms_per_step"] / bang["plain"]["ms_per_step"]
+        bang["top_l_ids_compared"] = n_ids
+        prof = None
+        if torch.device(dev).type == "cuda":
+            tok = kept["mesh"][0][-1].argmax(dim=-1, keepdim=True).to(torch.int32)
+            prof = device_profile("10b one mesh BANG-KV decode step (1, 1)",
+                                  lambda: bang_step(params, state, tok), bang["mesh"]["ms_per_step"],
+                                  cpu_ops=False)
+        bang["mesh"]["device_profile"] = prof
+        del kept, state
+        out["bangkv"] = bang
+        log(f"[mesh-serve] 10b one request of {s_long - LM_LONG_DECODE - 1} tokens (7b's state), "
+            f"{LM_LONG_DECODE} greedy BANG-KV steps (hierarchical top-L {cfg.bangkv_topl}): "
+            f"{bang['mesh']['ms_per_step']:.2f} ms a step against the plain {bang['plain']['ms_per_step']:.2f} "
+            f"({bang['mesh_over_plain']:.4f}); collectives a step "
+            + ", ".join(f"{k} {v:.0f}" for k, v in sorted(bang["mesh"]["collectives_per_step"].items()))
+            + ("; NCCL not measured" if prof is None else
+               f"; one profiled step: {prof['nccl_events']} NCCL kernels, {prof['device_events']} "
+               f"device events, {prof['busy_ms']:.2f} ms busy")
+            + f"; peak device memory {(bang['mesh']['memory'] or {}).get('peak_bytes', 0) / 1e9:.2f} GB "
+            f"against {(bang['plain']['memory'] or {}).get('peak_bytes', 0) / 1e9:.2f}; logits, tokens, "
+            f"codes, caches and {n_ids:,} top-L ids bit-equal [{card}]")
+        del lm, params
+    finally:
+        if made and dist.is_initialized():
+            dist.destroy_process_group()
+    launches = read_launches()
+    if any(launches.values()):
+        raise AssertionError(f"the mesh serve path launched port kernels: {launches}")
+    free_device(dev)
+    out["kernel_launches"] = launches
+    out["phase_s"] = time.perf_counter() - t_phase
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -3262,6 +3530,7 @@ def main() -> int:
     log(f"[small] phase: {time.perf_counter() - t0:.1f} s")
 
     lm = lm_phase(dev, card)
+    long_ctx = lm.pop("ctx")
     log(f"[lm] phase: {lm['phase_s']:.1f} s")
 
     train = train_phase(dev, card)
@@ -3269,6 +3538,10 @@ def main() -> int:
 
     mesh = mesh_phase(dev, card)
     log(f"[mesh] phase: {mesh['phase_s']:.1f} s")
+
+    mesh_serve = mesh_serve_phase(dev, card, long_ctx)
+    del long_ctx
+    log(f"[mesh-serve] phase: {mesh_serve['phase_s']:.1f} s")
 
     keys = ("recall_at_10", "qps", "n_batches", "mean_n_iters", "mean_hops", "batch_wall_ms",
             "device_busy_ms_per_batch", "link_bytes_per_hop", "rerank_bytes_per_batch",
@@ -3288,7 +3561,7 @@ def main() -> int:
                       "vamana_build": vamana["build"], "mutation": mutation["info"],
                       "autotune": {k: at[k] for k in ("winner", "sweep", "sweep_s", "device_kind")},
                       "small_recall_at_10": small, "lm": lm, "train": train, "mesh": mesh,
-                      "card": card}))
+                      "mesh_serve": mesh_serve, "card": card}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

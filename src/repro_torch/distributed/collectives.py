@@ -1,4 +1,4 @@
-"""The collectives of the mesh training step.
+"""The collectives of the mesh steps: training, prefill and decode.
 
 The reference marks its Megatron-TP + FSDP design with `constrain` hints
 (`models/attention.py`, `models/ffn.py`) and GSPMD inserts the collectives.
@@ -23,6 +23,13 @@ a mesh's `data` and `model` groups:
     `models/layers.py:82-85`): the logsumexp takes its max and its sum
     across `model`, and the gold logit comes from the rank that owns it.
 
+Serving on a mesh (prefill and decode, under `torch.no_grad()`) needs no
+autograd Function: `MeshContext.gather_model` all-gathers a decode step's
+query heads and its new K and V over `model`, and the vocabulary-parallel
+logits (`layers.logits_head`); `reduce_model` all-reduces (MAX or SUM) the
+softmax's max and sum and the partial attention outputs of a decode over
+a cache cut over the sequence (`SeqBlock`: this rank's block of it).
+
 Every collective is called whatever the group's size: a one-rank group
 still launches it. `MeshContext` holds a mesh, the config's full widths (a
 block's shape does not say whether its dim was cut) and the count of the
@@ -31,26 +38,33 @@ collectives it issued, by kind.
 from __future__ import annotations
 
 import collections
+from typing import NamedTuple
 
 import torch
 import torch.distributed as dist
 
 from .partitioning import dim_axes, spec_for
 
-# The mesh training step covers these families (ROADMAP A8e-1); the others
-# wait for ROADMAP A8e-2.
+# The families each kind of mesh step covers: training (ROADMAP A8e-1) and
+# serving, prefill and decode; the others wait for ROADMAP A8e-2.
 MESH_FAMILIES = ("dense", "vlm")
+MESH_SERVE_FAMILIES = ("dense", "vlm")
+STEP_KINDS = ("train", "prefill", "decode")
 
 
-def check_mesh_family(cfg, mesh) -> None:
-    """Raise for a family the mesh step does not cover, on a mesh of more
-    than one rank (on one rank its plain code is the mesh step)."""
+def check_mesh_family(cfg, mesh, kind: str = "train") -> None:
+    """Raise for a family the mesh step of `kind` ("train", "prefill" or
+    "decode") does not cover, on a mesh of more than one rank (on one rank
+    its plain code is the mesh step)."""
+    if kind not in STEP_KINDS:
+        raise ValueError(f"step kind {kind!r} is not one of {STEP_KINDS}")
+    families = MESH_FAMILIES if kind == "train" else MESH_SERVE_FAMILIES
     n = 1
     for s in mesh.shape.values():
         n *= s
-    if n > 1 and (cfg.family not in MESH_FAMILIES or cfg.arch_kind != "decoder"):
+    if n > 1 and (cfg.family not in families or cfg.arch_kind != "decoder"):
         raise NotImplementedError(
-            f"{cfg.name}: the {cfg.family} family ({cfg.arch_kind}) has no mesh training step on "
+            f"{cfg.name}: the {cfg.family} family ({cfg.arch_kind}) has no mesh {kind} step on "
             f"{dict(mesh.shape)} yet (ROADMAP A8e-2)")
 
 
@@ -158,6 +172,27 @@ class MeshContext:
         """All-reduce (SUM) of `x` over `data`, in place."""
         return _all_reduce(x, self, "data")
 
+    # Serving: no gradient flows, so plain collectives.
+    def gather_model(self, x: torch.Tensor, dim: int) -> torch.Tensor:
+        """Every `model` rank's `x` concatenated along `dim`, in rank order."""
+        group = self.group("model")
+        parts = [torch.empty_like(x) for _ in range(dist.get_world_size(group))]
+        self.count("all_gather")
+        dist.all_gather(parts, x.contiguous(), group=group)
+        return torch.cat(parts, dim)
+
+    def reduce_model(self, x: torch.Tensor, op: str = "sum") -> torch.Tensor:
+        """All-reduce of `x` over `model` ("sum" or "max"), in place."""
+        return _all_reduce(x, self, "model", dist.ReduceOp.MAX if op == "max" else dist.ReduceOp.SUM)
+
+    def seq_block(self, s_max: int) -> "SeqBlock":
+        """This rank's block of a decode cache of `s_max` positions, cut
+        over `model` where `s_max` divides by its ranks (`cache_pspecs`)."""
+        if s_max % self.n_model == 0:
+            n = s_max // self.n_model
+            return SeqBlock(self, self.model_index * n, n, True, True)
+        return SeqBlock(self, 0, s_max, False, self.model_index == 0)
+
     def vocab_block(self, name: str) -> tuple[int, int] | None:
         """(first id, ids) of this rank's vocabulary block when the rules
         split the table `name` over `model`; None when it is whole."""
@@ -166,6 +201,21 @@ class MeshContext:
             return None
         n = self.cfg.vocab_size // self.n_model
         return self.model_index * n, n
+
+
+class SeqBlock(NamedTuple):
+    """This rank's block of a decode cache's sequence on a mesh: positions
+    [lo, lo + length). `cut`: the sequence is cut over `model`, each rank
+    holding its own block; otherwise every `model` rank holds all of it (a
+    replica kept equal by every rank's writes) and only the first counts
+    its positions in the attention (`scored`), so the sums over `model`
+    count each position once."""
+
+    mesh: MeshContext
+    lo: int
+    length: int
+    cut: bool
+    scored: bool
 
 
 def vocab_parallel_embed(tokens: torch.Tensor, table: torch.Tensor, lo: int,

@@ -27,7 +27,8 @@ is split at '/' and its last part is the leaf's name.
 `shard_tensor` cuts this rank's block of a full tensor and `gather_tensor`
 rebuilds the full tensor from every rank's block (a collective: every rank
 of the mesh calls it). Both take the spec as the rules give it, fitted to
-the full tensor's shape.
+the full tensor's shape. `shard_caches` and `gather_caches` do so for the
+decode caches (`KVCache`, `BangKVCache`) by `cache_pspecs`.
 """
 from __future__ import annotations
 
@@ -274,3 +275,29 @@ def gather_tree(tree: Any, specs: Any, mesh) -> Any:
     for path, leaf in flatten_with_path(tree):
         leaves.append(gather_tensor(leaf, sp[path_key(path)], mesh) if isinstance(leaf, torch.Tensor) else leaf)
     return unflatten(tree, leaves)
+
+
+def shard_caches(caches: Any, mesh, *, batch_divisible: bool) -> Any:
+    """This rank's blocks of full decode caches by `cache_pspecs`: K, V and
+    codes cut over the sequence on `model` where it divides, over the batch
+    on the data axes where `batch_divisible` (and it divides); `index`
+    whole."""
+    return shard_tree(caches, cache_pspecs(caches, mesh, batch_divisible=batch_divisible), mesh)
+
+
+def gather_caches(blocks: Any, mesh, *, s_max: int, batch_divisible: bool) -> Any:
+    """The full caches of `s_max` positions from every rank's blocks
+    (`shard_caches`' inverse; a collective). The specs are those of the full
+    shapes: a block's length does not say whether the sequence was cut."""
+    dp = 1
+    for a in DP_AXES:
+        dp *= _axis_size(mesh, a)
+
+    def full(path, t):
+        if t.dim() != 5:
+            return t
+        B = t.shape[1] * (dp if batch_divisible else 1)
+        return torch.empty((t.shape[0], B, s_max, *t.shape[3:]), dtype=t.dtype, device="meta")
+
+    specs = cache_pspecs(map_with_path(full, blocks), mesh, batch_divisible=batch_divisible)
+    return gather_tree(blocks, specs, mesh)

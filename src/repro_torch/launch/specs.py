@@ -5,8 +5,9 @@ The port of the reference package's `launch/specs.py`. `batch_specs`,
 `param_specs` and `cache_specs` return tensors on the `meta` device --
 shapes and dtypes, no storage -- the counterpart of the reference's
 `ShapeDtypeStruct`s. `step_and_specs` binds the step of a cell and its
-placements on a mesh; the training step is ported (ROADMAP A8e-1), prefill
-and decode on a mesh wait for ROADMAP A8e-2.
+placements on a mesh: the training step (ROADMAP A8e-1) and the prefill
+and decode steps, for the dense and vlm families; the others wait for
+ROADMAP A8e-2 on a mesh of more than one rank.
 
 The training step holds this rank's blocks of the parameters and of
 AdamW's master copies and moments, and this rank's slice of the batch, and
@@ -27,6 +28,22 @@ other gradient by one all-reduce over `data` after the backward. Where the
 batch does not divide the data ranks it is replicated over them (as the
 reference's `_batch_pspec_tree`), each rank's loss is the global one, and
 the same average holds. AdamW runs at lr 1e-4, as the reference's.
+
+The prefill and decode steps hold the same blocks of the parameters, this
+rank's slice of the batch (or of the decode tokens) and this rank's blocks
+of the decode caches (`cache_pspecs`: the sequence over `model`, the batch
+over `data` where it divides)::
+
+    prefill, _, (p_place, b_place) = step_and_specs(cfg, prefill_shape, mesh)
+    logits, caches = prefill(params, shard_tree(full_batch, b_place, mesh), s_max=S + n)
+    serve, _, (p_place, c_place, tok_place) = step_and_specs(cfg, decode_shape, mesh)
+    logits, caches = serve(params, caches, shard_tensor(tokens, tok_place, mesh))
+
+The logits are this rank's requests' (B / data ranks, 1, V), the whole
+vocabulary gathered over `model`. The decode step's caches hold
+`decode_shape.seq_len` positions in all, and it decodes with BANG-KV
+where `uses_bangkv` (long_500k) -- with the hierarchical top-L when the
+config asks for it (`opt_hier_topk`).
 """
 from __future__ import annotations
 
@@ -37,7 +54,7 @@ import torch
 from ..configs.base import ModelConfig, ShapeSpec
 from ..distributed.collectives import MeshContext, check_mesh_family
 from ..distributed.mesh import Mesh
-from ..distributed.partitioning import P, batch_pspec, dim_axes, param_pspecs
+from ..distributed.partitioning import P, batch_pspec, cache_pspecs, dim_axes, param_pspecs
 from ..models.transformer import LM, init_params, lm_loss
 from ..optim import adamw_init, adamw_update
 from ..tree import flat_dict
@@ -111,11 +128,10 @@ def _train_step(cfg: ModelConfig, mesh, p_place) -> Callable:
     # are summed over `data` after the backward.
     whole = {k for k, sp in specs.items() if not any("data" in a for a in dim_axes(sp, len(sp), mesh))}
     n_data = _data_ranks(mesh)
-    mc = MeshContext(mesh, cfg) if isinstance(mesh, Mesh) else None
+    mc = _context(cfg, mesh)
 
     def train_step(params, opt_state, batch):
-        if mc is None:
-            raise TypeError("the training step runs on a runnable Mesh, not a shape-only one")
+        _runnable(mc)
         flat = flat_dict(params)
         for p in flat.values():
             p.grad = None
@@ -135,20 +151,72 @@ def _train_step(cfg: ModelConfig, mesh, p_place) -> Callable:
     return train_step
 
 
+def _context(cfg: ModelConfig, mesh) -> MeshContext | None:
+    return MeshContext(mesh, cfg) if isinstance(mesh, Mesh) else None
+
+
+def _runnable(mc) -> None:
+    if mc is None:
+        raise TypeError("the step runs on a runnable Mesh, not a shape-only one")
+
+
+def _prefill_step(cfg: ModelConfig, mesh) -> Callable:
+    mc = _context(cfg, mesh)
+
+    def prefill_step(params, batch, s_max: int | None = None):
+        """(this rank's logits (B_r, 1, V), its blocks of caches of `s_max`
+        positions, the prompt's length when None)."""
+        _runnable(mc)
+        return LM(cfg, params).prefill(batch, s_max=s_max, mesh=mc)
+
+    prefill_step.mesh_context = mc
+    return prefill_step
+
+
+def _serve_step(cfg: ModelConfig, shape: ShapeSpec, mesh) -> Callable:
+    mc = _context(cfg, mesh)
+    bangkv = uses_bangkv(cfg, shape)
+
+    def serve_step(params, caches, tokens):
+        """One decode step of this rank's requests: (logits (B_r, 1, V),
+        its blocks of the caches, updated in place)."""
+        _runnable(mc)
+        return LM(cfg, params).decode_step(caches, tokens, bangkv=bangkv, mesh=mc,
+                                           s_max=shape.seq_len)
+
+    serve_step.mesh_context = mc
+    serve_step.bangkv = bangkv
+    return serve_step
+
+
 def step_and_specs(cfg: ModelConfig, shape: ShapeSpec, mesh) -> tuple[Callable, tuple, tuple]:
-    """(step, arg specs, placements) of one cell on `mesh`. For `kind ==
-    "train"`: `train_step(params, opt_state, batch) -> (params, opt_state,
-    loss)`, the meta (params, AdamW state, batch), and their partition
-    specs (`param_pspecs`, the batch's over the data axes). The rules run on
-    a shape-only `AbstractMesh` too; the step runs on a runnable `Mesh`
-    only. The moe, ssm, hybrid and encdec families on a mesh of more than
-    one rank raise, and so do prefill and decode (ROADMAP A8e-2)."""
-    if shape.kind != "train":
-        raise NotImplementedError(f"{shape.kind} on a mesh waits for ROADMAP A8e-2")
-    check_mesh_family(cfg, mesh)
+    """(step, arg specs, placements) of one cell on `mesh`, as the
+    reference's. For `kind == "train"`: `train_step(params, opt_state,
+    batch) -> (params, opt_state, loss)`, the meta (params, AdamW state,
+    batch), and their partition specs (`param_pspecs`, the batch's over the
+    data axes). "prefill": `prefill_step(params, batch, s_max=None) ->
+    (logits, caches)`, the meta (params, batch) and their specs. "decode":
+    `serve_step(params, caches, tokens) -> (logits, caches)`, the meta
+    (params, caches filled to seq_len - 1, tokens (B, 1)), and their specs
+    (`cache_pspecs`; the tokens over the data axes where the batch divides
+    them). The rules run on a shape-only `AbstractMesh` too; the step runs
+    on a runnable `Mesh` only. The moe, ssm, hybrid and encdec families on
+    a mesh of more than one rank raise (ROADMAP A8e-2)."""
+    check_mesh_family(cfg, mesh, shape.kind)
     p_specs = param_specs(cfg)
-    opt_specs = adamw_init(p_specs)
-    b_specs = batch_specs(cfg, shape)
     p_place = param_pspecs(p_specs, mesh)
-    placements = (p_place, param_pspecs(opt_specs, mesh), _batch_pspec_tree(b_specs, mesh))
-    return _train_step(cfg, mesh, p_place), (p_specs, opt_specs, b_specs), placements
+    if shape.kind == "train":
+        opt_specs = adamw_init(p_specs)
+        b_specs = batch_specs(cfg, shape)
+        placements = (p_place, param_pspecs(opt_specs, mesh), _batch_pspec_tree(b_specs, mesh))
+        return _train_step(cfg, mesh, p_place), (p_specs, opt_specs, b_specs), placements
+    if shape.kind == "prefill":
+        b_specs = batch_specs(cfg, shape)
+        return (_prefill_step(cfg, mesh), (p_specs, b_specs),
+                (p_place, _batch_pspec_tree(b_specs, mesh)))
+    divisible = shape.global_batch % _data_ranks(mesh) == 0
+    c_specs = cache_specs(cfg, shape)
+    tok_specs = _meta((shape.global_batch, 1), torch.int32)
+    tok_place = P(batch_pspec(mesh)[0], None) if divisible else P(None, None)
+    placements = (p_place, cache_pspecs(c_specs, mesh, batch_divisible=divisible), tok_place)
+    return _serve_step(cfg, shape, mesh), (p_specs, c_specs, tok_specs), placements

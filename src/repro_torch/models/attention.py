@@ -12,6 +12,9 @@ is exact in float32), so the sums stay float32 as the reference's do.
 Decode attends one query token against the cache. The cache is updated in
 place: the new key and value are written at the device index
 `cache.index` (no host sync), and the returned cache shares the storage.
+Its softmax is written out (`softmax_parts`: the max, exp(s - max), the
+sum, the division), as the reference's `jax.nn.softmax` computes it, so
+that a decode over a cache cut across ranks takes the same operations.
 Whisper's encoder attends bidirectionally (no mask) and its decoder's
 `cross_attention` attends to the encoder memory: both one float32 softmax
 over every key (`full_attention`), as the reference's einsums.
@@ -31,6 +34,20 @@ phi3-medium-14b (10) at 4 and 16, granite-3-2b (8) at 16; the query
 projection `wq` when `model` does not divide n_heads: phi3-medium-14b (40
 heads) at 16, internvl2-1b (14) at 4 and 16. gemma3-27b (32 and 16 heads)
 never does. At `model` 2 none does.
+
+Serving on a mesh (with `torch.no_grad()`) runs the same plan. Prefill
+computes this rank's heads as training does and returns the roped K and V
+of every KV head (this rank's block gathered over `model`, or the whole
+projection) for its sequence block of the cache. A decode step gathers the
+query heads and the new K and V over `model`; the rank that holds position
+`index` in its block of the cache (`collectives.SeqBlock`: the cache's
+sequence cut over `model`) writes them; every rank scores its block at its
+global positions (the causal mask and the sliding window), takes the
+global max (an all-reduce MAX over `model`), exp(s - max), the global sum
+(an all-reduce SUM), divides, multiplies by its block of V and all-reduces
+the (B, H, hd) partial outputs; then the row-parallel `wo` of its heads. On
+a one-rank mesh these are the plain path's operations, and each collective
+a copy.
 """
 from __future__ import annotations
 
@@ -94,8 +111,11 @@ class HeadPlan:
             self.kv = slice(ids[0], ids[0] + n) if even else ids
 
     def qkv(self, p, x: torch.Tensor):
-        """q, k, v of this rank's heads from x (B, S, D), replicated over
-        `model` (its gradient summed there when the block is split)."""
+        """q of this rank's heads and k, v of the KV heads its projections
+        give (this rank's block, or every head where `wk` and `wv` are
+        whole: `select_kv` picks those its query heads read) from x (B, S,
+        D), replicated over `model` (its gradient summed there when the
+        block is split)."""
         mc, hd = self.mesh, self.head_dim
         B, S, _ = x.shape
         if self.split:
@@ -103,9 +123,24 @@ class HeadPlan:
         q = (x @ mc.weight(p["wq"], "wq", self.q_use)).reshape(B, S, self.n_q, hd)
         k = (x @ mc.weight(p["wk"], "wk", self.kv_use)).reshape(B, S, -1, hd)
         v = (x @ mc.weight(p["wv"], "wv", self.kv_use)).reshape(B, S, -1, hd)
-        if self.kv is not None:
-            k, v = k[:, :, self.kv], v[:, :, self.kv]
         return q, k, v
+
+    def select_kv(self, t: torch.Tensor) -> torch.Tensor:
+        """The KV heads of `qkv`'s k or v that this rank's query heads read."""
+        return t if self.kv is None else t[:, :, self.kv]
+
+    def all_q(self, q: torch.Tensor) -> torch.Tensor:
+        """Every query head: this rank's gathered over `model` (serving)."""
+        return self.mesh.gather_model(q, 2) if self.q_use == "shard" else q
+
+    def all_kv(self, t: torch.Tensor) -> torch.Tensor:
+        """Every KV head of `qkv`'s k or v: this rank's block gathered over
+        `model`, or the whole projection as it is (serving)."""
+        return self.mesh.gather_model(t, 2) if self.kv_use == "shard" else t
+
+    def own_heads(self, out: torch.Tensor) -> torch.Tensor:
+        """This rank's query heads of an output over every head."""
+        return out[:, :, self.q0:self.q0 + self.n_q]
 
     def out(self, p, out: torch.Tensor) -> torch.Tensor:
         """The output projection of this rank's heads (B, S, n_q, hd), summed
@@ -181,25 +216,50 @@ def chunked_causal_attention(
     return torch.stack(outs).permute(1, 0, 4, 2, 3, 5).reshape(B, S, H, hd)
 
 
+def softmax_parts(scores: torch.Tensor, seq=None) -> torch.Tensor:
+    """Softmax over the last dim, written out: m = max, e = exp(s - m),
+    e / sum(e), as `jax.nn.softmax`. With `seq` (a `SeqBlock`: the scores of
+    this rank's block of the sequence) the max and the sum are all-reduced
+    over `model`; a block with no valid score takes -inf as its max, and
+    its exp(s - m) are 0. Writes into `scores`' storage."""
+    m = scores.amax(dim=-1, keepdim=True)
+    if seq is not None:
+        m = seq.mesh.reduce_model(m, "max")
+    e = scores.sub_(m).exp_()
+    z = e.sum(dim=-1, keepdim=True)
+    if seq is not None:
+        z = seq.mesh.reduce_model(z)
+    return e.div_(z)
+
+
 def decode_attention(
     q: torch.Tensor,        # (B, 1, H, hd), rope applied
     cache: KVCache,
     *,
     window: torch.Tensor | int,
+    seq=None,
 ) -> torch.Tensor:
-    """One-token attention against the cache's first `cache.index` slots."""
+    """One-token attention against the cache's first `cache.index` slots.
+    With `seq` (a `SeqBlock`), `cache` is this rank's block of the
+    sequence, at global positions seq.lo + 0, 1, ...: the softmax combines
+    over `model` and the partial outputs are summed there."""
     B, _, H, hd = q.shape
     Hkv = cache.k.shape[2]
     G = H // Hkv
     S = cache.k.shape[1]
     scale = hd ** -0.5
+    lo = 0 if seq is None else seq.lo
     qg = q.reshape(B, Hkv, G, hd).float()
     scores = (qg @ cache.k.float().permute(0, 2, 3, 1)) * scale      # (B, Hkv, G, S)
-    pos = torch.arange(S, dtype=torch.int32, device=q.device)
+    pos = torch.arange(lo, lo + S, dtype=torch.int32, device=q.device)
     valid = (pos[None, :] < cache.index) & (pos[None, :] >= cache.index - window)
+    if seq is not None and not seq.scored:
+        valid = torch.zeros_like(valid)
     scores.masked_fill_(~valid[:, None, None, :], float("-inf"))
-    probs = torch.softmax(scores, dim=-1)
+    probs = softmax_parts(scores, seq)
     out = probs @ cache.v.float().permute(0, 2, 1, 3)                 # (B, Hkv, G, hd)
+    if seq is not None:
+        out = seq.mesh.reduce_model(out)
     return out.reshape(B, 1, H, hd).to(q.dtype)
 
 
@@ -229,11 +289,20 @@ def cross_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.
     return full_attention(q, k, v)
 
 
-def write_at_index(buf: torch.Tensor, val: torch.Tensor, index: torch.Tensor) -> None:
+def write_at_index(buf: torch.Tensor, val: torch.Tensor, index: torch.Tensor, seq=None) -> None:
     """buf[:, index] = val in place, at a device index (no host sync): the
     counterpart of the reference's `dynamic_update_slice_in_dim(..., axis=1)`.
-    The caller sizes the cache; an index past its end is an error."""
-    buf.index_copy_(1, index.reshape(1).long(), val.to(buf.dtype))
+    The caller sizes the cache; an index past its end is an error. With
+    `seq` (a `SeqBlock`), `buf` is this rank's block of the sequence and is
+    written only where it holds position `index` (the slot it would take is
+    written back with its own value elsewhere)."""
+    if seq is None:
+        buf.index_copy_(1, index.reshape(1).long(), val.to(buf.dtype))
+        return
+    local = index.reshape(1).long() - seq.lo
+    at = local.clamp(0, seq.length - 1)
+    here = (local >= 0) & (local < seq.length)
+    buf.index_copy_(1, at, torch.where(here, val.to(buf.dtype), buf.index_select(1, at)))
 
 
 def attention_block(
@@ -251,6 +320,8 @@ def attention_block(
     bf16_scores: bool = False,
     window_skip: bool = False,
     mesh=None,
+    seq=None,
+    return_kv: bool = True,
 ) -> tuple[torch.Tensor, KVCache | tuple | None]:
     """Full attention sublayer. cache=None -> prefill (causal, or the
     encoder's bidirectional attention with `causal=False`); else decode.
@@ -259,14 +330,16 @@ def attention_block(
     cache (training drops them); decode writes the new key and value into `cache` in place and
     returns it with `index + 1`. With a static int `window`, `window_skip`
     activates the banded local-attention path. With `mesh` (a
-    `MeshContext`: training on a mesh, causal, no cache) this rank computes
-    its heads (`HeadPlan`) and returns (y, None).
+    `MeshContext`, causal) this rank computes its heads (`HeadPlan`):
+    without a cache it returns (y, None), or with `return_kv` the roped K
+    and V of every KV head (prefill); a decode step takes its cache's block
+    of the sequence from `seq` (a `SeqBlock`).
     """
     B, S, _ = x.shape
     plan = None
     if mesh is not None:
-        if cache is not None or not causal:
-            raise ValueError("attention on a mesh is training's: causal, with no cache")
+        if not causal or (cache is not None) != (seq is not None):
+            raise ValueError("attention on a mesh is causal; a decode there takes its SeqBlock")
         plan = HeadPlan(mesh, n_heads, n_kv_heads, head_dim)
     q, k, v = _qkv(p, x, n_heads, n_kv_heads, head_dim) if plan is None else plan.qkv(p, x)
 
@@ -274,26 +347,33 @@ def attention_block(
         pos = torch.arange(S, dtype=torch.int32, device=x.device)[None, :]
         q = apply_rope(q, pos, rope_theta)
         k = apply_rope(k, pos, rope_theta)
+        kq, vq = (k, v) if plan is None else (plan.select_kv(k), plan.select_kv(v))
         if causal:
             c = min(attn_chunk, S)
             band = None
             if window_skip and isinstance(window, int) and window + c < S:
                 band = min(S, -(-(window + c) // c) * c)   # round up to chunks
-            out = chunked_causal_attention(q, k, v, chunk=c, window=window,
+            out = chunked_causal_attention(q, kq, vq, chunk=c, window=window,
                                            bf16_scores=bf16_scores, band=band)
         else:   # encoder: full bidirectional (no mask)
             out = full_attention(q, k, v)
         new_cache = (k, v)   # roped k -- prefill assembles the decode cache
+        if plan is not None:
+            new_cache = (plan.all_kv(k), plan.all_kv(v)) if return_kv else None
     else:
         pos = cache.index.reshape(1, 1).expand(B, 1)   # query position
         q = apply_rope(q, pos, rope_theta)
         k = apply_rope(k, pos, rope_theta)
-        write_at_index(cache.k, k, cache.index)
-        write_at_index(cache.v, v, cache.index)
+        if plan is not None:
+            q, k, v = plan.all_q(q), plan.all_kv(k), plan.all_kv(v)
+        write_at_index(cache.k, k, cache.index, seq)
+        write_at_index(cache.v, v, cache.index, seq)
         new_cache = KVCache(cache.k, cache.v, cache.index + 1)
-        out = decode_attention(q, new_cache, window=window)
+        out = decode_attention(q, new_cache, window=window, seq=seq)
+        if plan is not None:
+            out = plan.own_heads(out)
 
     if plan is not None:
-        return plan.out(p, out), None
+        return plan.out(p, out), new_cache
     y = out.reshape(B, S, n_heads * head_dim) @ p["wo"]
     return y, new_cache

@@ -6,12 +6,13 @@ The port of the reference package's `models/layers.py`. Parameters live in
 is plain functions on tensors, computed on their inputs' device. Compute
 dtype is bf16 by default; norms and softmax accumulate in float32.
 
-`embed` and `unembed_chunked` take an optional mesh (a
-`distributed.collectives.MeshContext`, the mesh training step): the table
-is then this rank's block of the parameter, gathered over `data` at its
-use, and where the rules split the vocabulary over `model` the lookup and
-the cross-entropy are vocabulary-parallel; where they leave it whole
-(granite's odd 49,155) both run on the whole table on every `model` rank.
+`embed`, `unembed_chunked` and the serve path's `logits_head` take an
+optional mesh (a `distributed.collectives.MeshContext`, the mesh steps):
+the table is then this rank's block of the parameter, gathered over `data`
+at its use, and where the rules split the vocabulary over `model` the
+lookup, the cross-entropy and the logits are vocabulary-parallel; where
+they leave it whole (granite's odd 49,155) each runs on the whole table on
+every `model` rank.
 """
 from __future__ import annotations
 
@@ -197,3 +198,21 @@ def unembed_chunked(h: torch.Tensor, table: torch.Tensor, labels: torch.Tensor,
     keep = n_chunks * c
     total = _ChunkedCrossEntropy.apply(h[:, :keep], table, labels[:, :keep].long(), c)
     return total / (B * keep)
+
+
+def logits_head(h: torch.Tensor, table: torch.Tensor, name: str = "embed", mesh=None) -> torch.Tensor:
+    """float32 logits (B, S, V) of h (B, S, D) against the head `name`: the
+    tied "embed" (V, D), used transposed, or "lm_head" (D, V). Both are
+    cast to float32 on every call, as the reference does (2.5 GB for
+    glm4-9b's 151,552 x 4,096).
+
+    With `mesh` (serving on a mesh) `table` is this rank's block of the
+    parameter: where the vocabulary is split over `model`, this rank's
+    block of the logits, gathered over `model` in vocabulary order."""
+    block = None
+    if mesh is not None:
+        block = mesh.vocab_block(name)
+        table = mesh.weight(table, name, "replicated" if block is None else "shard")
+    head = table.T if name == "embed" else table
+    logits = h.float() @ head.float()
+    return logits if block is None else mesh.gather_model(logits, -1)

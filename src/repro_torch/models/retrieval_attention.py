@@ -26,11 +26,24 @@ stable descending sort takes the lowest position first, as
 `jax.lax.top_k` does -- ties are the rule while the history is shorter
 than L, where every slot outside the retrieval region scores -inf.
 
-On one card the reference's hierarchical top-L (`hier_topk`, shard-local
-then global over the `model` axis) takes the same ids as the flat one: the
-flat selection serves both until the mesh LM (ROADMAP A7). The decode
-writes the new key, value and codes into the cache in place, at the device
-index, before the scan, so the window always holds one finite score.
+The decode writes the new key, value and codes into the cache in place,
+at the device index, before the scan, so the window always holds one
+finite score. Stage 3's joint softmax is written out
+(`attention.softmax_parts`), as the reference's `jax.nn.softmax`.
+
+On a mesh (`seq`, a `collectives.SeqBlock`: the cache's sequence cut over
+`model`) the codebooks are a replicated parameter; the owner of `index`
+writes the new codes, key and value; each rank scans its block of codes;
+the hierarchical top-L (`hier_topk`, the reference's shard-local then
+global selection) takes each rank's top-L of its block, all-gathers the
+(B, H, M, L) scores and global positions over `model` and takes the
+global top-L of those, the same ids as the flat selection, ties included
+(`_retrieve_top_l`); without `hier_topk` the scores are all-gathered and
+selected flat. Stage 3 scores the retrieved and window rows each rank
+holds, masks the others, and combines the softmax and the outputs over
+`model` as the exact decode does. `fit_bangkv_caches` on a mesh fits the
+codebooks on the keys gathered from every rank, so they are the same on
+every rank, and each rank encodes its own block.
 """
 from __future__ import annotations
 
@@ -39,8 +52,9 @@ from typing import NamedTuple
 import torch
 
 from ..core.kmeans import kmeans_per_subspace
+from ..distributed.partitioning import P, gather_tensor
 from ..kernels.common import resolve_device
-from .attention import KVCache, write_at_index
+from .attention import HeadPlan, KVCache, softmax_parts, write_at_index
 from .layers import apply_rope, truncated_normal_init
 
 N_CENTROIDS = 256
@@ -108,33 +122,81 @@ def bangkv_init(batch: int, s_max: int, n_kv_heads: int, head_dim: int, m: int,
     )
 
 
-def fit_bangkv_caches(caches: KVCache, fill: int, m: int, iters: int = 12
-                      ) -> tuple[torch.Tensor, BangKVCache]:
+def fit_bangkv_caches(caches: KVCache, fill: int, m: int, iters: int = 12, *, seq=None,
+                      batch_cut: bool = False) -> tuple[torch.Tensor, BangKVCache]:
     """Stage 0 for a prefilled stack: per layer, codebooks fitted on the
     first `fill` keys of every request and those keys encoded (the rest of
     the codes stay 0 until decode writes them), as the reference's
     `examples/long_context_decode.py` does. Returns the (L, Hkv, m, 256,
     hd/m) codebooks and a `BangKVCache` that shares `caches.k` and
-    `caches.v`: clone them first where the exact cache decodes too."""
+    `caches.v`: clone them first where the exact cache decodes too.
+
+    On a mesh, `caches` are this rank's blocks (`seq`: its block of the
+    sequence; `batch_cut`: the batch cut over `data`): each layer's keys
+    are gathered from every rank (a collective), so every rank fits the
+    codebooks a single device would, and encodes its own block."""
     L, B, S = caches.k.shape[:3]
     Hkv = caches.k.shape[3]
+    dev = caches.k.device
+    lo = 0 if seq is None else seq.lo
+    held = min(max(fill - lo, 0), S)   # this block's positions below `fill`
+    spec = None
+    if seq is not None:
+        spec = P("data" if batch_cut else None, "model" if seq.cut else None)
     cbs = []
-    codes = torch.zeros((L, B, S, Hkv, m), dtype=torch.uint8, device=caches.k.device)
+    codes = torch.zeros((L, B, S, Hkv, m), dtype=torch.uint8, device=dev)
     for layer in range(L):
-        kl = caches.k[layer, :, :fill]
-        cb = fit_codebooks(kl, m, iters=iters)
-        codes[layer, :, :fill] = encode_keys(cb, kl)
+        kl = caches.k[layer]
+        full = kl if seq is None else gather_tensor(kl, spec, seq.mesh.mesh)
+        cb = fit_codebooks(full[:, :fill], m, iters=iters)
+        codes[layer, :, :held] = encode_keys(cb, kl[:, :held])
         cbs.append(cb)
-    index = torch.full((L,), fill, dtype=torch.int32, device=caches.k.device)
+    index = torch.full((L,), fill, dtype=torch.int32, device=dev)
     return torch.stack(cbs), BangKVCache(codes, caches.k, caches.v, index)
 
 
-def _retrieve_top_l(approx: torch.Tensor, top_l: int, hier: bool = False) -> torch.Tensor:
+def _local_top_l(approx: torch.Tensor, top_l: int, lo: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """A block's candidates: its min(L, block) highest scores (B, H, n) and
+    their global positions (lo + the position in the block), the lowest
+    position first among ties."""
+    vals, ids = torch.sort(approx, dim=-1, descending=True, stable=True)
+    n = min(top_l, approx.shape[-1])
+    return vals[..., :n], ids[..., :n] + lo
+
+
+def _merge_top_l(vals: torch.Tensor, ids: torch.Tensor, top_l: int) -> torch.Tensor:
+    """The global top-L of the blocks' candidates (B, H, M * n), laid out
+    block after block in position order: a stable descending sort of the
+    scores, then their positions."""
+    order = torch.sort(vals, dim=-1, descending=True, stable=True)[1][..., :top_l]
+    return ids.gather(-1, order)
+
+
+def _retrieve_top_l(approx: torch.Tensor, top_l: int, hier: bool = False, seq=None) -> torch.Tensor:
     """Stage-2 selection: (B, H, S) scores -> (B, H, L) positions, the
-    highest first, the lowest position first among ties. `hier` selects the
-    same ids on one card (see the module docstring)."""
-    if top_l > approx.shape[-1]:
-        raise ValueError(f"top_l {top_l} exceeds the cache length {approx.shape[-1]}")
+    highest first, the lowest position first among ties (ROADMAP C2). With
+    `seq` (a `SeqBlock` of a cache cut over `model`), `approx` is this
+    rank's block of the scores; `hier` takes each block's top-L and the
+    global top-L of the gathered (B, H, M, L) candidates, else the scores
+    are gathered and selected flat.
+
+    The hierarchical selection gives the flat one's ids, ties included.
+    Order the positions by (score descending, position ascending): the
+    flat selection is the first L. Each of them is beaten by fewer than L
+    positions overall, so by fewer than L of its own block, and is among
+    its block's candidates. The candidates come block after block, each
+    block's in that order, and the blocks in position order, so equal
+    scores stand in position order; the stable descending sort of their
+    scores is that order, and its first L are the flat selection's."""
+    total = approx.shape[-1] * (seq.mesh.n_model if seq is not None and seq.cut else 1)
+    if top_l > total:
+        raise ValueError(f"top_l {top_l} exceeds the cache length {total}")
+    if seq is not None and seq.cut:
+        mc = seq.mesh
+        if hier:
+            vals, ids = _local_top_l(approx, top_l, seq.lo)
+            return _merge_top_l(mc.gather_model(vals, -1), mc.gather_model(ids, -1), top_l)
+        approx = mc.gather_model(approx, -1)
     return torch.sort(approx, dim=-1, descending=True, stable=True)[1][..., :top_l]
 
 
@@ -148,15 +210,18 @@ def bangkv_decode_attention(
     hier_topk: bool = False,
     adc_lite: bool = False,    # opt_adc_lite: bf16 ADC table
     return_top_idx: bool = False,
+    seq=None,
 ):
     """Stages 1-3 for one decode step. Returns (B, 1, H, hd), and the (B, H,
-    L) retrieved positions with `return_top_idx`."""
+    L) retrieved positions with `return_top_idx`. With `seq` (a
+    `SeqBlock`), `cache` is this rank's block of the sequence."""
     B, _, H, hd = q.shape
     _, S, Hkv, m = cache.codes.shape
     G = H // Hkv
     dsub = hd // m
     scale = hd ** -0.5
     dev = q.device
+    lo = 0 if seq is None else seq.lo
 
     # ---- Stage 1: per-(query-head) dot-product PQDistTable.
     qf = q.float().reshape(B, H, m, dsub)
@@ -171,30 +236,36 @@ def bangkv_decode_attention(
                             idx_q[..., None])[..., 0]                  # (B, S, H, m)
     approx = _sum_last(gathered.float()).transpose(1, 2)                # (B, H, S)
 
-    pos = torch.arange(S, dtype=torch.int32, device=dev)
+    pos = torch.arange(lo, lo + S, dtype=torch.int32, device=dev)
     in_window = (pos >= cache.index - window) & (pos < cache.index)
     valid_hist = (pos < cache.index) & ~in_window                       # retrieval region
     approx = approx.masked_fill(~valid_hist, float("-inf"))
 
-    top_idx = _retrieve_top_l(approx, top_l, hier_topk)                 # (B, H, L)
+    top_idx = _retrieve_top_l(approx, top_l, hier_topk, seq)            # (B, H, L)
 
-    # ---- Stage 3: exact re-rank over retrieved ∪ recent-window keys.
+    # ---- Stage 3: exact re-rank over retrieved ∪ recent-window keys. On a
+    # mesh each rank reads the rows its block holds and masks the others.
     kv_head = (torch.arange(H, device=dev) // G)[None, :, None]
     b_idx = torch.arange(B, device=dev)[:, None, None]
-    k_sel = cache.k[b_idx, top_idx, kv_head].float()                    # (B, H, L, hd)
-    v_sel = cache.v[b_idx, top_idx, kv_head].float()
+    at = top_idx if seq is None else (top_idx - lo).clamp(0, S - 1)
+    k_sel = cache.k[b_idx, at, kv_head].float()                         # (B, H, L, hd)
+    v_sel = cache.v[b_idx, at, kv_head].float()
     qh = q.float().reshape(B, H, hd)
     s_ret = torch.einsum("bhd,bhld->bhl", qh, k_sel) * scale            # (B, H, L)
     # A retrieved slot is invalid when history < L: the retrieval region is
     # exactly pos < index - window.
     ret_valid = top_idx < (cache.index - window)
+    if seq is not None:
+        ret_valid = ret_valid & _held(top_idx, seq, S)
     s_ret = s_ret.masked_fill(~ret_valid, float("-inf"))
 
     # The exact recent window (includes the new key); indices below 0 are
     # clamped and masked.
     w_idx = cache.index - window + torch.arange(window, dtype=torch.int32, device=dev)
     w_valid = w_idx >= 0
-    w_safe = w_idx.clamp(0, S - 1).long()
+    if seq is not None:
+        w_valid = w_valid & _held(w_idx, seq, S)
+    w_safe = (w_idx - lo).clamp(0, S - 1).long()
     k_win = cache.k[:, w_safe].float()                                  # (B, W, Hkv, hd)
     v_win = cache.v[:, w_safe].float()
     qg = qh.reshape(B, Hkv, G, hd)
@@ -202,14 +273,23 @@ def bangkv_decode_attention(
     s_win = s_win.masked_fill(~w_valid, float("-inf")).reshape(B, H, window)
 
     # One joint softmax over [retrieved, window].
-    p_all = torch.softmax(torch.cat([s_ret, s_win], dim=-1), dim=-1)   # (B, H, L+W)
+    p_all = softmax_parts(torch.cat([s_ret, s_win], dim=-1), seq)      # (B, H, L+W)
     p_ret, p_win = p_all[..., :top_l], p_all[..., top_l:]
     out = torch.einsum("bhl,bhld->bhd", p_ret, v_sel)
     out = out + torch.einsum(
         "bkgw,bwkd->bkgd", p_win.reshape(B, Hkv, G, window), v_win
     ).reshape(B, H, hd)
+    if seq is not None:
+        out = seq.mesh.reduce_model(out)
     out = out.reshape(B, 1, H, hd).to(q.dtype)
     return (out, top_idx) if return_top_idx else out
+
+
+def _held(positions: torch.Tensor, seq, S: int) -> torch.Tensor:
+    """Which global positions this rank's block holds and counts."""
+    if not seq.scored:
+        return torch.zeros_like(positions, dtype=torch.bool)
+    return (positions >= seq.lo) & (positions < seq.lo + S)
 
 
 def bangkv_attention_block(
@@ -226,23 +306,37 @@ def bangkv_attention_block(
     window: int,
     hier_topk: bool = False,
     adc_lite: bool = False,
+    mesh=None,
+    seq=None,
 ) -> tuple[torch.Tensor, BangKVCache]:
-    """Decode attention sublayer with the BANG-KV cache, updated in place."""
+    """Decode attention sublayer with the BANG-KV cache, updated in place.
+    With `mesh` (a `MeshContext`) and `seq` (this rank's block of the
+    cache's sequence): this rank's heads (`attention.HeadPlan`), every
+    head gathered over `model` for the retrieval, its heads through the
+    row-parallel `wo`."""
     B = x.shape[0]
-    q = (x @ p["wq"]).reshape(B, 1, n_heads, head_dim)
-    k = (x @ p["wk"]).reshape(B, 1, n_kv_heads, head_dim)
-    v = (x @ p["wv"]).reshape(B, 1, n_kv_heads, head_dim)
+    plan = None if mesh is None else HeadPlan(mesh, n_heads, n_kv_heads, head_dim)
+    if plan is None:
+        q = (x @ p["wq"]).reshape(B, 1, n_heads, head_dim)
+        k = (x @ p["wk"]).reshape(B, 1, n_kv_heads, head_dim)
+        v = (x @ p["wv"]).reshape(B, 1, n_kv_heads, head_dim)
+    else:
+        q, k, v = plan.qkv(p, x)
     pos = cache.index.reshape(1, 1).expand(B, 1)
     q = apply_rope(q, pos, rope_theta)
     k = apply_rope(k, pos, rope_theta)
+    if plan is not None:
+        q, k, v = plan.all_q(q), plan.all_kv(k), plan.all_kv(v)
 
     codes_new = encode_keys(codebooks, k)                               # (B, 1, Hkv, m)
     for buf, val in ((cache.codes, codes_new), (cache.k, k), (cache.v, v)):
-        write_at_index(buf, val, cache.index)
+        write_at_index(buf, val, cache.index, seq)
     new_cache = BangKVCache(cache.codes, cache.k, cache.v, cache.index + 1)
     out = bangkv_decode_attention(
         codebooks, q, new_cache, top_l=top_l, window=window,
-        hier_topk=hier_topk, adc_lite=adc_lite,
+        hier_topk=hier_topk, adc_lite=adc_lite, seq=seq,
     )
+    if plan is not None:
+        return plan.out(p, plan.own_heads(out)), new_cache
     y = out.reshape(B, 1, n_heads * head_dim) @ p["wo"]
     return y, new_cache

@@ -33,6 +33,19 @@ rematerialised layer body, so a gathered weight is gathered again in
 backward and never held across layers. The other families raise on a mesh
 of more than one rank (ROADMAP A8e-2).
 
+Serving on a mesh (`LM.prefill`, `LM.decode_step` and
+`LM.init_decode_caches` with `mesh=`, the prefill and decode steps of
+`launch.specs`; dense and vlm) takes the same blocks of the parameters and
+this rank's slice of the batch. The decode caches are this rank's blocks
+in the `cache_pspecs` layout: the batch over `data` where it divides, the
+sequence over `model` where `s_max` divides (`collectives.SeqBlock`).
+Prefill runs the training stack's forward and writes this rank's block of
+the sequence of every KV head; a decode step attends over the sequence
+cut across `model` (`attention.decode_attention`,
+`retrieval_attention.bangkv_decode_attention` with the hierarchical
+top-L); the logits are vocabulary-parallel (`layers.logits_head`). A
+vlm's prefill carries its patches.
+
 Caches keep the reference's stacked layout -- K and V (L, B, S, Hkv, hd),
 BANG-KV codes (L, B, S, Hkv, m) uint8, `index` (L,) int32, the SSM's conv
 window (L, B, K-1, conv_ch) and state (L, B, H, P, N); hybrid's
@@ -51,12 +64,13 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ModelConfig
-from ..distributed.collectives import MESH_FAMILIES, check_mesh_family
+from ..distributed.collectives import MESH_FAMILIES, MESH_SERVE_FAMILIES, check_mesh_family
 from ..kernels.common import resolve_device
 from . import retrieval_attention as bkv
 from .attention import KVCache, attention_block, attn_params, cross_attention
 from .ffn import ffn_params, swiglu
-from .layers import ParamTree, embed, norm, norm_params, truncated_normal_init, unembed_chunked
+from .layers import (ParamTree, embed, logits_head, norm, norm_params, truncated_normal_init,
+                     unembed_chunked)
 from .moe import MoEAux, moe_block, moe_params
 from .ssm import SSMCache, ssm_block, ssm_cache_init, ssm_params
 
@@ -211,10 +225,11 @@ def static_layer_flags(cfg: ModelConfig, s_ref: int) -> tuple[list, list]:
 # ---------------------------------------------------------------------------
 
 def _dense_layer(cfg: ModelConfig, p, h, window, theta, cache, mode: str, codebooks=None,
-                 cross_mem=None, mesh=None):
+                 cross_mem=None, mesh=None, seq=None):
     """One dense/moe decoder layer (whisper's with its cross-attention into
     `cross_mem` = (k, v) (B, M, Hkv, hd)). Returns (h, new_cache, aux).
-    `mesh`: a dense layer's training on a mesh."""
+    `mesh`: a dense layer on a mesh (`seq`: its decode cache's block of the
+    sequence)."""
     aux = _zero_aux(h.device)
     x = norm(h, p["attn_norm"], cfg.norm_kind, cfg.norm_eps)
     if mode == "decode_bangkv":
@@ -222,7 +237,7 @@ def _dense_layer(cfg: ModelConfig, p, h, window, theta, cache, mode: str, codebo
             p["attn"], codebooks, x, cache,
             n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads, head_dim=cfg.head_dim,
             rope_theta=theta, top_l=cfg.bangkv_topl, window=cfg.bangkv_window,
-            hier_topk=cfg.opt_hier_topk, adc_lite=cfg.opt_adc_lite,
+            hier_topk=cfg.opt_hier_topk, adc_lite=cfg.opt_adc_lite, mesh=mesh, seq=seq,
         )
     else:
         y, new_cache = attention_block(
@@ -231,6 +246,7 @@ def _dense_layer(cfg: ModelConfig, p, h, window, theta, cache, mode: str, codebo
             rope_theta=theta, attn_chunk=_pick_chunk(x.shape[1], cfg.attn_chunk),
             window=window, cache=cache if mode == "decode" else None,
             bf16_scores=cfg.opt_attn_bf16, window_skip=cfg.opt_window_skip, mesh=mesh,
+            seq=seq, return_kv=mode != "train",
         )
         if mode == "train":
             new_cache = None   # training keeps no K and V
@@ -376,15 +392,17 @@ def decoder_stack(cfg: ModelConfig, params, h: torch.Tensor, *, mode: str, cache
     and V in the first S slots and index S, SSM caches with the prompt's
     conv window and final state. "decode" / "decode_bangkv": `caches` are
     updated in place. Whisper's decoder takes `cross_mem` = (cross_k,
-    cross_v) (L, B, M, Hkv, hd). `mesh` (a `MeshContext`, mode "train"
-    only): this rank's part of a dense or vlm stack on a mesh."""
+    cross_v) (L, B, M, Hkv, hd). `mesh` (a `MeshContext`): this rank's part
+    of a dense or vlm stack on a mesh; in decode, `s_max` is then the
+    caches' full length (their block's times the `model` ranks when None)."""
     check_family(cfg)
     if mode not in MODES:
         raise ValueError(f"mode {mode!r} is not one of {MODES}")
-    if mesh is not None and mode != "train":
-        raise NotImplementedError(f"{mode} on a mesh waits for ROADMAP A8e-2")
     if mode == "train":
         return _train_stack(cfg, params, h, cross_mem, _mesh_for(cfg, mesh))
+    mesh = _mesh_for(cfg, mesh, "prefill" if mode == "prefill" else "decode")
+    if mesh is not None:
+        return _mesh_serve_stack(cfg, params, h, mode=mode, caches=caches, s_max=s_max, mesh=mesh)
     decode = mode != "prefill"
     if cfg.family == "ssm":
         out = None if decode else _ssm_prefill_buffers(cfg, h)
@@ -415,14 +433,56 @@ def decoder_stack(cfg: ModelConfig, params, h: torch.Tensor, *, mode: str, cache
     return h, aux, KVCache(k_all, v_all, index)
 
 
-def _mesh_for(cfg: ModelConfig, mesh):
+def _mesh_for(cfg: ModelConfig, mesh, kind: str = "train"):
     """`mesh` where the family runs on it; None for a family the mesh step
-    does not cover on a one-rank mesh (its plain code is the same step);
-    raises for such a family on more ranks."""
+    of `kind` does not cover on a one-rank mesh (its plain code is the same
+    step); raises for such a family on more ranks."""
     if mesh is None:
         return None
-    check_mesh_family(cfg, mesh.mesh)
-    return mesh if cfg.family in MESH_FAMILIES else None
+    check_mesh_family(cfg, mesh.mesh, kind)
+    return mesh if cfg.family in (MESH_FAMILIES if kind == "train" else MESH_SERVE_FAMILIES) else None
+
+
+def _mesh_serve_stack(cfg: ModelConfig, params, h: torch.Tensor, *, mode: str, caches, s_max,
+                      mesh):
+    """decoder_stack's prefill and decode on a mesh (dense and vlm): h is
+    this rank's slice of the batch. Prefill makes this rank's blocks of the
+    caches, `s_max` positions in all (the prompt's length when None): its
+    block of the sequence of every KV head. Decode updates them in place."""
+    B, S, _ = h.shape
+    L = cfg.n_layers
+    decode = mode != "prefill"
+    if decode:
+        s_max = caches.k.shape[2] * mesh.n_model if s_max is None else s_max
+    elif s_max is None:
+        s_max = S
+    elif s_max < S:
+        raise ValueError(f"s_max {s_max} is shorter than the {S} prefilled positions")
+    seq = mesh.seq_block(s_max)
+    wins, thetas = static_layer_flags(cfg, s_max if decode else S)
+    aux = _zero_aux(h.device)
+    if decode:
+        if caches.k.shape[2] != seq.length:
+            raise ValueError(f"a cache block of {caches.k.shape[2]} positions: {s_max} positions "
+                             f"over {mesh.n_model} model ranks give blocks of {seq.length}")
+        for i in range(L):
+            cb_i = params["bangkv_codebooks"][i] if mode == "decode_bangkv" else None
+            h, _, aux_i = _dense_layer(cfg, params["layers"][i], h, wins[i], thetas[i],
+                                       _layer(caches, i), mode, codebooks=cb_i, mesh=mesh, seq=seq)
+            aux = _add_aux(aux, aux_i)
+        return h, aux, caches._replace(index=caches.index + 1)
+    shape = (L, B, seq.length, cfg.n_kv_heads, cfg.head_dim)
+    k_all = torch.zeros(shape, dtype=h.dtype, device=h.device)
+    v_all = torch.zeros(shape, dtype=h.dtype, device=h.device)
+    n = min(seq.lo + seq.length, S) - seq.lo   # prompt positions in this block
+    for i in range(L):
+        h, (k, v), aux_i = _dense_layer(cfg, params["layers"][i], h, wins[i], thetas[i], None,
+                                        mode, mesh=mesh)
+        aux = _add_aux(aux, aux_i)
+        if n > 0:
+            k_all[i, :, :n], v_all[i, :, :n] = k[:, seq.lo:seq.lo + n], v[:, seq.lo:seq.lo + n]
+    index = torch.full((L,), S, dtype=torch.int32, device=h.device)
+    return h, aux, KVCache(k_all, v_all, index)
 
 
 def _train_stack(cfg: ModelConfig, params, h: torch.Tensor, cross_mem, mesh=None):
@@ -606,12 +666,10 @@ class LM(nn.Module):
             raise ValueError(f"{self.cfg.name} has no attention: no BANG-KV codebooks")
         self.params["bangkv_codebooks"].copy_(codebooks)
 
-    def _logits_head(self, h: torch.Tensor) -> torch.Tensor:
-        """float32 logits. The head is cast to float32 on every call, as the
-        reference does (2.5 GB for glm4-9b's 151,552 x 4096)."""
-        p = self.params
-        head = p["embed"].T if self.cfg.tie_embeddings else p["lm_head"]   # (D, V)
-        return h.float() @ head.float()
+    def _logits_head(self, h: torch.Tensor, mesh=None) -> torch.Tensor:
+        """float32 logits (`layers.logits_head`)."""
+        name = "embed" if self.cfg.tie_embeddings else "lm_head"
+        return logits_head(h, self.params[name], name, mesh)
 
     @torch.no_grad()
     def encode(self, frontend: torch.Tensor):
@@ -628,13 +686,16 @@ class LM(nn.Module):
 
     # --------------------------------------------------------------- prefill
     @torch.no_grad()
-    def prefill(self, batch: dict, *, s_max: int | None = None):
+    def prefill(self, batch: dict, *, s_max: int | None = None, mesh=None):
         """Forward the prompt; return last-position logits (B, 1, V) and the
         decode caches, their attention caches sized for `s_max` positions,
         a vlm's frontend included (the prompt's length when None, as the
         reference's). Whisper encodes `batch["frontend"]` first and returns
-        `(self caches, (cross_k, cross_v))`."""
+        `(self caches, (cross_k, cross_v))`. With `mesh` (a `MeshContext`;
+        the parameters this rank's blocks, `batch` its slice): this rank's
+        requests' logits and its blocks of the caches."""
         cfg = self.cfg
+        mesh = _mesh_for(cfg, mesh, "prefill")
         if cfg.arch_kind == "encdec":
             cm = self.encode(batch["frontend"])
             h = embed(batch["tokens"].long(), self.params["embed"])
@@ -642,38 +703,51 @@ class LM(nn.Module):
                                               cross_mem=cm)
             caches = (self_caches, cm)
         else:
-            h = embed_inputs(cfg, self.params, batch["tokens"], batch.get("frontend"))
-            h, _, caches = decoder_stack(cfg, self.params, h, mode="prefill", s_max=s_max)
+            h = embed_inputs(cfg, self.params, batch["tokens"], batch.get("frontend"), mesh)
+            h, _, caches = decoder_stack(cfg, self.params, h, mode="prefill", s_max=s_max,
+                                         mesh=mesh)
         h = norm(h, self.params["final_norm"], cfg.norm_kind, cfg.norm_eps)
-        return self._logits_head(h[:, -1:]), caches
+        return self._logits_head(h[:, -1:], mesh), caches
 
     # ---------------------------------------------------------------- decode
     @torch.no_grad()
-    def decode_step(self, caches, tokens: torch.Tensor, *, bangkv: bool = False):
+    def decode_step(self, caches, tokens: torch.Tensor, *, bangkv: bool = False, mesh=None,
+                    s_max: int | None = None):
         """One decode step. tokens (B, 1). Returns (logits (B, 1, V), caches):
         the caches are updated in place and returned with index + 1. An SSM
-        layer has no KV: `bangkv` changes only the attention layers."""
+        layer has no KV: `bangkv` changes only the attention layers. With
+        `mesh` (a `MeshContext`): this rank's requests and blocks of the
+        caches, `s_max` positions in all (the blocks' length times the
+        `model` ranks when None)."""
         cfg = self.cfg
         mode = "decode_bangkv" if bangkv else "decode"
-        h = embed(tokens.long(), self.params["embed"])
+        mesh = _mesh_for(cfg, mesh, "decode")
+        h = embed(tokens.long(), self.params["embed"], mesh)
         if cfg.arch_kind == "encdec":
             self_caches, cross = caches
             h, _, new_self = decoder_stack(cfg, self.params, h, mode=mode, caches=self_caches,
                                            cross_mem=cross)
             new_caches = (new_self, cross)
         else:
-            h, _, new_caches = decoder_stack(cfg, self.params, h, mode=mode, caches=caches)
+            h, _, new_caches = decoder_stack(cfg, self.params, h, mode=mode, caches=caches,
+                                             s_max=s_max, mesh=mesh)
         h = norm(h, self.params["final_norm"], cfg.norm_kind, cfg.norm_eps)
-        return self._logits_head(h), new_caches
+        return self._logits_head(h, mesh), new_caches
 
     # ----------------------------------------------------------- cache init
     def init_decode_caches(self, batch: int, s_max: int, *, bangkv: bool = False, fill: int = 0,
-                           memory_len: int = 0):
+                           memory_len: int = 0, mesh=None):
         """Zero caches at fill level `fill`, on the model's device, in the
         layout `prefill` returns (whisper's cross K and V `memory_len` long,
-        the config's `frontend_len` when 0)."""
+        the config's `frontend_len` when 0). With `mesh` (a `MeshContext`):
+        this rank's blocks of the caches of `batch` requests and `s_max`
+        positions (`cache_pspecs`)."""
         cfg, dev = self.cfg, self.device
         L = cfg.n_layers
+        mesh = _mesh_for(cfg, mesh, "decode")
+        if mesh is not None:
+            batch = batch // mesh.n_data if batch % mesh.n_data == 0 else batch
+            s_max = mesh.seq_block(s_max).length
 
         def attn(n: int):
             shape = (n, batch, s_max, cfg.n_kv_heads, cfg.head_dim)

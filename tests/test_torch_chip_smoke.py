@@ -446,6 +446,49 @@ def test_chip_smoke_mesh_phase_on_cpu(smoke, monkeypatch):
     assert out["phase_s"] > 0 and out["mesh_over_plain"] > 0
 
 
+def test_chip_smoke_mesh_serve_phase_on_cpu(smoke, monkeypatch):
+    """Phase 10 at reduced glm4-9b on a one-rank gloo mesh in this process
+    (made and destroyed by the phase), from the state of a reduced 7b run:
+    10a's mesh prefill and exact-KV steps and 10b's BANG-KV steps with the
+    hierarchical top-L bit-equal to the plain path's (logits, tokens,
+    caches, every layer's top-L ids), the collectives counted, no port
+    kernel launched."""
+    import torch.distributed as dist
+
+    import repro_torch.configs as configs
+
+    monkeypatch.setattr(smoke, "lm_config", lambda name, **kw: configs.get(name).reduced(**kw))
+    for name, value in (("LM_PROMPT", 32), ("LM_DECODE", 4), ("LM_LONG", 64),
+                        ("LM_LONG_DECODE", 3), ("LM_FIT_ITERS", 3)):
+        monkeypatch.setattr(smoke, name, value)
+    ctx = smoke.lm_serve(torch.device("cpu"), "cpu")["ctx"]
+    assert ctx["bang"].k.shape[2] == 64 + 3 + 1 and int(ctx["bang"].index[0]) == 64
+    out = smoke.mesh_serve_phase(torch.device("cpu"), "cpu", ctx)
+    assert not dist.is_initialized()
+    assert out["arch"] == "glm4-9b-reduced" and out["mesh"] == {"data": 1, "model": 1}
+    assert out["backend"] == "gloo" and out["hier_topk"]
+    exact, bang = out["exact"], out["bangkv"]
+    for run in (exact["plain"], exact["mesh"]):
+        assert len(run["step_ms"]) == 4 and run["prefill_ms"] > 0 and run["memory"] is None
+    for run in (bang["plain"], bang["mesh"]):
+        assert len(run["step_ms"]) == 3 and run["memory"] is None
+    cfg = configs.get("glm4-9b").reduced()
+    assert bang["top_l_ids_compared"] == 3 * cfg.n_layers * cfg.n_heads * cfg.bangkv_topl
+    for counts in (exact["mesh"]["collectives_per_step"], bang["mesh"]["collectives_per_step"],
+                   exact["mesh"]["prefill_collectives"]):
+        assert counts["all_gather"] > 0 and counts["all_reduce"] > 0
+    # The hierarchical top-L gathers its candidates' scores and ids a layer.
+    assert (bang["mesh"]["collectives_per_step"]["all_gather"]
+            == exact["mesh"]["collectives_per_step"]["all_gather"] + 2 * cfg.n_layers)
+    assert exact["mesh"]["device_profile"] is bang["mesh"]["device_profile"] is None
+    assert sorted(out["collective_host_us"]) == ["all_gather", "all_reduce", "dist.all_gather",
+                                                 "dist.all_reduce"]
+    assert out["collectives_host_ms_per_step"] > 0
+    assert exact["mesh_over_plain"] > 0 and bang["mesh_over_plain"] > 0
+    assert out["kernel_launches"] == dict.fromkeys(smoke.kernel_counters(), 0)
+    assert out["phase_s"] > 0
+
+
 def test_code_gaps_reports_each_differing_code(smoke):
     """Phase 5b's C10 check: one line for each (row, subspace) whose codes
     differ, with both centroids' float64 squared distances and the gap in

@@ -509,12 +509,12 @@ def test_other_families_refuse_a_mesh(name):
         step_and_specs(cfg, ShapeSpec("t", "train", SEQ, 8), AbstractMesh({"data": 1, "model": 2}))
 
 
-def test_prefill_and_decode_wait_for_the_mesh():
+def test_train_step_on_a_shape_only_mesh():
+    """On a shape-only mesh the training step's placements are the rules'
+    (FSDP over `data`, Megatron TP over `model`), and the step refuses to
+    run. Prefill and decode on a mesh: tests/test_torch_mesh_serve.py."""
     cfg = configs.get("glm4-9b").reduced(dtype="float32", **GLM)
     mesh = AbstractMesh({"data": 2, "model": 2})
-    for kind in ("prefill", "decode"):
-        with pytest.raises(NotImplementedError, match="A8e-2"):
-            step_and_specs(cfg, ShapeSpec("t", kind, SEQ, 8), mesh)
     step, _, place = step_and_specs(cfg, ShapeSpec("t", "train", SEQ, 8), mesh)
     assert place[0]["layers"][0]["attn"]["wq"] == ("data", "model")
     with pytest.raises(TypeError, match="runnable"):
