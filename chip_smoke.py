@@ -173,6 +173,22 @@ Phases, each timed; any failure exits non-zero:
      one collective, one profiled mesh step each, peak memory. No port
      kernel lies on this path: the launch counts stay 0. Its numbers go
      into the summary line under "mesh_serve".
+  11. the moe family on the (1, 1) mesh (`mesh_moe_phase`), after phase 10,
+     parameters drawn on the card from a seed, depth cut (listed as cuts):
+     11a phi3.5-moe (hf:microsoft/Phi-3.5-MoE-instruct) at full width, 2
+     of 32 layers, bf16 with remat, 3 steps of `step_and_specs`'s train
+     step on 2 x 4,096 tokens, then 3 plain steps from the same draw:
+     losses within rtol 1e-5, the bf16 parameters within ROADMAP C15's
+     bound (the dispatch's backward sums with atomics, C17), step times,
+     collectives a step, peak memory; 11b phi3.5-moe, 8 of 32 layers, 7a's
+     4 x 2,048 tokens prefilled and 32 greedy exact-KV steps; 11c
+     llama4-scout (hf:meta-llama/Llama-4-Scout-17B-16E), 4 of 48 layers,
+     its shared expert on the card, 7a's requests and 16 steps; each plain
+     then through the mesh prefill and decode steps, logits, tokens, caches
+     and every layer's dropped fraction bit-equal, decode ms a step against
+     the plain path, collectives a step, one profiled mesh step (11b), peak
+     memory. No port kernel lies on this path: the launch counts stay 0.
+     Its numbers go into the summary line under "mesh_moe".
 
 Kernel times are taken cold: the timed calls cycle through copies of the
 inputs that together exceed twice the H100's 50 MB L2. Bounds count the bytes the function needs for this run's
@@ -3251,7 +3267,7 @@ def same(name: str, a, b) -> None:
     import torch
 
     if a.shape != b.shape or a.dtype != b.dtype or not torch.equal(a, b):
-        raise AssertionError(f"10: the mesh path's {name} differ from the plain path's")
+        raise AssertionError(f"{name}: the mesh path's differ from the plain path's")
 
 
 def mesh_serve_phase(dev, card: str, long_ctx: dict) -> dict:
@@ -3461,6 +3477,287 @@ def mesh_serve_phase(dev, card: str, long_ctx: dict) -> dict:
     return out
 
 
+# ------------------------------------------------------------ phase 11
+MOE_MESH_TRAIN_LAYERS = 2       # 11a: phi3.5-moe cut to 2 of 32 layers, as 8b
+MOE_SERVE_LAYERS = 8            # 11b: phi3.5-moe cut to 8 of 32 layers (about 21 GB in bf16)
+SCOUT_ARCH = "llama4-scout-17b-a16e"
+SCOUT_SERVE_LAYERS = 4          # 11c: llama4-scout cut to 4 of 48 layers (about 22 GB in bf16)
+SCOUT_DECODE = 16               # 11c: greedy exact-KV steps each way
+
+
+def recorded_drops(run):
+    """run() with every MoE layer's dropped fraction kept, on the device:
+    (its result, the fractions of each layer and call stacked)."""
+    import torch
+
+    from repro_torch.models import transformer
+
+    block, drops = transformer.moe_block, []
+
+    def recording(*args, **kwargs):
+        y, aux = block(*args, **kwargs)
+        drops.append(aux.dropped_frac.detach())
+        return y, aux
+
+    transformer.moe_block = recording
+    try:
+        return run(), torch.stack(drops)
+    finally:
+        transformer.moe_block = block
+
+
+def moe_mesh_train(dev, card: str, mesh) -> dict:
+    """11a: phi3.5-moe at full width cut to MOE_MESH_TRAIN_LAYERS layers,
+    bf16 with remat, MESH_STEPS steps of `step_and_specs`'s train step on
+    TRAIN_BATCH x TRAIN_SEQ tokens, then MESH_STEPS plain steps from the
+    same draw (the two states do not fit the card together): losses within
+    rtol 1e-5, the bf16 parameters within C15's bound (the dispatch's
+    backward sums with atomics, C17), compared on the card one tensor at a
+    time from host copies."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.data import TokenStream
+    from repro_torch.distributed import shard_tree
+    from repro_torch.launch.specs import LR, step_and_specs
+    from repro_torch.models import LM, init_params
+    from repro_torch.optim import adamw_init, adamw_update
+    from repro_torch.tree import flat_dict
+
+    full_depth = lm_config(LM_MOE_ARCH).n_layers
+    cfg = lm_config(LM_MOE_ARCH, n_layers=MOE_MESH_TRAIN_LAYERS)
+    seq = TRAIN_SEQ
+    free_device(dev)
+    stream = TokenStream(cfg.vocab_size, seq, TRAIN_BATCH, seed=SEED)
+    batches = [{k: torch.from_numpy(v).to(dev) for k, v in stream.batch_at(s).items()}
+               for s in range(MESH_STEPS)]
+    draw = lambda: init_params(cfg, torch.Generator(dev).manual_seed(SEED + 7), dev)   # noqa: E731
+    params = draw()
+    sums = torch.stack([p.detach().double().sum() for p in params.parameters()]).cpu()
+    n_params = sum(p.numel() for p in params.parameters())
+    step, _, place = step_and_specs(cfg, ShapeSpec("train_4k", "train", seq, TRAIN_BATCH), mesh)
+    mparams = shard_tree(params, place[0], mesh)   # one rank: a copy
+    del params
+    opt = adamw_init(mparams)
+    free_device(dev)
+    mesh_ms, mesh_losses, metrics = [], [], []
+    for s in range(MESH_STEPS):
+        sync(dev)
+        t0 = time.perf_counter()
+        mparams, opt, loss = step(mparams, opt, shard_tree(batches[s], place[2], mesh))
+        mesh_losses.append(loss.item())
+        sync(dev)
+        mesh_ms.append((time.perf_counter() - t0) * 1e3)
+        metrics.append({k: float(v) for k, v in step.metrics.items()})
+    counts = {k: v / MESH_STEPS for k, v in step.mesh_context.counts.items()}
+    mem = device_mem(dev)
+    mesh_after = {k: p.detach().cpu() for k, p in flat_dict(mparams).items()}
+    del opt, mparams
+    free_device(dev)
+
+    params = draw()
+    if not torch.equal(sums, torch.stack([p.detach().double().sum() for p in params.parameters()]).cpu()):
+        raise AssertionError("11a: the parameters drawn again from the seed differ")
+    lm = LM(cfg, params)
+    popt = adamw_init(params)
+    params.requires_grad_(True)
+    plain_ms, plain_losses = [], []
+    for s in range(MESH_STEPS):
+        sync(dev)
+        t0 = time.perf_counter()
+        for p in params.parameters():
+            p.grad = None
+        loss, _ = lm.loss(batches[s])
+        loss.backward()
+        _, popt, _ = adamw_update({k: p.grad for k, p in flat_dict(params).items()}, popt, params, LR)
+        plain_losses.append(loss.item())
+        sync(dev)
+        plain_ms.append((time.perf_counter() - t0) * 1e3)
+    pmem = device_mem(dev)
+    loss_bits = mesh_losses == plain_losses
+    if not loss_bits and not np.allclose(mesh_losses, plain_losses, rtol=1e-5, atol=0):
+        raise AssertionError(f"11a: mesh losses {mesh_losses}, plain {plain_losses}")
+    differ, worst, total = 0, 0.0, 0
+    with torch.no_grad():
+        for k, p in flat_dict(params).items():
+            n, w, ok = bf16_within(mesh_after.pop(k).to(dev), p.detach(), LR, MESH_STEPS)
+            if not ok:
+                raise AssertionError(f"11a: {k} differs in {n} entries, by up to {w}")
+            differ, worst, total = differ + n, max(worst, w), total + p.numel()
+    del lm, params, popt
+    free_device(dev)
+    med, pmed = float(np.median(mesh_ms[1:])), float(np.median(plain_ms[1:]))
+    out = {"arch": cfg.name, "layers": cfg.n_layers, "layers_published": full_depth,
+           "parameters": n_params, "dtype": cfg.dtype, "remat": cfg.remat, "steps": MESH_STEPS,
+           "batch": TRAIN_BATCH, "seq_len": seq, "lr": LR,
+           "mesh_step": {"losses": mesh_losses, "metrics": metrics, "step_ms": mesh_ms,
+                         "ms_per_step": med, "collectives_per_step": counts, "memory": mem},
+           "plain_step": {"losses": plain_losses, "step_ms": plain_ms, "ms_per_step": pmed,
+                          "memory": pmem},
+           "mesh_over_plain": med / pmed,
+           "parity": {"losses_bit_equal": loss_bits, "param_entries": total,
+                      "param_entries_differing": differ, "param_max_abs_diff": worst,
+                      "bit_equal": loss_bits and differ == 0}}
+    log(f"[mesh-moe] 11a {cfg.name} ({cfg.n_layers} of {full_depth} layers, {cfg.dtype}, remat, "
+        f"{n_params:,} parameters) on the {dict(mesh.shape)} mesh ({dist.get_backend()}, one rank), "
+        f"{MESH_STEPS} steps of {TRAIN_BATCH} x {seq} tokens: {med:.1f} ms a step against the plain "
+        f"{pmed:.1f} ({med / pmed:.4f}; medians after the first); losses "
+        + ", ".join(f"{x:.6f}" for x in mesh_losses) + " (plain "
+        + ", ".join(f"{x:.6f}" for x in plain_losses) + ("; bit-equal" if loss_bits else "; within rtol 1e-5")
+        + f"); the last step's dropped_frac {metrics[-1]['dropped_frac']:.4f} and load_balance "
+        f"{metrics[-1]['load_balance']:.4f} (sums over the layers, as the loss takes them); "
+        "collectives a step "
+        + ", ".join(f"{k} {v:.0f}" for k, v in sorted(counts.items()))
+        + f"; bf16 parameters after step {MESH_STEPS}: {differ} of {total:,} entries differ (max "
+        f"{worst:.3g}); peak device memory {(mem or {}).get('peak_bytes', 0) / 1e9:.2f} GB against "
+        f"{(pmem or {}).get('peak_bytes', 0) / 1e9:.2f} [{card}]")
+    return out
+
+
+def moe_mesh_serve(dev, card: str, mesh, label: str, name: str, layers: int, steps: int,
+                   profile: bool) -> dict:
+    """11b, 11c: `name` at full width cut to `layers` layers in bf16, its
+    parameters drawn on the card from 7a's seed; 7a's LM_REQUESTS x
+    LM_PROMPT tokens prefilled and decoded `steps` greedy exact-KV steps by
+    the plain `LM` and by `step_and_specs`'s prefill and decode steps on
+    the same parameter tensors: logits, tokens, caches and every layer's
+    dropped fraction bit-equal. With `profile`, one more mesh decode step
+    is profiled on the device alone."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.distributed import shard_tree
+    from repro_torch.launch.specs import step_and_specs
+    from repro_torch.models import LM
+
+    full_depth = lm_config(name).n_layers
+    cfg = lm_config(name, n_layers=layers)
+    free_device(dev)
+    g = torch.Generator(dev).manual_seed(SEED)
+    full = LM(cfg, device=dev, generator=g).params
+    n_params = sum(p.numel() for p in full.parameters())
+    B, S, V = LM_REQUESTS, LM_PROMPT, cfg.vocab_size
+    tokens = torch.randint(0, V, (B, S), generator=g, device=dev)
+    s_max = S + steps + 1   # the steps and one profiled step
+    prefill, _, (p_place, b_place) = step_and_specs(cfg, ShapeSpec("prefill_7a", "prefill", S, B), mesh)
+    serve, _, _ = step_and_specs(cfg, ShapeSpec("decode_7a", "decode", s_max, B), mesh)
+    params = shard_tree(full, p_place, mesh)   # one rank: the whole tensors, copied
+    del full
+    lm = LM(cfg, params)                       # the plain path on the same tensors
+    runs = {}
+    for path in ("plain", "mesh"):
+        resident = free_device(dev)
+
+        def run():
+            sync(dev)
+            t0 = time.perf_counter()
+            if path == "plain":
+                logits, caches = lm.prefill({"tokens": tokens}, s_max=s_max)
+                step = lambda c, t: lm.decode_step(c, t)   # noqa: E731
+            else:
+                logits, caches = prefill(params, shard_tree({"tokens": tokens}, b_place, mesh),
+                                         s_max=s_max)
+                step = lambda c, t: serve(params, c, t)   # noqa: E731
+            sync(dev)
+            prefill_ms = (time.perf_counter() - t0) * 1e3
+            tok = logits[:, 0].argmax(dim=-1, keepdim=True).to(torch.int32)
+            return prefill_ms, logits, greedy_run(step, caches, tok, steps, dev)
+
+        (prefill_ms, logits, (dl, fed, ms, caches)), drops = recorded_drops(run)
+        finite(f"{label} {path} prefill logits", logits, (B, 1, V))
+        finite(f"{label} {path} decode logits", dl, (steps, B, V))
+        runs[path] = {"prefill_ms": prefill_ms, **step_stats(ms, B), "memory": device_mem(dev),
+                      "memory_at_start": resident,
+                      "dropped_frac_prefill": drops[:layers].float().mean().item(),
+                      "dropped_frac_decode": drops[layers:].float().mean().item(),
+                      "host": [x.cpu() for x in (logits, dl, fed, drops, *caches)]}
+        del logits, dl, drops
+        if path == "plain":
+            del caches, fed
+    for what, a, b in zip(("prefill logits", "decode logits", "tokens", "dropped fractions",
+                           "K caches", "V caches", "cache indices"),
+                          runs["plain"].pop("host"), runs["mesh"].pop("host")):
+        same(f"{label} {what}", a, b)
+    out = runs
+    out.update(arch=cfg.name, layers=cfg.n_layers, layers_published=full_depth, parameters=n_params,
+               dtype=cfg.dtype, requests=B, prompt=S, steps=steps)
+    out["mesh"]["prefill_collectives"] = dict(prefill.mesh_context.counts)
+    out["mesh"]["collectives_per_step"] = {k: v / steps for k, v in serve.mesh_context.counts.items()}
+    out["mesh_over_plain"] = out["mesh"]["ms_per_step"] / out["plain"]["ms_per_step"]
+    out["prefill_mesh_over_plain"] = out["mesh"]["prefill_ms"] / out["plain"]["prefill_ms"]
+    prof = None
+    if profile and torch.device(dev).type == "cuda":
+        tok = fed[-1]
+        prof = device_profile(f"{label} one mesh exact-KV decode step (1, 1)",
+                              lambda: serve(params, caches, tok), out["mesh"]["ms_per_step"],
+                              cpu_ops=False)
+    out["mesh"]["device_profile"] = prof
+    del caches, fed, lm, params
+    free_device(dev)
+    log(f"[mesh-moe] {label} {cfg.name} ({cfg.n_layers} of {full_depth} layers, {cfg.dtype}, "
+        f"{n_params:,} parameters) on the {dict(mesh.shape)} mesh ({dist.get_backend()}, one rank), "
+        f"{B} x {S} tokens: prefill {out['mesh']['prefill_ms']:.1f} ms against the plain "
+        f"{out['plain']['prefill_ms']:.1f} ({out['prefill_mesh_over_plain']:.4f}); exact-KV decode "
+        f"{out['mesh']['ms_per_step']:.2f} ms a step against {out['plain']['ms_per_step']:.2f} "
+        f"({out['mesh_over_plain']:.4f}; medians of steps 2-{steps}); dropped_frac prefill "
+        f"{out['mesh']['dropped_frac_prefill']:.4f}, decode {out['mesh']['dropped_frac_decode']:.4f}; "
+        "collectives: prefill "
+        + ", ".join(f"{k} {v}" for k, v in sorted(out["mesh"]["prefill_collectives"].items()))
+        + ", a decode step "
+        + ", ".join(f"{k} {v:.0f}" for k, v in sorted(out["mesh"]["collectives_per_step"].items()))
+        + ("" if prof is None else
+           f"; one profiled step: {prof['nccl_events']} NCCL kernels, {prof['device_events']} device "
+           f"events, {prof['busy_ms']:.2f} ms busy, device copies {prof['copy_events']} "
+           f"({prof['copy_ms']:.3f} ms)")
+        + f"; peak device memory {(out['mesh']['memory'] or {}).get('peak_bytes', 0) / 1e9:.2f} GB "
+        f"against {(out['plain']['memory'] or {}).get('peak_bytes', 0) / 1e9:.2f}; logits, tokens, "
+        f"caches and dropped fractions bit-equal [{card}]")
+    return out
+
+
+def mesh_moe_phase(dev, card: str) -> dict:
+    """Phase 11: the moe family's mesh steps on the (1, 1) mesh (a one-rank
+    NCCL group on the card, gloo on the CPU), every expert on the one
+    `model` rank: 11a phi3.5-moe training (`moe_mesh_train`), 11b
+    phi3.5-moe cut to MOE_SERVE_LAYERS layers and 11c llama4-scout cut to
+    SCOUT_SERVE_LAYERS layers, its shared expert included, serving
+    (`moe_mesh_serve`). The launch counts, set to 0 before 11a, must all
+    be 0 after 11c."""
+    import torch.distributed as dist
+
+    from repro_torch.distributed import make_mesh
+
+    t_phase = time.perf_counter()
+    reset_launches()
+    made = not dist.is_initialized()
+    mesh = make_mesh((1, 1), ("data", "model"), dev)
+    out = {"mesh": dict(mesh.shape), "backend": dist.get_backend()}
+    try:
+        t0 = time.perf_counter()
+        out["train"] = moe_mesh_train(dev, card, mesh)
+        out["train"]["phase_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        out["phi_serve"] = moe_mesh_serve(dev, card, mesh, "11b", LM_MOE_ARCH, MOE_SERVE_LAYERS,
+                                          LM_DECODE, True)
+        out["phi_serve"]["phase_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        out["scout_serve"] = moe_mesh_serve(dev, card, mesh, "11c", SCOUT_ARCH, SCOUT_SERVE_LAYERS,
+                                            SCOUT_DECODE, False)
+        out["scout_serve"]["phase_s"] = time.perf_counter() - t0
+    finally:
+        if made and dist.is_initialized():
+            dist.destroy_process_group()
+    launches = read_launches()
+    if any(launches.values()):
+        raise AssertionError(f"the moe mesh path launched port kernels: {launches}")
+    free_device(dev)
+    out["kernel_launches"] = launches
+    out["phase_s"] = time.perf_counter() - t_phase
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -3543,6 +3840,9 @@ def main() -> int:
     del long_ctx
     log(f"[mesh-serve] phase: {mesh_serve['phase_s']:.1f} s")
 
+    mesh_moe = mesh_moe_phase(dev, card)
+    log(f"[mesh-moe] phase: {mesh_moe['phase_s']:.1f} s")
+
     keys = ("recall_at_10", "qps", "n_batches", "mean_n_iters", "mean_hops", "batch_wall_ms",
             "device_busy_ms_per_batch", "link_bytes_per_hop", "rerank_bytes_per_batch",
             "host_gather_ms_per_batch", "host_gather_share", "collective_ms_per_batch",
@@ -3561,7 +3861,7 @@ def main() -> int:
                       "vamana_build": vamana["build"], "mutation": mutation["info"],
                       "autotune": {k: at[k] for k in ("winner", "sweep", "sweep_s", "device_kind")},
                       "small_recall_at_10": small, "lm": lm, "train": train, "mesh": mesh,
-                      "mesh_serve": mesh_serve, "card": card}))
+                      "mesh_serve": mesh_serve, "mesh_moe": mesh_moe, "card": card}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

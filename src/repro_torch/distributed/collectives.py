@@ -16,7 +16,14 @@ a mesh's `data` and `model` groups:
     replicated activation (or weight) entering a computation split over
     `model`, each rank's gradient a part of the sum.
   * `from_model` -- forward: all-reduce over `model`; backward: identity.
-    The partial sums of a row-parallel projection.
+    The partial sums of a row-parallel projection (and of an MoE block's
+    experts, each `model` rank holding E/M of them).
+  * `sum_data` -- forward and backward: all-reduce over `data`. The sums
+    behind an MoE block's auxiliary means over the global batch (router
+    probabilities and z): each data rank's loss holds the global term once
+    (divided by the data ranks), so the sum of every rank's gradient is
+    the gradient of its share. `gather_data` all-gathers the per-expert
+    assignment counts (no gradient), from which each rank's slots start.
   * `vocab_parallel_embed` and `vocab_parallel_cross_entropy`: the embedding
     lookup and the sequence-chunked cross-entropy with the vocabulary split
     over `model` (the reference's logits are `model`-sharded,
@@ -46,9 +53,10 @@ import torch.distributed as dist
 from .partitioning import dim_axes, spec_for
 
 # The families each kind of mesh step covers: training (ROADMAP A8e-1) and
-# serving, prefill and decode; the others wait for ROADMAP A8e-2.
-MESH_FAMILIES = ("dense", "vlm")
-MESH_SERVE_FAMILIES = ("dense", "vlm")
+# serving, prefill and decode (moe: A8e-2a); the others wait for ROADMAP
+# A8e-2.
+MESH_FAMILIES = ("dense", "vlm", "moe")
+MESH_SERVE_FAMILIES = ("dense", "vlm", "moe")
 STEP_KINDS = ("train", "prefill", "decode")
 
 
@@ -114,25 +122,54 @@ class _FromModel(torch.autograd.Function):
         return g, None
 
 
-class MeshContext:
-    """The mesh training step's view of a (data, model) `Mesh` for one
-    config: its groups, this rank's coordinates, the full shape of every
-    weight the step gathers, and a count of the collectives issued."""
+class _SumData(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mc: "MeshContext"):
+        ctx.mc = mc
+        return _all_reduce(x.contiguous().clone(), mc, "data")
 
-    def __init__(self, mesh, cfg):
+    @staticmethod
+    def backward(ctx, g):
+        return _all_reduce(g.contiguous().clone(), ctx.mc, "data"), None
+
+
+class MeshContext:
+    """The mesh step's view of a (data, model) `Mesh` for one config: its
+    groups, this rank's coordinates, the full shape of every weight the
+    step gathers, whether the batch is cut over `data` (`global_batch`
+    divides the data ranks; otherwise each holds all of it; None: cut),
+    and a count of the collectives issued.
+
+    A weight is keyed by its leaf name, an MoE block's by its path within
+    the block: "moe/w_gate", "moe/w_up" (E, D, F), "moe/w_down" (E, F, D)
+    and "moe/router" (D, E) under `_MOE_RULES`, the shared expert's
+    "shared/w_gate", "shared/w_up" (D, n_shared F), "shared/w_down" under
+    the dense rules; "w_gate" is the dense FFN's."""
+
+    def __init__(self, mesh, cfg, global_batch: int | None = None):
         self.mesh = mesh
         self.cfg = cfg
         self.n_data = mesh.shape["data"]
         self.n_model = mesh.shape["model"]
+        self.data_index = mesh.index("data")
         self.model_index = mesh.index("model")
+        self.batch_cut = global_batch is None or global_batch % self.n_data == 0
         self.counts: collections.Counter = collections.Counter()
         H, Hkv, hd, D, F, V = (cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, cfg.d_model, cfg.d_ff,
                                cfg.vocab_size)
         shapes = {"wq": (D, H * hd), "wk": (D, Hkv * hd), "wv": (D, Hkv * hd), "wo": (H * hd, D),
                   "w_gate": (D, F), "w_up": (D, F), "w_down": (F, D), "embed": (V, D),
                   "lm_head": (D, V)}
+        paths = {name: [name] for name in shapes}
+        if cfg.n_experts:
+            E, Fs = cfg.n_experts, cfg.n_shared_experts * F
+            for name, shape in (("w_gate", (E, D, F)), ("w_up", (E, D, F)), ("w_down", (E, F, D)),
+                                ("router", (D, E))):
+                shapes["moe/" + name], paths["moe/" + name] = shape, ["moe", name]
+            for name, shape in (("w_gate", (D, Fs)), ("w_up", (D, Fs)), ("w_down", (Fs, D))):
+                shapes["shared/" + name], paths["shared/" + name] = shape, ["moe", "shared", name]
         # Each dim's axes in the stored spec of every weight the step gathers.
-        self._axes = {name: dim_axes(spec_for([name], shape, mesh), len(shape), mesh)
+        self._axes = {name: dim_axes(spec_for(paths[name], shape, mesh), len(shape), mesh)
                       for name, shape in shapes.items()}
 
     def group(self, axis: str):
@@ -171,6 +208,18 @@ class MeshContext:
     def sum_over_data(self, x: torch.Tensor) -> torch.Tensor:
         """All-reduce (SUM) of `x` over `data`, in place."""
         return _all_reduce(x, self, "data")
+
+    def sum_data(self, x: torch.Tensor) -> torch.Tensor:
+        """`x` summed over `data`, its gradient summed over `data` too."""
+        return _SumData.apply(x, self)
+
+    def gather_data(self, x: torch.Tensor) -> torch.Tensor:
+        """Every data rank's `x` stacked in rank order (no gradient)."""
+        group = self.group("data")
+        parts = [torch.empty_like(x) for _ in range(dist.get_world_size(group))]
+        self.count("all_gather")
+        dist.all_gather(parts, x.contiguous(), group=group)
+        return torch.stack(parts)
 
     # Serving: no gradient flows, so plain collectives.
     def gather_model(self, x: torch.Tensor, dim: int) -> torch.Tensor:

@@ -6,8 +6,9 @@ The port of the reference package's `launch/specs.py`. `batch_specs`,
 shapes and dtypes, no storage -- the counterpart of the reference's
 `ShapeDtypeStruct`s. `step_and_specs` binds the step of a cell and its
 placements on a mesh: the training step (ROADMAP A8e-1) and the prefill
-and decode steps, for the dense and vlm families; the others wait for
-ROADMAP A8e-2 on a mesh of more than one rank.
+and decode steps, for the dense, vlm and moe families (moe: its experts
+over `model`, `_MOE_RULES`, ROADMAP A8e-2a); ssm, hybrid and encdec wait
+for ROADMAP A8e-2 on a mesh of more than one rank.
 
 The training step holds this rank's blocks of the parameters and of
 AdamW's master copies and moments, and this rank's slice of the batch, and
@@ -27,7 +28,13 @@ shard over `data` is summed over `data` by its gather's backward, and every
 other gradient by one all-reduce over `data` after the backward. Where the
 batch does not divide the data ranks it is replicated over them (as the
 reference's `_batch_pspec_tree`), each rank's loss is the global one, and
-the same average holds. AdamW runs at lr 1e-4, as the reference's.
+the same average holds. An MoE layer's load-balance and router-z terms are
+the global batch's on every data rank: their sums are all-reduced over
+`data` forward and backward (`MeshContext.sum_data`), so under the same
+average each rank's tokens take their gradient once. The step keeps the
+last step's metrics (`train_step.metrics`: ce averaged over `data` with
+the loss, load_balance, router_z and dropped_frac the global batch's).
+AdamW runs at lr 1e-4, as the reference's.
 
 The prefill and decode steps hold the same blocks of the parameters, this
 rank's slice of the batch (or of the decode tokens) and this rank's blocks
@@ -43,7 +50,9 @@ The logits are this rank's requests' (B / data ranks, 1, V), the whole
 vocabulary gathered over `model`. The decode step's caches hold
 `decode_shape.seq_len` positions in all, and it decodes with BANG-KV
 where `uses_bangkv` (long_500k) -- with the hierarchical top-L when the
-config asks for it (`opt_hier_topk`).
+config asks for it (`opt_hier_topk`). An MoE layer's capacity and slots
+are the global batch's: each step's `MeshContext` knows from the shape's
+global batch whether the batch is cut over `data`.
 """
 from __future__ import annotations
 
@@ -122,13 +131,13 @@ def _batch_pspec_tree(specs: dict, mesh) -> dict:
             for k, v in specs.items()}
 
 
-def _train_step(cfg: ModelConfig, mesh, p_place) -> Callable:
+def _train_step(cfg: ModelConfig, shape: ShapeSpec, mesh, p_place) -> Callable:
     specs = flat_dict(p_place)
     # The parameters the rules leave whole over `data`: their gradients
     # are summed over `data` after the backward.
     whole = {k for k, sp in specs.items() if not any("data" in a for a in dim_axes(sp, len(sp), mesh))}
     n_data = _data_ranks(mesh)
-    mc = _context(cfg, mesh)
+    mc = _context(cfg, shape, mesh)
 
     def train_step(params, opt_state, batch):
         _runnable(mc)
@@ -136,7 +145,7 @@ def _train_step(cfg: ModelConfig, mesh, p_place) -> Callable:
         for p in flat.values():
             p.grad = None
         params.requires_grad_(True)
-        loss, _ = lm_loss(cfg, params, batch, mesh=mc)
+        loss, metrics = lm_loss(cfg, params, batch, mesh=mc)
         (loss / n_data).backward()
         grads = {}
         for k, p in flat.items():
@@ -144,15 +153,17 @@ def _train_step(cfg: ModelConfig, mesh, p_place) -> Callable:
                 mc.sum_over_data(p.grad)   # each data rank holds a part of the sum
             grads[k] = p.grad
         params, opt_state, _ = adamw_update(grads, opt_state, params, LR, mesh=mesh, specs=specs)
-        total = mc.sum_over_data(loss.detach().clone())
-        return params, opt_state, total / n_data
+        total = mc.sum_over_data(torch.stack([loss.detach(), metrics["ce"]])) / n_data
+        train_step.metrics = dict(metrics, ce=total[1])
+        return params, opt_state, total[0]
 
     train_step.mesh_context = mc   # its `counts` of collectives issued, by kind
+    train_step.metrics = None
     return train_step
 
 
-def _context(cfg: ModelConfig, mesh) -> MeshContext | None:
-    return MeshContext(mesh, cfg) if isinstance(mesh, Mesh) else None
+def _context(cfg: ModelConfig, shape: ShapeSpec, mesh) -> MeshContext | None:
+    return MeshContext(mesh, cfg, shape.global_batch) if isinstance(mesh, Mesh) else None
 
 
 def _runnable(mc) -> None:
@@ -160,8 +171,8 @@ def _runnable(mc) -> None:
         raise TypeError("the step runs on a runnable Mesh, not a shape-only one")
 
 
-def _prefill_step(cfg: ModelConfig, mesh) -> Callable:
-    mc = _context(cfg, mesh)
+def _prefill_step(cfg: ModelConfig, shape: ShapeSpec, mesh) -> Callable:
+    mc = _context(cfg, shape, mesh)
 
     def prefill_step(params, batch, s_max: int | None = None):
         """(this rank's logits (B_r, 1, V), its blocks of caches of `s_max`
@@ -174,7 +185,7 @@ def _prefill_step(cfg: ModelConfig, mesh) -> Callable:
 
 
 def _serve_step(cfg: ModelConfig, shape: ShapeSpec, mesh) -> Callable:
-    mc = _context(cfg, mesh)
+    mc = _context(cfg, shape, mesh)
     bangkv = uses_bangkv(cfg, shape)
 
     def serve_step(params, caches, tokens):
@@ -200,8 +211,9 @@ def step_and_specs(cfg: ModelConfig, shape: ShapeSpec, mesh) -> tuple[Callable, 
     (params, caches filled to seq_len - 1, tokens (B, 1)), and their specs
     (`cache_pspecs`; the tokens over the data axes where the batch divides
     them). The rules run on a shape-only `AbstractMesh` too; the step runs
-    on a runnable `Mesh` only. The moe, ssm, hybrid and encdec families on
-    a mesh of more than one rank raise (ROADMAP A8e-2)."""
+    on a runnable `Mesh` only. The dense, vlm and moe families run on any
+    mesh; ssm, hybrid and encdec on a mesh of more than one rank raise
+    (ROADMAP A8e-2)."""
     check_mesh_family(cfg, mesh, shape.kind)
     p_specs = param_specs(cfg)
     p_place = param_pspecs(p_specs, mesh)
@@ -209,10 +221,10 @@ def step_and_specs(cfg: ModelConfig, shape: ShapeSpec, mesh) -> tuple[Callable, 
         opt_specs = adamw_init(p_specs)
         b_specs = batch_specs(cfg, shape)
         placements = (p_place, param_pspecs(opt_specs, mesh), _batch_pspec_tree(b_specs, mesh))
-        return _train_step(cfg, mesh, p_place), (p_specs, opt_specs, b_specs), placements
+        return _train_step(cfg, shape, mesh, p_place), (p_specs, opt_specs, b_specs), placements
     if shape.kind == "prefill":
         b_specs = batch_specs(cfg, shape)
-        return (_prefill_step(cfg, mesh), (p_specs, b_specs),
+        return (_prefill_step(cfg, shape, mesh), (p_specs, b_specs),
                 (p_place, _batch_pspec_tree(b_specs, mesh)))
     divisible = shape.global_batch % _data_ranks(mesh) == 0
     c_specs = cache_specs(cfg, shape)

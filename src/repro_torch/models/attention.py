@@ -27,13 +27,14 @@ the KV heads they read, and multiplies its heads' outputs by its rows of
 `wo`; one (B, S, D) all-reduce over `model` sums them. Where a rank's block
 of a weight would not hold whole heads, that weight is gathered whole over
 `model` at its use and its heads are computed on every `model` rank, as
-GSPMD's reshard would. Of the dense and vlm configs, the KV projections
-`wk` and `wv` take this route when `model` does not divide n_kv_heads:
-glm4-9b (2 KV heads) and internvl2-1b (2) at `model` 4 and 16,
-phi3-medium-14b (10) at 4 and 16, granite-3-2b (8) at 16; the query
-projection `wq` when `model` does not divide n_heads: phi3-medium-14b (40
-heads) at 16, internvl2-1b (14) at 4 and 16. gemma3-27b (32 and 16 heads)
-never does. At `model` 2 none does.
+GSPMD's reshard would. Of the dense, vlm and moe configs, the KV
+projections `wk` and `wv` take this route when `model` does not divide
+n_kv_heads: glm4-9b (2 KV heads) and internvl2-1b (2) at `model` 4 and 16,
+phi3-medium-14b (10) at 4 and 16, granite-3-2b (8), phi3.5-moe (8) and
+llama4-scout (8) at 16; the query projection `wq` when `model` does not
+divide n_heads: phi3-medium-14b and llama4-scout (40 heads) at 16,
+internvl2-1b (14) at 4 and 16. gemma3-27b (32 and 16 heads) never does.
+At `model` 2 none does.
 
 Serving on a mesh (with `torch.no_grad()`) runs the same plan. Prefill
 computes this rank's heads as training does and returns the roped K and V

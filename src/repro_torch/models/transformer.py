@@ -23,19 +23,21 @@ zamba2's shared attention block and whisper's encoder are not
 rematerialised, as the reference's are not.
 
 On a mesh (`lm_loss(..., mesh=)`, a `distributed.collectives.MeshContext`:
-the mesh training step of `launch.specs`), the dense and vlm families hold
-this rank's blocks of the parameters and its slice of the batch; the
+the mesh training step of `launch.specs`), the dense, vlm and moe families
+hold this rank's blocks of the parameters and its slice of the batch; the
 embedding, each layer's attention and FFN, and the cross-entropy gather
 their weights at their use and run Megatron TP over `model`
 (`models.attention.HeadPlan`, `ffn.swiglu`, `layers.embed`,
-`layers.unembed_chunked`). Under remat the gathers run inside the
-rematerialised layer body, so a gathered weight is gathered again in
-backward and never held across layers. The other families raise on a mesh
-of more than one rank (ROADMAP A8e-2).
+`layers.unembed_chunked`); an MoE layer runs its experts in parallel over
+`model` and routes on the global batch (`moe.moe_block`), so the loss's
+load_balance, router_z and dropped_frac are the global batch's. Under
+remat the gathers run inside the rematerialised layer body, so a gathered
+weight is gathered again in backward and never held across layers. The
+other families raise on a mesh of more than one rank (ROADMAP A8e-2).
 
 Serving on a mesh (`LM.prefill`, `LM.decode_step` and
 `LM.init_decode_caches` with `mesh=`, the prefill and decode steps of
-`launch.specs`; dense and vlm) takes the same blocks of the parameters and
+`launch.specs`; dense, vlm and moe) takes the same blocks of the parameters and
 this rank's slice of the batch. The decode caches are this rank's blocks
 in the `cache_pspecs` layout: the batch over `data` where it divides, the
 sequence over `model` where `s_max` divides (`collectives.SeqBlock`).
@@ -228,8 +230,8 @@ def _dense_layer(cfg: ModelConfig, p, h, window, theta, cache, mode: str, codebo
                  cross_mem=None, mesh=None, seq=None):
     """One dense/moe decoder layer (whisper's with its cross-attention into
     `cross_mem` = (k, v) (B, M, Hkv, hd)). Returns (h, new_cache, aux).
-    `mesh`: a dense layer on a mesh (`seq`: its decode cache's block of the
-    sequence)."""
+    `mesh`: a dense or moe layer on a mesh (`seq`: its decode cache's block
+    of the sequence)."""
     aux = _zero_aux(h.device)
     x = norm(h, p["attn_norm"], cfg.norm_kind, cfg.norm_eps)
     if mode == "decode_bangkv":
@@ -263,7 +265,7 @@ def _dense_layer(cfg: ModelConfig, p, h, window, theta, cache, mode: str, codebo
     if cfg.n_experts:
         y, aux = moe_block(
             p["moe"], x, n_experts=cfg.n_experts, top_k=cfg.moe_top_k,
-            capacity_factor=cfg.capacity_factor, bf16_compute=cfg.opt_moe_bf16,
+            capacity_factor=cfg.capacity_factor, bf16_compute=cfg.opt_moe_bf16, mesh=mesh,
         )
     else:
         y = swiglu(p["ffn"], x, mesh)
@@ -393,7 +395,7 @@ def decoder_stack(cfg: ModelConfig, params, h: torch.Tensor, *, mode: str, cache
     conv window and final state. "decode" / "decode_bangkv": `caches` are
     updated in place. Whisper's decoder takes `cross_mem` = (cross_k,
     cross_v) (L, B, M, Hkv, hd). `mesh` (a `MeshContext`): this rank's part
-    of a dense or vlm stack on a mesh; in decode, `s_max` is then the
+    of a dense, vlm or moe stack on a mesh; in decode, `s_max` is then the
     caches' full length (their block's times the `model` ranks when None)."""
     check_family(cfg)
     if mode not in MODES:
@@ -445,7 +447,7 @@ def _mesh_for(cfg: ModelConfig, mesh, kind: str = "train"):
 
 def _mesh_serve_stack(cfg: ModelConfig, params, h: torch.Tensor, *, mode: str, caches, s_max,
                       mesh):
-    """decoder_stack's prefill and decode on a mesh (dense and vlm): h is
+    """decoder_stack's prefill and decode on a mesh (dense, vlm, moe): h is
     this rank's slice of the batch. Prefill makes this rank's blocks of the
     caches, `s_max` positions in all (the prompt's length when None): its
     block of the sequence of every KV head. Decode updates them in place."""
@@ -600,7 +602,8 @@ def lm_loss(cfg: ModelConfig, params, batch: dict, mesh=None) -> tuple[torch.Ten
     router_z and dropped_frac come back detached.
 
     With `mesh` (a `MeshContext`), `params` are this rank's blocks and
-    `batch` its slice of the batch: the loss is the mean over this slice."""
+    `batch` its slice of the batch: the loss's ce is the mean over this
+    slice, its MoE terms and their metrics the global batch's."""
     mesh = _mesh_for(cfg, mesh)
     tokens, labels = batch["tokens"], batch["labels"]
     frontend = batch.get("frontend")

@@ -489,6 +489,49 @@ def test_chip_smoke_mesh_serve_phase_on_cpu(smoke, monkeypatch):
     assert out["phase_s"] > 0
 
 
+def test_chip_smoke_mesh_moe_phase_on_cpu(smoke, monkeypatch):
+    """Phase 11 at reduced phi3.5-moe and llama4-scout (2 layers each) on a
+    one-rank gloo mesh in this process (made and destroyed by the phase):
+    11a's mesh and plain training steps, losses and parameters bit-equal;
+    11b's and 11c's mesh prefill and exact-KV steps bit-equal to the plain
+    path's (logits, tokens, caches, every layer's dropped fraction), the
+    collectives counted, the depth cuts recorded, no port kernel
+    launched."""
+    import torch.distributed as dist
+
+    import repro_torch.configs as configs
+
+    monkeypatch.setattr(smoke, "lm_config", lambda name, **kw: configs.get(name).reduced(**kw))
+    for name, value in (("TRAIN_SEQ", 32), ("LM_PROMPT", 32), ("LM_DECODE", 4), ("SCOUT_DECODE", 3),
+                        ("MOE_SERVE_LAYERS", 2), ("SCOUT_SERVE_LAYERS", 2)):
+        monkeypatch.setattr(smoke, name, value)
+    out = smoke.mesh_moe_phase(torch.device("cpu"), "cpu")
+    assert not dist.is_initialized()
+    assert out["mesh"] == {"data": 1, "model": 1} and out["backend"] == "gloo"
+    train = out["train"]
+    assert train["arch"] == "phi3.5-moe-42b-a6.6b-reduced" and train["layers"] == 2
+    assert train["layers_published"] == 4 and train["seq_len"] == 32 and train["lr"] == 1e-4
+    assert train["mesh_step"]["losses"] == train["plain_step"]["losses"]
+    assert len(train["mesh_step"]["losses"]) == smoke.MESH_STEPS
+    assert train["parity"]["bit_equal"] and train["parity"]["param_entries"] > 0
+    assert all(m["load_balance"] > 0 for m in train["mesh_step"]["metrics"])
+    for key, arch, steps in (("phi_serve", "phi3.5-moe-42b-a6.6b-reduced", 4),
+                             ("scout_serve", "llama4-scout-17b-a16e-reduced", 3)):
+        run = out[key]
+        assert run["arch"] == arch and run["layers"] == 2 and run["steps"] == steps
+        for path in (run["plain"], run["mesh"]):
+            assert len(path["step_ms"]) == steps and path["prefill_ms"] > 0 and path["memory"] is None
+            assert 0.0 <= path["dropped_frac_decode"] < 1.0
+        assert run["plain"]["dropped_frac_decode"] == run["mesh"]["dropped_frac_decode"]
+        for counts in (run["mesh"]["collectives_per_step"], run["mesh"]["prefill_collectives"]):
+            assert counts["all_gather"] > 0 and counts["all_reduce"] > 0
+        assert run["mesh"]["device_profile"] is None and run["mesh_over_plain"] > 0
+    counts = train["mesh_step"]["collectives_per_step"]
+    assert counts["all_gather"] > 0 and counts["all_reduce"] > 0
+    assert out["kernel_launches"] == dict.fromkeys(smoke.kernel_counters(), 0)
+    assert out["phase_s"] > 0
+
+
 def test_code_gaps_reports_each_differing_code(smoke):
     """Phase 5b's C10 check: one line for each (row, subspace) whose codes
     differ, with both centroids' float64 squared distances and the gap in
