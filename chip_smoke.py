@@ -189,6 +189,24 @@ Phases, each timed; any failure exits non-zero:
      the plain path, collectives a step, one profiled mesh step (11b), peak
      memory. No port kernel lies on this path: the launch counts stay 0.
      Its numbers go into the summary line under "mesh_moe".
+  12. the ssm and hybrid families on the (1, 1) mesh (`mesh_ssm_phase`),
+     after phase 11, every width of the Mamba2 block (in_proj's columns,
+     the conv channels, the heads, di) on the one `model` rank, parameters
+     drawn on the card from a seed: 12a mamba2-2.7b
+     (arXiv:2405.21060) cut to 4 of 64 layers and zamba2-2.7b
+     (hf:Zyphra/Zamba2-2.7B) to 12 of 54 (8b's cuts), bf16 with remat, 3
+     steps of `step_and_specs`'s train step on 2 x 4,096 tokens, then 3
+     plain steps from the same draw: losses within rtol 1e-5, the bf16
+     parameters within ROADMAP C15's bound; 12b mamba2-2.7b at full depth
+     serving 7e's 4 x 2,048 tokens and 32 greedy steps, one mesh step
+     profiled; 12c zamba2-2.7b at full depth serving 7f's requests, 32
+     greedy exact-KV steps, then 16 greedy BANG-KV steps with the
+     hierarchical top-L, the codebooks fitted once on the plain path's
+     keys; each plain then through the mesh prefill and decode steps,
+     logits, tokens, every cache tensor and the top-L ids bit-equal;
+     decode and prefill ms against the plain path, collectives a step,
+     peak memory. No port kernel lies on this path: the launch counts stay
+     0. Its numbers go into the summary line under "mesh_ssm".
 
 Kernel times are taken cold: the timed calls cycle through copies of the
 inputs that together exceed twice the H100's 50 MB L2. Bounds count the bytes the function needs for this run's
@@ -3506,14 +3524,14 @@ def recorded_drops(run):
         transformer.moe_block = block
 
 
-def moe_mesh_train(dev, card: str, mesh) -> dict:
-    """11a: phi3.5-moe at full width cut to MOE_MESH_TRAIN_LAYERS layers,
-    bf16 with remat, MESH_STEPS steps of `step_and_specs`'s train step on
-    TRAIN_BATCH x TRAIN_SEQ tokens, then MESH_STEPS plain steps from the
-    same draw (the two states do not fit the card together): losses within
-    rtol 1e-5, the bf16 parameters within C15's bound (the dispatch's
-    backward sums with atomics, C17), compared on the card one tensor at a
-    time from host copies."""
+def mesh_train(dev, card: str, mesh, label: str, tag: str, name: str, layers: int) -> dict:
+    """11a, 12a: `name` at full width cut to `layers` layers, bf16 with
+    remat, MESH_STEPS steps of `step_and_specs`'s train step on TRAIN_BATCH
+    x TRAIN_SEQ tokens, then MESH_STEPS plain steps from the same draw (the
+    two states do not fit the card together): losses within rtol 1e-5, the
+    bf16 parameters within C15's bound (an MoE dispatch's backward sums
+    with atomics, C17), compared on the card one tensor at a time from host
+    copies. `tag` heads its log line."""
     import torch
     import torch.distributed as dist
 
@@ -3525,8 +3543,8 @@ def moe_mesh_train(dev, card: str, mesh) -> dict:
     from repro_torch.optim import adamw_init, adamw_update
     from repro_torch.tree import flat_dict
 
-    full_depth = lm_config(LM_MOE_ARCH).n_layers
-    cfg = lm_config(LM_MOE_ARCH, n_layers=MOE_MESH_TRAIN_LAYERS)
+    full_depth = lm_config(name).n_layers
+    cfg = lm_config(name, n_layers=layers)
     seq = TRAIN_SEQ
     free_device(dev)
     stream = TokenStream(cfg.vocab_size, seq, TRAIN_BATCH, seed=SEED)
@@ -3558,7 +3576,7 @@ def moe_mesh_train(dev, card: str, mesh) -> dict:
 
     params = draw()
     if not torch.equal(sums, torch.stack([p.detach().double().sum() for p in params.parameters()]).cpu()):
-        raise AssertionError("11a: the parameters drawn again from the seed differ")
+        raise AssertionError(f"{label}: the parameters drawn again from the seed differ")
     lm = LM(cfg, params)
     popt = adamw_init(params)
     params.requires_grad_(True)
@@ -3577,13 +3595,13 @@ def moe_mesh_train(dev, card: str, mesh) -> dict:
     pmem = device_mem(dev)
     loss_bits = mesh_losses == plain_losses
     if not loss_bits and not np.allclose(mesh_losses, plain_losses, rtol=1e-5, atol=0):
-        raise AssertionError(f"11a: mesh losses {mesh_losses}, plain {plain_losses}")
+        raise AssertionError(f"{label}: mesh losses {mesh_losses}, plain {plain_losses}")
     differ, worst, total = 0, 0.0, 0
     with torch.no_grad():
         for k, p in flat_dict(params).items():
             n, w, ok = bf16_within(mesh_after.pop(k).to(dev), p.detach(), LR, MESH_STEPS)
             if not ok:
-                raise AssertionError(f"11a: {k} differs in {n} entries, by up to {w}")
+                raise AssertionError(f"{label}: {k} differs in {n} entries, by up to {w}")
             differ, worst, total = differ + n, max(worst, w), total + p.numel()
     del lm, params, popt
     free_device(dev)
@@ -3599,15 +3617,16 @@ def moe_mesh_train(dev, card: str, mesh) -> dict:
            "parity": {"losses_bit_equal": loss_bits, "param_entries": total,
                       "param_entries_differing": differ, "param_max_abs_diff": worst,
                       "bit_equal": loss_bits and differ == 0}}
-    log(f"[mesh-moe] 11a {cfg.name} ({cfg.n_layers} of {full_depth} layers, {cfg.dtype}, remat, "
+    moe = (f"; the last step's dropped_frac {metrics[-1]['dropped_frac']:.4f} and load_balance "
+           f"{metrics[-1]['load_balance']:.4f} (sums over the layers, as the loss takes them)"
+           if cfg.n_experts else "")
+    log(f"[{tag}] {label} {cfg.name} ({cfg.n_layers} of {full_depth} layers, {cfg.dtype}, remat, "
         f"{n_params:,} parameters) on the {dict(mesh.shape)} mesh ({dist.get_backend()}, one rank), "
         f"{MESH_STEPS} steps of {TRAIN_BATCH} x {seq} tokens: {med:.1f} ms a step against the plain "
         f"{pmed:.1f} ({med / pmed:.4f}; medians after the first); losses "
         + ", ".join(f"{x:.6f}" for x in mesh_losses) + " (plain "
         + ", ".join(f"{x:.6f}" for x in plain_losses) + ("; bit-equal" if loss_bits else "; within rtol 1e-5")
-        + f"); the last step's dropped_frac {metrics[-1]['dropped_frac']:.4f} and load_balance "
-        f"{metrics[-1]['load_balance']:.4f} (sums over the layers, as the loss takes them); "
-        "collectives a step "
+        + f"){moe}; collectives a step "
         + ", ".join(f"{k} {v:.0f}" for k, v in sorted(counts.items()))
         + f"; bf16 parameters after step {MESH_STEPS}: {differ} of {total:,} entries differ (max "
         f"{worst:.3g}); peak device memory {(mem or {}).get('peak_bytes', 0) / 1e9:.2f} GB against "
@@ -3615,15 +3634,29 @@ def moe_mesh_train(dev, card: str, mesh) -> dict:
     return out
 
 
-def moe_mesh_serve(dev, card: str, mesh, label: str, name: str, layers: int, steps: int,
-                   profile: bool) -> dict:
-    """11b, 11c: `name` at full width cut to `layers` layers in bf16, its
-    parameters drawn on the card from 7a's seed; 7a's LM_REQUESTS x
-    LM_PROMPT tokens prefilled and decoded `steps` greedy exact-KV steps by
-    the plain `LM` and by `step_and_specs`'s prefill and decode steps on
-    the same parameter tensors: logits, tokens, caches and every layer's
-    dropped fraction bit-equal. With `profile`, one more mesh decode step
-    is profiled on the device alone."""
+def caches_on_host(caches) -> list:
+    """Every tensor of a decode state, field by field, copied to the host."""
+    if hasattr(caches, "_fields"):
+        return [t.cpu() for t in caches]
+    return [t for c in caches for t in caches_on_host(c)]
+
+
+def mesh_serve(dev, card: str, mesh, label: str, tag: str, name: str, *, seed: int, steps: int,
+               layers: int | None = None, bang_steps: int = 0, profile: bool = False) -> dict:
+    """11b, 11c, 12b, 12c: `name` at full width in bf16 (cut to `layers`
+    layers when given), its parameters and LM_REQUESTS x LM_PROMPT tokens
+    drawn on the card from `seed`; each path, the plain `LM` and then
+    `step_and_specs`'s prefill and decode steps on the same parameter
+    tensors, prefills and decodes `steps` greedy exact-KV steps, then
+    `bang_steps` greedy BANG-KV steps from that state with the
+    hierarchical top-L (`opt_hier_topk`), the codebooks fitted once on
+    the plain path's keys (as 7f) and every decoded key encoded with them.
+    Logits, tokens, every cache tensor, the top-L ids and an MoE's every
+    layer's dropped fraction must be bit-equal. With `profile`, one more
+    mesh exact-KV step is profiled on the device alone. `tag` heads the
+    log line."""
+    import dataclasses
+
     import torch
     import torch.distributed as dist
 
@@ -3631,22 +3664,32 @@ def moe_mesh_serve(dev, card: str, mesh, label: str, name: str, layers: int, ste
     from repro_torch.distributed import shard_tree
     from repro_torch.launch.specs import step_and_specs
     from repro_torch.models import LM
+    from repro_torch.models import retrieval_attention as bkv
+    from repro_torch.models.transformer import clone_caches
 
     full_depth = lm_config(name).n_layers
-    cfg = lm_config(name, n_layers=layers)
+    cfg = lm_config(name) if layers is None else lm_config(name, n_layers=layers)
+    if bang_steps:
+        cfg = dataclasses.replace(cfg, opt_hier_topk=True)
+    moe = bool(cfg.n_experts)
     free_device(dev)
-    g = torch.Generator(dev).manual_seed(SEED)
+    g = torch.Generator(dev).manual_seed(seed)
     full = LM(cfg, device=dev, generator=g).params
     n_params = sum(p.numel() for p in full.parameters())
     B, S, V = LM_REQUESTS, LM_PROMPT, cfg.vocab_size
     tokens = torch.randint(0, V, (B, S), generator=g, device=dev)
-    s_max = S + steps + 1   # the steps and one profiled step
+    fill = S + steps
+    s_max = fill + bang_steps + 1   # the steps and one profiled step
     prefill, _, (p_place, b_place) = step_and_specs(cfg, ShapeSpec("prefill_7a", "prefill", S, B), mesh)
     serve, _, _ = step_and_specs(cfg, ShapeSpec("decode_7a", "decode", s_max, B), mesh)
+    if bang_steps:
+        bang, _, _ = step_and_specs(cfg, ShapeSpec("long_500k", "decode", s_max, B), mesh)
+        if not bang.bangkv:
+            raise AssertionError(f"{label}: the long_500k decode step does not decode with BANG-KV")
     params = shard_tree(full, p_place, mesh)   # one rank: the whole tensors, copied
     del full
     lm = LM(cfg, params)                       # the plain path on the same tensors
-    runs = {}
+    runs, codebooks = {}, None
     for path in ("plain", "mesh"):
         resident = free_device(dev)
 
@@ -3665,28 +3708,69 @@ def moe_mesh_serve(dev, card: str, mesh, label: str, name: str, layers: int, ste
             tok = logits[:, 0].argmax(dim=-1, keepdim=True).to(torch.int32)
             return prefill_ms, logits, greedy_run(step, caches, tok, steps, dev)
 
-        (prefill_ms, logits, (dl, fed, ms, caches)), drops = recorded_drops(run)
+        if moe:
+            (prefill_ms, logits, (dl, fed, ms, caches)), drops = recorded_drops(run)
+        else:
+            (prefill_ms, logits, (dl, fed, ms, caches)), drops = run(), None
         finite(f"{label} {path} prefill logits", logits, (B, 1, V))
         finite(f"{label} {path} decode logits", dl, (steps, B, V))
-        runs[path] = {"prefill_ms": prefill_ms, **step_stats(ms, B), "memory": device_mem(dev),
-                      "memory_at_start": resident,
-                      "dropped_frac_prefill": drops[:layers].float().mean().item(),
-                      "dropped_frac_decode": drops[layers:].float().mean().item(),
-                      "host": [x.cpu() for x in (logits, dl, fed, drops, *caches)]}
+        out = {"prefill_ms": prefill_ms, **step_stats(ms, B), "memory": device_mem(dev),
+               "memory_at_start": resident}
+        host = [x.cpu() for x in (logits, dl, fed)]
+        if moe:
+            out["dropped_frac_prefill"] = drops[:cfg.n_layers].float().mean().item()
+            out["dropped_frac_decode"] = drops[cfg.n_layers:].float().mean().item()
+            host.append(drops.cpu())
+        host += caches_on_host(caches)
+        if bang_steps:
+            ssm_c, kv = clone_caches(caches)
+            if codebooks is None:   # fitted once, on the plain path's keys
+                codebooks, _ = bkv.fit_bangkv_caches(kv, fill, cfg.bangkv_m, iters=LM_FIT_ITERS)
+                lm.set_codebooks(codebooks)   # the tensor the mesh step reads too
+            codes = torch.zeros((*kv.k.shape[:4], cfg.bangkv_m), dtype=torch.uint8, device=dev)
+            for i in range(kv.k.shape[0]):
+                codes[i, :, :fill] = bkv.encode_keys(codebooks[i], kv.k[i, :, :fill])
+            state = (ssm_c, bkv.BangKVCache(codes, kv.k, kv.v, kv.index))
+            step = (lambda c, t: lm.decode_step(c, t, bangkv=True)) if path == "plain" else (
+                lambda c, t: bang(params, c, t))
+            first = dl[-1].argmax(dim=-1, keepdim=True).to(torch.int32)
+            (bl, _, bms, state), ids = recorded_top_l(
+                lambda: greedy_run(step, state, first, bang_steps, dev))
+            finite(f"{label} {path} BANG-KV logits", bl, (bang_steps, B, V))
+            out["bangkv"] = step_stats(bms, B)
+            host += [bl.cpu(), ids.cpu()] + caches_on_host(state)
+            del state, bl, ids
+        out["host"] = host
+        runs[path] = out
         del logits, dl, drops
         if path == "plain":
             del caches, fed
-    for what, a, b in zip(("prefill logits", "decode logits", "tokens", "dropped fractions",
-                           "K caches", "V caches", "cache indices"),
-                          runs["plain"].pop("host"), runs["mesh"].pop("host")):
-        same(f"{label} {what}", a, b)
+    plain_host, mesh_host = runs["plain"].pop("host"), runs["mesh"].pop("host")
+    for i, (a, b) in enumerate(zip(plain_host, mesh_host)):
+        same(f"{label} tensor {i} (logits, tokens{', dropped fractions' if moe else ''}, the caches"
+             f"{', BANG-KV' if bang_steps else ''})", a, b)
     out = runs
     out.update(arch=cfg.name, layers=cfg.n_layers, layers_published=full_depth, parameters=n_params,
-               dtype=cfg.dtype, requests=B, prompt=S, steps=steps)
+               dtype=cfg.dtype, requests=B, prompt=S, steps=steps, bangkv_steps=bang_steps,
+               tensors_compared=len(mesh_host))
     out["mesh"]["prefill_collectives"] = dict(prefill.mesh_context.counts)
     out["mesh"]["collectives_per_step"] = {k: v / steps for k, v in serve.mesh_context.counts.items()}
     out["mesh_over_plain"] = out["mesh"]["ms_per_step"] / out["plain"]["ms_per_step"]
     out["prefill_mesh_over_plain"] = out["mesh"]["prefill_ms"] / out["plain"]["prefill_ms"]
+    extra = ""
+    if moe:
+        extra += (f"; dropped_frac prefill {out['mesh']['dropped_frac_prefill']:.4f}, decode "
+                  f"{out['mesh']['dropped_frac_decode']:.4f}")
+    if bang_steps:
+        out["mesh"]["bangkv"]["collectives_per_step"] = {
+            k: v / bang_steps for k, v in bang.mesh_context.counts.items()}
+        out["bangkv_mesh_over_plain"] = (out["mesh"]["bangkv"]["ms_per_step"]
+                                         / out["plain"]["bangkv"]["ms_per_step"])
+        extra += (f"; {bang_steps} BANG-KV steps (hierarchical top-L {cfg.bangkv_topl}) "
+                  f"{out['mesh']['bangkv']['ms_per_step']:.2f} ms a step against "
+                  f"{out['plain']['bangkv']['ms_per_step']:.2f} ({out['bangkv_mesh_over_plain']:.4f}), "
+                  "collectives a step " + ", ".join(
+                      f"{k} {v:.0f}" for k, v in sorted(out["mesh"]["bangkv"]["collectives_per_step"].items())))
     prof = None
     if profile and torch.device(dev).type == "cuda":
         tok = fed[-1]
@@ -3696,34 +3780,33 @@ def moe_mesh_serve(dev, card: str, mesh, label: str, name: str, layers: int, ste
     out["mesh"]["device_profile"] = prof
     del caches, fed, lm, params
     free_device(dev)
-    log(f"[mesh-moe] {label} {cfg.name} ({cfg.n_layers} of {full_depth} layers, {cfg.dtype}, "
+    log(f"[{tag}] {label} {cfg.name} ({cfg.n_layers} of {full_depth} layers, {cfg.dtype}, "
         f"{n_params:,} parameters) on the {dict(mesh.shape)} mesh ({dist.get_backend()}, one rank), "
         f"{B} x {S} tokens: prefill {out['mesh']['prefill_ms']:.1f} ms against the plain "
         f"{out['plain']['prefill_ms']:.1f} ({out['prefill_mesh_over_plain']:.4f}); exact-KV decode "
         f"{out['mesh']['ms_per_step']:.2f} ms a step against {out['plain']['ms_per_step']:.2f} "
-        f"({out['mesh_over_plain']:.4f}; medians of steps 2-{steps}); dropped_frac prefill "
-        f"{out['mesh']['dropped_frac_prefill']:.4f}, decode {out['mesh']['dropped_frac_decode']:.4f}; "
-        "collectives: prefill "
+        f"({out['mesh_over_plain']:.4f}; medians of steps 2-{steps}); collectives: prefill "
         + ", ".join(f"{k} {v}" for k, v in sorted(out["mesh"]["prefill_collectives"].items()))
         + ", a decode step "
         + ", ".join(f"{k} {v:.0f}" for k, v in sorted(out["mesh"]["collectives_per_step"].items()))
+        + extra
         + ("" if prof is None else
            f"; one profiled step: {prof['nccl_events']} NCCL kernels, {prof['device_events']} device "
            f"events, {prof['busy_ms']:.2f} ms busy, device copies {prof['copy_events']} "
            f"({prof['copy_ms']:.3f} ms)")
         + f"; peak device memory {(out['mesh']['memory'] or {}).get('peak_bytes', 0) / 1e9:.2f} GB "
-        f"against {(out['plain']['memory'] or {}).get('peak_bytes', 0) / 1e9:.2f}; logits, tokens, "
-        f"caches and dropped fractions bit-equal [{card}]")
+        f"against {(out['plain']['memory'] or {}).get('peak_bytes', 0) / 1e9:.2f}; {len(mesh_host)} "
+        f"tensors bit-equal [{card}]")
     return out
 
 
 def mesh_moe_phase(dev, card: str) -> dict:
     """Phase 11: the moe family's mesh steps on the (1, 1) mesh (a one-rank
     NCCL group on the card, gloo on the CPU), every expert on the one
-    `model` rank: 11a phi3.5-moe training (`moe_mesh_train`), 11b
+    `model` rank: 11a phi3.5-moe training (`mesh_train`), 11b
     phi3.5-moe cut to MOE_SERVE_LAYERS layers and 11c llama4-scout cut to
     SCOUT_SERVE_LAYERS layers, its shared expert included, serving
-    (`moe_mesh_serve`). The launch counts, set to 0 before 11a, must all
+    (`mesh_serve`). The launch counts, set to 0 before 11a, must all
     be 0 after 11c."""
     import torch.distributed as dist
 
@@ -3736,15 +3819,16 @@ def mesh_moe_phase(dev, card: str) -> dict:
     out = {"mesh": dict(mesh.shape), "backend": dist.get_backend()}
     try:
         t0 = time.perf_counter()
-        out["train"] = moe_mesh_train(dev, card, mesh)
+        out["train"] = mesh_train(dev, card, mesh, "11a", "mesh-moe", LM_MOE_ARCH,
+                                  MOE_MESH_TRAIN_LAYERS)
         out["train"]["phase_s"] = time.perf_counter() - t0
         t0 = time.perf_counter()
-        out["phi_serve"] = moe_mesh_serve(dev, card, mesh, "11b", LM_MOE_ARCH, MOE_SERVE_LAYERS,
-                                          LM_DECODE, True)
+        out["phi_serve"] = mesh_serve(dev, card, mesh, "11b", "mesh-moe", LM_MOE_ARCH, seed=SEED,
+                                      steps=LM_DECODE, layers=MOE_SERVE_LAYERS, profile=True)
         out["phi_serve"]["phase_s"] = time.perf_counter() - t0
         t0 = time.perf_counter()
-        out["scout_serve"] = moe_mesh_serve(dev, card, mesh, "11c", SCOUT_ARCH, SCOUT_SERVE_LAYERS,
-                                            SCOUT_DECODE, False)
+        out["scout_serve"] = mesh_serve(dev, card, mesh, "11c", "mesh-moe", SCOUT_ARCH, seed=SEED,
+                                        steps=SCOUT_DECODE, layers=SCOUT_SERVE_LAYERS)
         out["scout_serve"]["phase_s"] = time.perf_counter() - t0
     finally:
         if made and dist.is_initialized():
@@ -3752,6 +3836,55 @@ def mesh_moe_phase(dev, card: str) -> dict:
     launches = read_launches()
     if any(launches.values()):
         raise AssertionError(f"the moe mesh path launched port kernels: {launches}")
+    free_device(dev)
+    out["kernel_launches"] = launches
+    out["phase_s"] = time.perf_counter() - t_phase
+    return out
+
+
+# ------------------------------------------------------------ phase 12
+SSM_MESH_SEED, HYBRID_MESH_SEED = SEED + 3, SEED + 4   # 12b, 12c: 7e's and 7f's draws
+
+
+def mesh_ssm_phase(dev, card: str) -> dict:
+    """Phase 12: the ssm and hybrid families' mesh steps on the (1, 1) mesh
+    (a one-rank NCCL group on the card, gloo on the CPU), every width of
+    the Mamba2 block on the one `model` rank: 12a mamba2-2.7b cut to
+    LM_CUT_LAYERS and zamba2-2.7b to HYBRID_CUT_LAYERS layers training
+    (`mesh_train`, 8b's cuts and shape), 12b mamba2-2.7b at full depth
+    serving 7e's requests and 12c zamba2-2.7b at full depth serving 7f's,
+    exact-KV then BANG-KV (`mesh_serve`). The launch counts, set to 0
+    before 12a, must all be 0 after 12c."""
+    import torch.distributed as dist
+
+    from repro_torch.distributed import make_mesh
+
+    t_phase = time.perf_counter()
+    reset_launches()
+    made = not dist.is_initialized()
+    mesh = make_mesh((1, 1), ("data", "model"), dev)
+    out = {"mesh": dict(mesh.shape), "backend": dist.get_backend()}
+    try:
+        for key, label, name, layers in (("ssm_train", "12a", SSM_ARCH, LM_CUT_LAYERS),
+                                         ("hybrid_train", "12a", HYBRID_ARCH, HYBRID_CUT_LAYERS)):
+            t0 = time.perf_counter()
+            out[key] = mesh_train(dev, card, mesh, label, "mesh-ssm", name, layers)
+            out[key]["phase_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        out["ssm_serve"] = mesh_serve(dev, card, mesh, "12b", "mesh-ssm", SSM_ARCH, seed=SSM_MESH_SEED,
+                                      steps=LM_DECODE, profile=True)
+        out["ssm_serve"]["phase_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        out["hybrid_serve"] = mesh_serve(dev, card, mesh, "12c", "mesh-ssm", HYBRID_ARCH,
+                                         seed=HYBRID_MESH_SEED, steps=LM_DECODE,
+                                         bang_steps=LM_LONG_DECODE)
+        out["hybrid_serve"]["phase_s"] = time.perf_counter() - t0
+    finally:
+        if made and dist.is_initialized():
+            dist.destroy_process_group()
+    launches = read_launches()
+    if any(launches.values()):
+        raise AssertionError(f"the ssm and hybrid mesh path launched port kernels: {launches}")
     free_device(dev)
     out["kernel_launches"] = launches
     out["phase_s"] = time.perf_counter() - t_phase
@@ -3843,6 +3976,9 @@ def main() -> int:
     mesh_moe = mesh_moe_phase(dev, card)
     log(f"[mesh-moe] phase: {mesh_moe['phase_s']:.1f} s")
 
+    mesh_ssm = mesh_ssm_phase(dev, card)
+    log(f"[mesh-ssm] phase: {mesh_ssm['phase_s']:.1f} s")
+
     keys = ("recall_at_10", "qps", "n_batches", "mean_n_iters", "mean_hops", "batch_wall_ms",
             "device_busy_ms_per_batch", "link_bytes_per_hop", "rerank_bytes_per_batch",
             "host_gather_ms_per_batch", "host_gather_share", "collective_ms_per_batch",
@@ -3861,7 +3997,8 @@ def main() -> int:
                       "vamana_build": vamana["build"], "mutation": mutation["info"],
                       "autotune": {k: at[k] for k in ("winner", "sweep", "sweep_s", "device_kind")},
                       "small_recall_at_10": small, "lm": lm, "train": train, "mesh": mesh,
-                      "mesh_serve": mesh_serve, "mesh_moe": mesh_moe, "card": card}))
+                      "mesh_serve": mesh_serve, "mesh_moe": mesh_moe, "mesh_ssm": mesh_ssm,
+                      "card": card}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

@@ -12,6 +12,9 @@ a mesh's `data` and `model` groups:
     on gloo and NCCL (gloo has no reduce-scatter). Where every rank of the
     group computes the same thing with the gathered weight (`partial=False`),
     each already holds the whole gradient and the backward only slices.
+  * `gather_blocks` -- `gather` over `model` for an activation cut there
+    in contiguous blocks: a Mamba2 block's projection and conv output
+    (`models.ssm.SSMLayout`).
   * `to_model` -- forward: identity; backward: all-reduce over `model`. A
     replicated activation (or weight) entering a computation split over
     `model`, each rank's gradient a part of the sum.
@@ -53,10 +56,10 @@ import torch.distributed as dist
 from .partitioning import dim_axes, spec_for
 
 # The families each kind of mesh step covers: training (ROADMAP A8e-1) and
-# serving, prefill and decode (moe: A8e-2a); the others wait for ROADMAP
-# A8e-2.
-MESH_FAMILIES = ("dense", "vlm", "moe")
-MESH_SERVE_FAMILIES = ("dense", "vlm", "moe")
+# serving, prefill and decode (moe: A8e-2a; ssm and hybrid: A8e-2b); encdec
+# waits for ROADMAP A8e-2.
+MESH_FAMILIES = ("dense", "vlm", "moe", "ssm", "hybrid")
+MESH_SERVE_FAMILIES = ("dense", "vlm", "moe", "ssm", "hybrid")
 STEP_KINDS = ("train", "prefill", "decode")
 
 
@@ -144,7 +147,11 @@ class MeshContext:
     the block: "moe/w_gate", "moe/w_up" (E, D, F), "moe/w_down" (E, F, D)
     and "moe/router" (D, E) under `_MOE_RULES`, the shared expert's
     "shared/w_gate", "shared/w_up" (D, n_shared F), "shared/w_down" under
-    the dense rules; "w_gate" is the dense FFN's."""
+    the dense rules; "w_gate" is the dense FFN's. A Mamba2 block's are
+    "ssm/in_proj" (D, 2 di + 2 G N + H), "ssm/out_proj" (di, D),
+    "ssm/conv_w" (K, di + 2 G N), "ssm/conv_b", "ssm/A_log", "ssm/D" (the
+    skip, (H,)), "ssm/dt_bias" and "ssm/norm_w" (di,); zamba2's shared
+    attention block's are the dense ones."""
 
     def __init__(self, mesh, cfg, global_batch: int | None = None):
         self.mesh = mesh
@@ -168,6 +175,14 @@ class MeshContext:
                 shapes["moe/" + name], paths["moe/" + name] = shape, ["moe", name]
             for name, shape in (("w_gate", (D, Fs)), ("w_up", (D, Fs)), ("w_down", (Fs, D))):
                 shapes["shared/" + name], paths["shared/" + name] = shape, ["moe", "shared", name]
+        if cfg.family in ("ssm", "hybrid"):
+            di = cfg.ssm_expand * D
+            Hs, gn = di // cfg.ssm_head_dim, cfg.ssm_groups * cfg.ssm_state
+            ch = di + 2 * gn
+            for name, shape in (("in_proj", (D, 2 * di + 2 * gn + Hs)), ("out_proj", (di, D)),
+                                ("conv_w", (cfg.ssm_conv, ch)), ("conv_b", (ch,)), ("A_log", (Hs,)),
+                                ("D", (Hs,)), ("dt_bias", (Hs,)), ("norm_w", (di,))):
+                shapes["ssm/" + name], paths["ssm/" + name] = shape, ["ssm", name]
         # Each dim's axes in the stored spec of every weight the step gathers.
         self._axes = {name: dim_axes(spec_for(paths[name], shape, mesh), len(shape), mesh)
                       for name, shape in shapes.items()}
@@ -201,6 +216,13 @@ class MeshContext:
 
     def to_model(self, x: torch.Tensor) -> torch.Tensor:
         return _ToModel.apply(x, self)
+
+    def gather_blocks(self, x: torch.Tensor, dim: int, partial: bool) -> torch.Tensor:
+        """Every `model` rank's block `x` of an activation concatenated
+        along `dim`, in rank order; backward: this rank's slice of the
+        gradient, summed over `model` first when `partial` (every `model`
+        rank uses a part of the whole)."""
+        return _Gather.apply(x, dim, self, "model", partial)
 
     def from_model(self, x: torch.Tensor) -> torch.Tensor:
         return _FromModel.apply(x, self)

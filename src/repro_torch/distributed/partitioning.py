@@ -28,7 +28,7 @@ is split at '/' and its last part is the leaf's name.
 rebuilds the full tensor from every rank's block (a collective: every rank
 of the mesh calls it). Both take the spec as the rules give it, fitted to
 the full tensor's shape. `shard_caches` and `gather_caches` do so for the
-decode caches (`KVCache`, `BangKVCache`) by `cache_pspecs`.
+decode caches (`KVCache`, `BangKVCache`, `SSMCache`) by `cache_pspecs`.
 """
 from __future__ import annotations
 
@@ -279,25 +279,40 @@ def gather_tree(tree: Any, specs: Any, mesh) -> Any:
 
 def shard_caches(caches: Any, mesh, *, batch_divisible: bool) -> Any:
     """This rank's blocks of full decode caches by `cache_pspecs`: K, V and
-    codes cut over the sequence on `model` where it divides, over the batch
-    on the data axes where `batch_divisible` (and it divides); `index`
-    whole."""
+    codes cut over the sequence on `model` where it divides, an SSM cache's
+    conv window over its channels and its state over its heads, each over
+    the batch on the data axes where `batch_divisible` (and it divides);
+    `index` whole."""
     return shard_tree(caches, cache_pspecs(caches, mesh, batch_divisible=batch_divisible), mesh)
 
 
-def gather_caches(blocks: Any, mesh, *, s_max: int, batch_divisible: bool) -> Any:
+def gather_caches(blocks: Any, mesh, *, s_max: int, batch_divisible: bool, cfg=None) -> Any:
     """The full caches of `s_max` positions from every rank's blocks
     (`shard_caches`' inverse; a collective). The specs are those of the full
-    shapes: a block's length does not say whether the sequence was cut."""
+    shapes: a block's length does not say whether the sequence was cut, nor
+    an SSM cache's block whether its channels (`conv`) or heads (`state`)
+    were: those take the config `cfg`."""
     dp = 1
     for a in DP_AXES:
         dp *= _axis_size(mesh, a)
 
     def full(path, t):
-        if t.dim() != 5:
+        name = _names(path)[-1] if path else ""
+        shape = list(t.shape)
+        if name in ("conv", "state"):               # (L, B, K-1, ch), (L, B, H, P, N)
+            if cfg is None:
+                raise ValueError("gathering an SSM cache needs the config's widths (cfg=)")
+            di = cfg.ssm_expand * cfg.d_model
+            if name == "conv":
+                shape[3] = di + 2 * cfg.ssm_groups * cfg.ssm_state
+            else:
+                shape[2] = di // cfg.ssm_head_dim
+        elif t.dim() == 5:
+            shape[2] = s_max
+        else:
             return t
-        B = t.shape[1] * (dp if batch_divisible else 1)
-        return torch.empty((t.shape[0], B, s_max, *t.shape[3:]), dtype=t.dtype, device="meta")
+        shape[1] *= dp if batch_divisible else 1
+        return torch.empty(shape, dtype=t.dtype, device="meta")
 
     specs = cache_pspecs(map_with_path(full, blocks), mesh, batch_divisible=batch_divisible)
     return gather_tree(blocks, specs, mesh)

@@ -6,9 +6,10 @@ The port of the reference package's `launch/specs.py`. `batch_specs`,
 shapes and dtypes, no storage -- the counterpart of the reference's
 `ShapeDtypeStruct`s. `step_and_specs` binds the step of a cell and its
 placements on a mesh: the training step (ROADMAP A8e-1) and the prefill
-and decode steps, for the dense, vlm and moe families (moe: its experts
-over `model`, `_MOE_RULES`, ROADMAP A8e-2a); ssm, hybrid and encdec wait
-for ROADMAP A8e-2 on a mesh of more than one rank.
+and decode steps, for the dense, vlm, moe, ssm and hybrid families (moe:
+its experts over `model`, `_MOE_RULES`, ROADMAP A8e-2a; ssm and hybrid:
+the Mamba2 block's widths over `model`, A8e-2b); encdec waits for ROADMAP
+A8e-2c on a mesh of more than one rank.
 
 The training step holds this rank's blocks of the parameters and of
 AdamW's master copies and moments, and this rank's slice of the batch, and
@@ -49,10 +50,13 @@ over `data` where it divides)::
 The logits are this rank's requests' (B / data ranks, 1, V), the whole
 vocabulary gathered over `model`. The decode step's caches hold
 `decode_shape.seq_len` positions in all, and it decodes with BANG-KV
-where `uses_bangkv` (long_500k) -- with the hierarchical top-L when the
-config asks for it (`opt_hier_topk`). An MoE layer's capacity and slots
-are the global batch's: each step's `MeshContext` knows from the shape's
-global batch whether the batch is cut over `data`.
+where `uses_bangkv` (long_500k: zamba2's shared-block caches too, not
+mamba2, which has none) -- with the hierarchical top-L when the config
+asks for it (`opt_hier_topk`). An MoE layer's capacity and slots are the
+global batch's: each step's `MeshContext` knows from the shape's global
+batch whether the batch is cut over `data` (long_500k's one request is
+replicated over the data ranks). An SSM layer's caches are this rank's
+channels of the conv window and heads of the state.
 """
 from __future__ import annotations
 
@@ -211,9 +215,9 @@ def step_and_specs(cfg: ModelConfig, shape: ShapeSpec, mesh) -> tuple[Callable, 
     (params, caches filled to seq_len - 1, tokens (B, 1)), and their specs
     (`cache_pspecs`; the tokens over the data axes where the batch divides
     them). The rules run on a shape-only `AbstractMesh` too; the step runs
-    on a runnable `Mesh` only. The dense, vlm and moe families run on any
-    mesh; ssm, hybrid and encdec on a mesh of more than one rank raise
-    (ROADMAP A8e-2)."""
+    on a runnable `Mesh` only. The dense, vlm, moe, ssm and hybrid families
+    run on any mesh; encdec on a mesh of more than one rank raises (ROADMAP
+    A8e-2c)."""
     check_mesh_family(cfg, mesh, shape.kind)
     p_specs = param_specs(cfg)
     p_place = param_pspecs(p_specs, mesh)

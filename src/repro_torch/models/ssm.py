@@ -17,6 +17,10 @@ in sequence from tap 0 (a bf16-by-float32 product a tap), the decode conv
 is one contraction over the taps, and the gated norm runs on `y` cast to
 the model's dtype.
 
+On a mesh the block's widths are cut over `model` (`SSMLayout`): the
+projection and the conv output are all-gathered, the SSD runs on this
+rank's heads, the gate, the gated norm and out_proj on its block of di.
+
 The conv cache: prefill rounds the window's last K-1 projections through
 bf16 (the reference stores them as bf16), and the reference's decode
 concatenates that window with the new projection in the model's dtype, so a
@@ -32,7 +36,7 @@ from typing import NamedTuple
 import torch
 import torch.nn.functional as F
 
-from .layers import rmsnorm, truncated_normal_init
+from .layers import truncated_normal_init
 
 
 class SSMCache(NamedTuple):
@@ -64,11 +68,6 @@ def ssm_params(generator: torch.Generator, d_model: int, *, expand: int, state: 
         "norm_w": torch.zeros((di,), **f32),
         "out_proj": truncated_normal_init((di, d_model), generator, dtype=dtype),
     }
-
-
-def _split_proj(p, x: torch.Tensor, di: int, gn: int):
-    proj = x @ p["in_proj"]
-    return proj[..., :di], proj[..., di: 2 * di + 2 * gn], proj[..., 2 * di + 2 * gn:]
 
 
 def _silu(x: torch.Tensor) -> torch.Tensor:
@@ -209,6 +208,124 @@ def ssd_chunked(
     return y.reshape(B_, S, H, P), final_state
 
 
+class SSMLayout:
+    """This rank's share of a Mamba2 block: the blocks of the four widths
+    the rules cut over `model` -- in_proj's columns [z | x | B | C | dt],
+    the conv channels [x | B | C], the heads and di -- each this rank's
+    contiguous block where it divides the `model` ranks and whole where it
+    does not, independently (`partitioning.spec_for`). With no mesh every
+    width is whole and no collective runs.
+
+    The reference writes the block with `constrain` hints on `proj` and on
+    `out_proj`, and GSPMD re-lays out everything between; here the re-layout
+    is written out, each computation split over `model` where its weights
+    are cut and repeated on every `model` rank where they are whole:
+
+      * in_proj: x times this rank's column block, all-gathered over
+        `model` (the blocks straddle the segments), or the whole product;
+      * the depthwise conv on this rank's channel block, all-gathered;
+      * the SSD on this rank's heads, with every group their B and C read;
+      * the gate and the gated RMSNorm on this rank's block of di, the mean
+        of y^2 a sum over `model` (ROADMAP C18), and the row-parallel
+        out_proj, its partial sums all-reduced over `model`.
+
+    Every activation whole on the `model` ranks carries its whole gradient
+    there: it passes `to_model` where a split computation takes it, and a
+    gather's backward sums over `model` where every part of its output
+    feeds a split computation (`partial`). ROADMAP C21."""
+
+    def __init__(self, mesh, d_model: int, *, expand: int, state: int, head_dim: int, groups: int):
+        self.mesh = mesh
+        self.di = expand * d_model
+        self.H = self.di // head_dim
+        self.gn = groups * state
+        self.conv_ch = self.di + 2 * self.gn
+
+        cut = lambda name, dim: mesh is not None and mesh.model_sharded(name, dim)   # noqa: E731
+        self.cut_in = cut("ssm/in_proj", 1)       # in_proj's columns
+        self.cut_conv = cut("ssm/conv_w", 1)      # the conv channels
+        self.cut_h = cut("ssm/A_log", 0)          # the heads
+        self.cut_di = cut("ssm/out_proj", 0)      # di
+
+        def block(n: int, is_cut: bool) -> tuple[int, int]:
+            """(first, count) of this rank's block of a width of n."""
+            return (mesh.model_index * n // mesh.n_model, n // mesh.n_model) if is_cut else (0, n)
+
+        self.c0, self.cl = block(self.conv_ch, self.cut_conv)
+        self.h0, self.hl = block(self.H, self.cut_h)
+        self.r0, self.rl = block(self.di, self.cut_di)
+
+    def proj(self, p, x: torch.Tensor):
+        """(z, xbc, dt) of x @ in_proj, each whole; z, xbc and dt carry
+        their whole gradient where the gate, the conv and the SSD take a
+        block of them."""
+        mc = self.mesh
+        split = (self.cut_di, self.cut_conv, self.cut_h)   # the gate, the conv, the SSD
+        partial = self.cut_in and all(split)
+        if mc is None:
+            proj = x @ p["in_proj"]
+        elif self.cut_in:
+            blk = mc.to_model(x) @ mc.weight(p["in_proj"], "ssm/in_proj", "shard")
+            proj = mc.gather_blocks(blk, -1, partial)
+        else:
+            proj = x @ mc.weight(p["in_proj"], "ssm/in_proj", "shard")
+        di, ch = self.di, self.conv_ch
+        segs = (proj[..., :di], proj[..., di:di + ch], proj[..., di + ch:])
+        if mc is not None and not partial:
+            segs = tuple(mc.to_model(t) if cut else t for t, cut in zip(segs, split))
+        return segs
+
+    def conv_out(self, xc: torch.Tensor) -> torch.Tensor:
+        """Every channel of the conv's output from this rank's block."""
+        mc = self.mesh
+        if mc is None:
+            return xc
+        if self.cut_conv:
+            return mc.gather_blocks(xc, -1, self.cut_h)
+        return mc.to_model(xc) if self.cut_h else xc
+
+    def groups(self, t: torch.Tensor) -> torch.Tensor:
+        """The groups (B, S, G', N) of t (B, S, G, N) that this rank's heads
+        read, H/M heads to each (repeated to one a head where the heads'
+        block does not meet the groups' bounds)."""
+        rep = self.H // t.shape[2]
+        h0, hl = self.h0, self.hl
+        if hl == self.H:
+            return t
+        if hl % rep == 0:
+            return t[:, :, h0 // rep:(h0 + hl) // rep]
+        if rep % hl == 0:
+            return t[:, :, h0 // rep:h0 // rep + 1]
+        return t.repeat_interleave(rep, dim=2)[:, :, h0:h0 + hl]
+
+    def own_rows(self, y: torch.Tensor) -> torch.Tensor:
+        """This rank's block of di of the SSD's output: the heads' block
+        itself, or a block of every head's output."""
+        if self.mesh is None or self.cut_h or not self.cut_di:
+            return y
+        return self.mesh.to_model(y)[..., self.r0:self.r0 + self.rl]
+
+    def gated_norm(self, y: torch.Tensor, w: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+        """`layers.rmsnorm` over all of di, its mean written out as the sum
+        of y^2 divided by di. Where di is cut the sum is this rank's
+        block's, all-reduced over `model` forward and backward: every
+        rank's rows take a part of its gradient."""
+        yf = y.float()
+        s = (yf * yf).sum(dim=-1, keepdim=True)
+        if self.mesh is not None and self.cut_di:
+            s = self.mesh.to_model(self.mesh.from_model(s))
+        normed = yf * torch.rsqrt(s / self.di + eps)
+        return (normed * (1.0 + w.float())).to(y.dtype)
+
+    def out(self, p, y: torch.Tensor) -> torch.Tensor:
+        """y @ out_proj: this rank's rows, summed over `model` where di is cut."""
+        mc = self.mesh
+        if mc is None:
+            return y @ p["out_proj"]
+        o = y @ mc.weight(p["out_proj"], "ssm/out_proj", "shard")
+        return mc.from_model(o) if self.cut_di else o
+
+
 def ssm_block(
     p,
     x: torch.Tensor,                  # (B, S, D)
@@ -222,18 +339,24 @@ def ssm_block(
     cache: SSMCache | None = None,
     return_cache: bool = False,
     train: bool = False,
+    mesh=None,
 ) -> tuple[torch.Tensor, SSMCache | None]:
     """Full Mamba2 block: in_proj -> conv -> SSD -> gated norm -> out_proj.
 
     cache=None -> prefill (with `return_cache`, the decode cache of the
     prompt; with `train`, the SSD out of place, for autograd); else one
     decode step (S = 1), which writes the new conv window and state into
-    `cache` in place and returns it."""
+    `cache` in place and returns it. With `mesh` (a `MeshContext`), `p`
+    holds this rank's blocks and the caches are this rank's blocks, its
+    channels of the conv window and its heads of the state (`SSMLayout`);
+    conv_w, conv_b, A_log, D, dt_bias and norm_w are cut over `model` alone,
+    so the stored tensor is the block each is used as."""
     B_, S, D = x.shape
-    di = expand * D
-    H = di // head_dim
-    gn = groups * state
-    z, xbc, dt_raw = _split_proj(p, x, di, gn)
+    lay = SSMLayout(mesh, D, expand=expand, state=state, head_dim=head_dim, groups=groups)
+    di, gn, P = lay.di, lay.gn, head_dim
+    z, xbc, dt_raw = lay.proj(p, x)
+    z = z[..., lay.r0:lay.r0 + lay.rl]
+    xbc = xbc[..., lay.c0:lay.c0 + lay.cl]                      # this rank's channels
     K = p["conv_w"].shape[0]
     new_cache = None
 
@@ -245,11 +368,13 @@ def ssm_block(
         out = torch.einsum("bkc,kc->bc", window.float(), p["conv_w"])
         xbc = _silu(out + p["conv_b"])[:, None, :].to(x.dtype)
         cache.conv.copy_(window[:, 1:])
+    xbc = lay.conv_out(xbc)
 
-    xs = xbc[..., :di].float().reshape(B_, S, H, head_dim)
-    Bm = xbc[..., di: di + gn].float().reshape(B_, S, groups, state)
-    Cm = xbc[..., di + gn:].float().reshape(B_, S, groups, state)
-    dt = F.softplus(dt_raw.float() + p["dt_bias"])
+    h0, hl = lay.h0, lay.hl                                     # this rank's heads
+    xs = xbc[..., h0 * P:(h0 + hl) * P].float().reshape(B_, S, hl, P)
+    Bm = lay.groups(xbc[..., di: di + gn].float().reshape(B_, S, groups, state))
+    Cm = lay.groups(xbc[..., di + gn:].float().reshape(B_, S, groups, state))
+    dt = F.softplus(dt_raw[..., h0:h0 + hl].float() + p["dt_bias"])
     A = -torch.exp(p["A_log"])
 
     if cache is None:
@@ -260,7 +385,7 @@ def ssm_block(
             new_cache = SSMCache(tail, final_state)
     else:
         # O(1) recurrent step: state = exp(dt A) state + dt B x^T ; y = C.state
-        rep = H // groups
+        rep = hl // Bm.shape[2]
         Bh = Bm[:, 0].repeat_interleave(rep, dim=1)             # (B, H, N)
         Ch = Cm[:, 0].repeat_interleave(rep, dim=1)
         dt0 = dt[:, 0]
@@ -271,23 +396,24 @@ def ssm_block(
         new_cache = cache
 
     y = y + p["D"][:, None] * xs
-    y = y.reshape(B_, S, di)
+    y = lay.own_rows(y.reshape(B_, S, hl * P))
     y = y * _silu(z.float())
-    y = rmsnorm(y.to(x.dtype), p["norm_w"])
-    return y @ p["out_proj"], new_cache
+    y = lay.gated_norm(y.to(x.dtype), p["norm_w"])
+    return lay.out(p, y), new_cache
 
 
 def ssm_cache_init(batch: int, *, expand: int, d_model: int, state: int, conv: int,
                    head_dim: int, groups: int, dtype=torch.bfloat16, device=None,
-                   layers: int | None = None) -> SSMCache:
+                   layers: int | None = None, mesh=None) -> SSMCache:
     """Zero caches, stacked over `layers` when given; the conv window in
-    `conv_cache_dtype(dtype)` (bf16 for a bf16 model, as the reference's)."""
-    di = expand * d_model
-    H = di // head_dim
-    conv_ch = di + 2 * groups * state
+    `conv_cache_dtype(dtype)` (bf16 for a bf16 model, as the reference's).
+    With `mesh`: this rank's channels of the window and heads of the state
+    (`SSMLayout`, as `partitioning.cache_pspecs` cuts them)."""
+    lay = SSMLayout(mesh, d_model, expand=expand, state=state, head_dim=head_dim, groups=groups)
     lead = () if layers is None else (layers,)
     return SSMCache(
-        conv=torch.zeros((*lead, batch, conv - 1, conv_ch), dtype=conv_cache_dtype(dtype),
+        conv=torch.zeros((*lead, batch, conv - 1, lay.cl), dtype=conv_cache_dtype(dtype),
                          device=device),
-        state=torch.zeros((*lead, batch, H, head_dim, state), dtype=torch.float32, device=device),
+        state=torch.zeros((*lead, batch, lay.hl, head_dim, state), dtype=torch.float32,
+                          device=device),
     )

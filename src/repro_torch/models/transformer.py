@@ -23,24 +23,29 @@ zamba2's shared attention block and whisper's encoder are not
 rematerialised, as the reference's are not.
 
 On a mesh (`lm_loss(..., mesh=)`, a `distributed.collectives.MeshContext`:
-the mesh training step of `launch.specs`), the dense, vlm and moe families
-hold this rank's blocks of the parameters and its slice of the batch; the
-embedding, each layer's attention and FFN, and the cross-entropy gather
-their weights at their use and run Megatron TP over `model`
-(`models.attention.HeadPlan`, `ffn.swiglu`, `layers.embed`,
+the mesh training step of `launch.specs`), the dense, vlm, moe, ssm and
+hybrid families hold this rank's blocks of the parameters and its slice
+of the batch; the embedding, each layer's attention and FFN, and the
+cross-entropy gather their weights at their use and run Megatron TP over
+`model` (`models.attention.HeadPlan`, `ffn.swiglu`, `layers.embed`,
 `layers.unembed_chunked`); an MoE layer runs its experts in parallel over
 `model` and routes on the global batch (`moe.moe_block`), so the loss's
-load_balance, router_z and dropped_frac are the global batch's. Under
-remat the gathers run inside the rematerialised layer body, so a gathered
-weight is gathered again in backward and never held across layers. The
-other families raise on a mesh of more than one rank (ROADMAP A8e-2).
+load_balance, router_z and dropped_frac are the global batch's; a Mamba2
+layer cuts its projection's columns, conv channels, heads and di over
+`model` (`ssm.SSMLayout`); zamba2's shared attention block gathers its
+weights at each of its calls. Under remat the gathers run inside the
+rematerialised layer body, so a gathered weight is gathered again in
+backward and never held across layers. encdec raises on a mesh of more
+than one rank (ROADMAP A8e-2c).
 
 Serving on a mesh (`LM.prefill`, `LM.decode_step` and
 `LM.init_decode_caches` with `mesh=`, the prefill and decode steps of
-`launch.specs`; dense, vlm and moe) takes the same blocks of the parameters and
-this rank's slice of the batch. The decode caches are this rank's blocks
-in the `cache_pspecs` layout: the batch over `data` where it divides, the
-sequence over `model` where `s_max` divides (`collectives.SeqBlock`).
+`launch.specs`; every family but encdec) takes the same blocks of the
+parameters and this rank's slice of the batch. The decode caches are this
+rank's blocks in the `cache_pspecs` layout: the batch over `data` where it
+divides, the sequence over `model` where `s_max` divides
+(`collectives.SeqBlock`), an SSM layer's conv window over its channels and
+its state over its heads.
 Prefill runs the training stack's forward and writes this rank's block of
 the sequence of every KV head; a decode step attends over the sequence
 cut across `model` (`attention.decode_attention`,
@@ -272,9 +277,10 @@ def _dense_layer(cfg: ModelConfig, p, h, window, theta, cache, mode: str, codebo
     return h + y, new_cache, aux
 
 
-def _ssm_layer(cfg: ModelConfig, p, h, cache, mode: str):
+def _ssm_layer(cfg: ModelConfig, p, h, cache, mode: str, mesh=None):
     """One Mamba2 layer. Returns (h, cache): prefill's new cache, the decode
-    step's `cache`, updated in place, or None in training."""
+    step's `cache`, updated in place, or None in training. `mesh`: the
+    layer on a mesh (`ssm.SSMLayout`), its caches this rank's blocks."""
     x = norm(h, p["norm"], cfg.norm_kind, cfg.norm_eps)
     y, new_cache = ssm_block(
         p["ssm"], x,
@@ -282,7 +288,7 @@ def _ssm_layer(cfg: ModelConfig, p, h, cache, mode: str):
         head_dim=cfg.ssm_head_dim, groups=cfg.ssm_groups,
         chunk=_pick_chunk(x.shape[1], cfg.ssm_chunk),
         cache=cache if mode.startswith("decode") else None,
-        return_cache=(mode == "prefill"), train=(mode == "train"),
+        return_cache=(mode == "prefill"), train=(mode == "train"), mesh=mesh,
     )
     return h + y, new_cache
 
@@ -320,64 +326,88 @@ def _kv_buffers(n: int, B: int, s_max: int, S: int, cfg: ModelConfig, like: torc
 
 
 def _ssm_layers(cfg: ModelConfig, layers, h, mode: str, caches: SSMCache | None,
-                out: SSMCache | None, lo: int, hi: int):
+                out: SSMCache | None, lo: int, hi: int, mesh=None):
     """SSM layers lo..hi-1: decode updates `caches` in place; prefill writes
     each layer's new cache into the stacked `out`; training keeps none and
-    rematerialises each layer with `cfg.remat`."""
+    rematerialises each layer with `cfg.remat` (on a mesh the recompute
+    issues the layer's collectives again)."""
     if mode == "train":
         for i in range(lo, hi):
-            h = _call(_remat(cfg, mode), lambda h, p=layers[i]: _ssm_layer(cfg, p, h, None, mode)[0], h)
+            h = _call(_remat(cfg, mode),
+                      lambda h, p=layers[i]: _ssm_layer(cfg, p, h, None, mode, mesh)[0], h)
         return h
     for i in range(lo, hi):
         h, c_i = _ssm_layer(cfg, layers[i], h, _layer(caches, i) if caches is not None else None,
-                            mode)
+                            mode, mesh)
         if out is not None:
             out.conv[i], out.state[i] = c_i
     return h
 
 
-def _ssm_prefill_buffers(cfg: ModelConfig, h: torch.Tensor) -> SSMCache:
+def _ssm_prefill_buffers(cfg: ModelConfig, h: torch.Tensor, mesh=None) -> SSMCache:
     return ssm_cache_init(h.shape[0], expand=cfg.ssm_expand, d_model=cfg.d_model,
                           state=cfg.ssm_state, conv=cfg.ssm_conv, head_dim=cfg.ssm_head_dim,
                           groups=cfg.ssm_groups, dtype=h.dtype, device=h.device,
-                          layers=cfg.n_layers)
+                          layers=cfg.n_layers, mesh=mesh)
 
 
-def _hybrid_stack(cfg: ModelConfig, params, h, *, mode: str, caches, s_max: int | None):
+def _ssm_stack(cfg: ModelConfig, params, h, mode: str, caches, mesh=None):
+    """Mamba2's prefill and decode: (h, aux, caches)."""
+    decode = mode != "prefill"
+    out = None if decode else _ssm_prefill_buffers(cfg, h, mesh)
+    h = _ssm_layers(cfg, params["layers"], h, mode, caches if decode else None, out,
+                    0, cfg.n_layers, mesh)
+    return h, _zero_aux(h.device), caches if decode else out
+
+
+def _hybrid_stack(cfg: ModelConfig, params, h, *, mode: str, caches, s_max: int | None,
+                  mesh=None, seq=None):
     """Zamba2: groups of `hybrid_attn_every` Mamba2 layers, each followed by
     the one shared attention block (the same weights, a cache of its own
     per call, window s_ref + 1, the config's RoPE base).
 
     caches = (SSM caches (L, ...), attention caches (n_groups, ...)); none
     in training, where the SSM layers are rematerialised and the shared
-    block is not (as the reference's `_hybrid_stack`)."""
+    block is not (as the reference's `_hybrid_stack`). On a mesh (`mesh`,
+    and in serving `seq`, the attention caches' block of `s_max`
+    positions): the shared block's weights are gathered at each of its
+    calls (their gradients add up over the calls) and the caches are this
+    rank's blocks."""
     every = cfg.hybrid_attn_every
     n_groups = cfg.n_layers // every
     B, S, _ = h.shape
     aux = _zero_aux(h.device)
     if mode == "train":
         for g in range(n_groups):
-            h = _ssm_layers(cfg, params["layers"], h, mode, None, None, g * every, (g + 1) * every)
+            h = _ssm_layers(cfg, params["layers"], h, mode, None, None, g * every, (g + 1) * every,
+                            mesh)
             h, _, aux_g = _dense_layer(cfg, params["shared_attn"], h, S + 1, cfg.rope_theta, None,
-                                       mode)
+                                       mode, mesh=mesh)
             aux = _add_aux(aux, aux_g)
         return h, aux, None
     decode = mode != "prefill"
     if decode:
         ssm_c, attn_c = caches
-        s_ref, ssm_out = attn_c.k.shape[2], None
+        s_ref, ssm_out = attn_c.k.shape[2] if seq is None else s_max, None
     else:
         ssm_c, attn_c, s_ref = None, None, S
-        ssm_out = _ssm_prefill_buffers(cfg, h)
-        k_all, v_all = _kv_buffers(n_groups, B, S if s_max is None else s_max, S, cfg, h)
+        ssm_out = _ssm_prefill_buffers(cfg, h, mesh)
+        if seq is None:
+            k_all, v_all = _kv_buffers(n_groups, B, S if s_max is None else s_max, S, cfg, h)
+            lo, n = 0, S
+        else:   # this rank's block of the sequence, the prompt's positions in it
+            k_all, v_all = _kv_buffers(n_groups, B, seq.length, 0, cfg, h)
+            lo, n = seq.lo, min(seq.lo + seq.length, S) - seq.lo
     for g in range(n_groups):
-        h = _ssm_layers(cfg, params["layers"], h, mode, ssm_c, ssm_out, g * every, (g + 1) * every)
+        h = _ssm_layers(cfg, params["layers"], h, mode, ssm_c, ssm_out, g * every, (g + 1) * every,
+                        mesh)
         cb = params["bangkv_codebooks"][g] if mode == "decode_bangkv" else None
         h, a_new, aux_g = _dense_layer(cfg, params["shared_attn"], h, s_ref + 1, cfg.rope_theta,
-                                       _layer(attn_c, g) if decode else None, mode, codebooks=cb)
+                                       _layer(attn_c, g) if decode else None, mode, codebooks=cb,
+                                       mesh=mesh, seq=seq if decode else None)
         aux = _add_aux(aux, aux_g)
-        if not decode:
-            k_all[g, :, :S], v_all[g, :, :S] = a_new
+        if not decode and n > 0:
+            k_all[g, :, :n], v_all[g, :, :n] = (t[:, lo:lo + n] for t in a_new)
     if decode:
         return h, aux, (ssm_c, attn_c._replace(index=attn_c.index + 1))
     index = torch.full((n_groups,), S, dtype=torch.int32, device=h.device)
@@ -395,8 +425,9 @@ def decoder_stack(cfg: ModelConfig, params, h: torch.Tensor, *, mode: str, cache
     conv window and final state. "decode" / "decode_bangkv": `caches` are
     updated in place. Whisper's decoder takes `cross_mem` = (cross_k,
     cross_v) (L, B, M, Hkv, hd). `mesh` (a `MeshContext`): this rank's part
-    of a dense, vlm or moe stack on a mesh; in decode, `s_max` is then the
-    caches' full length (their block's times the `model` ranks when None)."""
+    of a stack on a mesh (every family but encdec); in decode, `s_max` is
+    then the attention caches' full length (their block's times the
+    `model` ranks when None)."""
     check_family(cfg)
     if mode not in MODES:
         raise ValueError(f"mode {mode!r} is not one of {MODES}")
@@ -405,15 +436,12 @@ def decoder_stack(cfg: ModelConfig, params, h: torch.Tensor, *, mode: str, cache
     mesh = _mesh_for(cfg, mesh, "prefill" if mode == "prefill" else "decode")
     if mesh is not None:
         return _mesh_serve_stack(cfg, params, h, mode=mode, caches=caches, s_max=s_max, mesh=mesh)
-    decode = mode != "prefill"
     if cfg.family == "ssm":
-        out = None if decode else _ssm_prefill_buffers(cfg, h)
-        h = _ssm_layers(cfg, params["layers"], h, mode, caches if decode else None, out,
-                        0, cfg.n_layers)
-        return h, _zero_aux(h.device), caches if decode else out
+        return _ssm_stack(cfg, params, h, mode, caches)
     if cfg.family == "hybrid":
         return _hybrid_stack(cfg, params, h, mode=mode, caches=caches, s_max=s_max)
 
+    decode = mode != "prefill"
     B, S, _ = h.shape
     s_ref = caches.k.shape[2] if decode else S
     wins, thetas = static_layer_flags(cfg, s_ref)
@@ -447,26 +475,33 @@ def _mesh_for(cfg: ModelConfig, mesh, kind: str = "train"):
 
 def _mesh_serve_stack(cfg: ModelConfig, params, h: torch.Tensor, *, mode: str, caches, s_max,
                       mesh):
-    """decoder_stack's prefill and decode on a mesh (dense, vlm, moe): h is
-    this rank's slice of the batch. Prefill makes this rank's blocks of the
-    caches, `s_max` positions in all (the prompt's length when None): its
-    block of the sequence of every KV head. Decode updates them in place."""
+    """decoder_stack's prefill and decode on a mesh: h is this rank's slice
+    of the batch. Prefill makes this rank's blocks of the caches, `s_max`
+    positions in all (the prompt's length when None): its block of the
+    sequence of every KV head, its channels of an SSM layer's conv window
+    and its heads of the state. Decode updates them in place."""
+    if cfg.family == "ssm":
+        return _ssm_stack(cfg, params, h, mode, caches, mesh)
     B, S, _ = h.shape
     L = cfg.n_layers
     decode = mode != "prefill"
+    kv = attention_caches(cfg, caches) if decode else None
     if decode:
-        s_max = caches.k.shape[2] * mesh.n_model if s_max is None else s_max
+        s_max = kv.k.shape[2] * mesh.n_model if s_max is None else s_max
     elif s_max is None:
         s_max = S
     elif s_max < S:
         raise ValueError(f"s_max {s_max} is shorter than the {S} prefilled positions")
     seq = mesh.seq_block(s_max)
+    if decode and kv.k.shape[2] != seq.length:
+        raise ValueError(f"a cache block of {kv.k.shape[2]} positions: {s_max} positions "
+                         f"over {mesh.n_model} model ranks give blocks of {seq.length}")
+    if cfg.family == "hybrid":
+        return _hybrid_stack(cfg, params, h, mode=mode, caches=caches, s_max=s_max, mesh=mesh,
+                             seq=seq)
     wins, thetas = static_layer_flags(cfg, s_max if decode else S)
     aux = _zero_aux(h.device)
     if decode:
-        if caches.k.shape[2] != seq.length:
-            raise ValueError(f"a cache block of {caches.k.shape[2]} positions: {s_max} positions "
-                             f"over {mesh.n_model} model ranks give blocks of {seq.length}")
         for i in range(L):
             cb_i = params["bangkv_codebooks"][i] if mode == "decode_bangkv" else None
             h, _, aux_i = _dense_layer(cfg, params["layers"][i], h, wins[i], thetas[i],
@@ -490,10 +525,10 @@ def _mesh_serve_stack(cfg: ModelConfig, params, h: torch.Tensor, *, mode: str, c
 def _train_stack(cfg: ModelConfig, params, h: torch.Tensor, cross_mem, mesh=None):
     """decoder_stack's training mode: (h, aux summed over layers, None)."""
     if cfg.family == "ssm":
-        h = _ssm_layers(cfg, params["layers"], h, "train", None, None, 0, cfg.n_layers)
+        h = _ssm_layers(cfg, params["layers"], h, "train", None, None, 0, cfg.n_layers, mesh)
         return h, _zero_aux(h.device), None
     if cfg.family == "hybrid":
-        return _hybrid_stack(cfg, params, h, mode="train", caches=None, s_max=None)
+        return _hybrid_stack(cfg, params, h, mode="train", caches=None, s_max=None, mesh=mesh)
     wins, thetas = static_layer_flags(cfg, h.shape[1])
     remat = _remat(cfg, "train", cfg.scan_layers)
     aux = _zero_aux(h.device)
@@ -766,7 +801,7 @@ class LM(nn.Module):
             return ssm_cache_init(batch, expand=cfg.ssm_expand, d_model=cfg.d_model,
                                   state=cfg.ssm_state, conv=cfg.ssm_conv,
                                   head_dim=cfg.ssm_head_dim, groups=cfg.ssm_groups,
-                                  dtype=self.dtype, device=dev, layers=L)
+                                  dtype=self.dtype, device=dev, layers=L, mesh=mesh)
 
         if cfg.family == "ssm":
             return ssm()

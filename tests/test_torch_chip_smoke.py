@@ -532,6 +532,51 @@ def test_chip_smoke_mesh_moe_phase_on_cpu(smoke, monkeypatch):
     assert out["phase_s"] > 0
 
 
+def test_chip_smoke_mesh_ssm_phase_on_cpu(smoke, monkeypatch):
+    """Phase 12 at reduced mamba2 and zamba2 on a one-rank gloo mesh in
+    this process (made and destroyed by the phase): 12a's mesh and plain
+    training steps, losses and parameters bit-equal; 12b's and 12c's mesh
+    prefill and exact-KV steps (and 12c's BANG-KV steps with the
+    hierarchical top-L) bit-equal to the plain path's (logits, tokens,
+    every cache tensor, top-L ids), the collectives counted, no port kernel
+    launched."""
+    import torch.distributed as dist
+
+    import repro_torch.configs as configs
+
+    monkeypatch.setattr(smoke, "lm_config", lambda name, **kw: configs.get(name).reduced(**kw))
+    for name, value in (("TRAIN_SEQ", 32), ("LM_PROMPT", 32), ("LM_DECODE", 4), ("LM_LONG_DECODE", 3),
+                        ("HYBRID_CUT_LAYERS", 4), ("LM_FIT_ITERS", 2)):
+        monkeypatch.setattr(smoke, name, value)
+    out = smoke.mesh_ssm_phase(torch.device("cpu"), "cpu")
+    assert not dist.is_initialized()
+    assert out["mesh"] == {"data": 1, "model": 1} and out["backend"] == "gloo"
+    for key, arch in (("ssm_train", "mamba2-2.7b-reduced"), ("hybrid_train", "zamba2-2.7b-reduced")):
+        train = out[key]
+        assert train["arch"] == arch and train["layers"] == 4 and train["seq_len"] == 32
+        assert train["mesh_step"]["losses"] == train["plain_step"]["losses"]
+        assert len(train["mesh_step"]["losses"]) == smoke.MESH_STEPS
+        assert train["parity"]["bit_equal"] and train["parity"]["param_entries"] > 0
+        counts = train["mesh_step"]["collectives_per_step"]
+        assert counts["all_gather"] > 0 and counts["all_reduce"] > 0
+    for key, arch, bang in (("ssm_serve", "mamba2-2.7b-reduced", 0),
+                            ("hybrid_serve", "zamba2-2.7b-reduced", 3)):
+        run = out[key]
+        assert run["arch"] == arch and run["steps"] == 4 and run["bangkv_steps"] == bang
+        for path in (run["plain"], run["mesh"]):
+            assert len(path["step_ms"]) == 4 and path["prefill_ms"] > 0 and path["memory"] is None
+            assert ("bangkv" in path) == bool(bang)
+        # logits, tokens and every cache field (conv, state; k, v, index),
+        # zamba2's BANG-KV logits, top-L ids and caches (codes too)
+        assert run["tensors_compared"] == (3 + 2 if not bang else 3 + 5 + 2 + 6)
+        for counts in (run["mesh"]["collectives_per_step"], run["mesh"]["prefill_collectives"]):
+            assert counts["all_gather"] > 0 and counts["all_reduce"] > 0
+        assert run["mesh"]["device_profile"] is None and run["mesh_over_plain"] > 0
+    assert out["hybrid_serve"]["mesh"]["bangkv"]["collectives_per_step"]["all_gather"] > 0
+    assert out["kernel_launches"] == dict.fromkeys(smoke.kernel_counters(), 0)
+    assert out["phase_s"] > 0
+
+
 def test_code_gaps_reports_each_differing_code(smoke):
     """Phase 5b's C10 check: one line for each (row, subspace) whose codes
     differ, with both centroids' float64 squared distances and the gap in

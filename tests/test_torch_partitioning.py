@@ -246,6 +246,8 @@ for D, S in ((2, 2), (1, 4)):
             assert block.shape[d] * k == shape[d], (shape, spec, block.shape)
         back = gather_tensor(block, fitted, mesh)
         assert torch.equal(back, x), ((D, S), shape, spec)
+# Every rank past its last collective before any tears its groups down.
+dist.barrier()
 dist.destroy_process_group()
 open(f"{work}/ok.{rank}", "w").write("OK")
 '''

@@ -469,6 +469,8 @@ for variant, hostio in (("sharded", None), ("sharded-base", None), ("sharded-bas
         s = ex.hostio_runtime.stats()
         assert s["prefetch_hits"] > 0 and s["prefetch_misses"] == 0, s
         ex.hostio_runtime.stop()
+# Every rank past its last collective before any tears its groups down.
+dist.barrier()
 dist.destroy_process_group()
 open(f"{work}/ok.{rank}", "w").write("OK")
 '''
