@@ -207,6 +207,26 @@ Phases, each timed; any failure exits non-zero:
      decode and prefill ms against the plain path, collectives a step,
      peak memory. No port kernel lies on this path: the launch counts stay
      0. Its numbers go into the summary line under "mesh_ssm".
+  13. the encdec family on the (1, 1) mesh (`mesh_encdec_phase`), after
+     phase 12: whisper-medium (arXiv:2212.04356) at full width and depth,
+     24 encoder and 24 decoder layers, bf16, its parameters drawn on the
+     card from a seed, the encoder's, the self-attention's and the
+     cross-attention's heads and the FFNs on the one `model` rank, the
+     cross K and V whole there: 13a 3 steps of `step_and_specs`'s train
+     step on 2 x 448 tokens after 1,500 frames (8b's shape without its
+     depth cut), with remat, then 3 plain steps from the same draw, losses
+     within rtol 1e-5 and the bf16 parameters within ROADMAP C15's bound;
+     13b 7g's requests (4 x 1,500 frames, 64-token prompts) prefilled and
+     decoded 32 greedy exact-KV steps, one mesh step profiled; 13c 4
+     requests of 448-token prompts, 4 exact-KV steps, then 16 greedy
+     BANG-KV steps with the hierarchical top-L (its 64 keys reach past the
+     256-token window), the codebooks fitted once on the plain path's
+     keys; each plain then through the mesh prefill and decode steps,
+     logits, tokens, the self caches, the cross K and V and the top-L ids
+     bit-equal; prefill and decode ms against the plain path, collectives
+     a step, peak memory. No port kernel lies on this path: the launch
+     counts stay 0. Its numbers go into the summary line under
+     "mesh_encdec".
 
 Kernel times are taken cold: the timed calls cycle through copies of the
 inputs that together exceed twice the H100's 50 MB L2. Bounds count the bytes the function needs for this run's
@@ -3524,14 +3544,18 @@ def recorded_drops(run):
         transformer.moe_block = block
 
 
-def mesh_train(dev, card: str, mesh, label: str, tag: str, name: str, layers: int) -> dict:
-    """11a, 12a: `name` at full width cut to `layers` layers, bf16 with
-    remat, MESH_STEPS steps of `step_and_specs`'s train step on TRAIN_BATCH
-    x TRAIN_SEQ tokens, then MESH_STEPS plain steps from the same draw (the
-    two states do not fit the card together): losses within rtol 1e-5, the
-    bf16 parameters within C15's bound (an MoE dispatch's backward sums
-    with atomics, C17), compared on the card one tensor at a time from host
-    copies. `tag` heads its log line."""
+def mesh_train(dev, card: str, mesh, label: str, tag: str, name: str, layers: int | None,
+               seq: int | None = None, profile: bool = False) -> dict:
+    """11a, 12a, 13a: `name` at full width cut to `layers` layers (its full
+    depth when None), bf16 with remat, MESH_STEPS steps of
+    `step_and_specs`'s train step on TRAIN_BATCH x `seq` tokens (TRAIN_SEQ
+    when None; whisper's with its `frontend_len` seeded frames), then
+    MESH_STEPS plain steps from the same draw (the two states do not fit
+    the card together): losses within rtol 1e-5, the bf16 parameters
+    within C15's bound (an MoE dispatch's backward sums with atomics,
+    C17), compared on the card one tensor at a time from host copies.
+    With `profile`, one more step of each, after the comparison's copies,
+    is profiled on the device alone. `tag` heads its log line."""
     import torch
     import torch.distributed as dist
 
@@ -3544,10 +3568,11 @@ def mesh_train(dev, card: str, mesh, label: str, tag: str, name: str, layers: in
     from repro_torch.tree import flat_dict
 
     full_depth = lm_config(name).n_layers
-    cfg = lm_config(name, n_layers=layers)
-    seq = TRAIN_SEQ
+    cfg = lm_config(name) if layers is None else lm_config(name, n_layers=layers)
+    seq = TRAIN_SEQ if seq is None else seq
     free_device(dev)
-    stream = TokenStream(cfg.vocab_size, seq, TRAIN_BATCH, seed=SEED)
+    frames = (cfg.frontend_len, cfg.d_model) if cfg.frontend == "audio_stub" else None
+    stream = TokenStream(cfg.vocab_size, seq, TRAIN_BATCH, seed=SEED, frontend=frames)
     batches = [{k: torch.from_numpy(v).to(dev) for k, v in stream.batch_at(s).items()}
                for s in range(MESH_STEPS)]
     draw = lambda: init_params(cfg, torch.Generator(dev).manual_seed(SEED + 7), dev)   # noqa: E731
@@ -3571,6 +3596,11 @@ def mesh_train(dev, card: str, mesh, label: str, tag: str, name: str, layers: in
     counts = {k: v / MESH_STEPS for k, v in step.mesh_context.counts.items()}
     mem = device_mem(dev)
     mesh_after = {k: p.detach().cpu() for k, p in flat_dict(mparams).items()}
+    med = float(np.median(mesh_ms[1:]))
+    prof = pprof = None
+    if profile and torch.device(dev).type == "cuda":
+        prof = device_profile(f"{label} one mesh training step (1, 1)", lambda: step(
+            mparams, opt, shard_tree(batches[0], place[2], mesh)), med, cpu_ops=False)
     del opt, mparams
     free_device(dev)
 
@@ -3581,15 +3611,20 @@ def mesh_train(dev, card: str, mesh, label: str, tag: str, name: str, layers: in
     popt = adamw_init(params)
     params.requires_grad_(True)
     plain_ms, plain_losses = [], []
+
+    def plain_step(batch):
+        nonlocal popt
+        for p in params.parameters():
+            p.grad = None
+        loss, _ = lm.loss(batch)
+        loss.backward()
+        _, popt, _ = adamw_update({k: p.grad for k, p in flat_dict(params).items()}, popt, params, LR)
+        return loss
+
     for s in range(MESH_STEPS):
         sync(dev)
         t0 = time.perf_counter()
-        for p in params.parameters():
-            p.grad = None
-        loss, _ = lm.loss(batches[s])
-        loss.backward()
-        _, popt, _ = adamw_update({k: p.grad for k, p in flat_dict(params).items()}, popt, params, LR)
-        plain_losses.append(loss.item())
+        plain_losses.append(plain_step(batches[s]).item())
         sync(dev)
         plain_ms.append((time.perf_counter() - t0) * 1e3)
     pmem = device_mem(dev)
@@ -3603,16 +3638,21 @@ def mesh_train(dev, card: str, mesh, label: str, tag: str, name: str, layers: in
             if not ok:
                 raise AssertionError(f"{label}: {k} differs in {n} entries, by up to {w}")
             differ, worst, total = differ + n, max(worst, w), total + p.numel()
+    pmed = float(np.median(plain_ms[1:]))
+    if profile and torch.device(dev).type == "cuda":
+        pprof = device_profile(f"{label} one plain training step", lambda: plain_step(batches[0]),
+                               pmed, cpu_ops=False)
     del lm, params, popt
     free_device(dev)
-    med, pmed = float(np.median(mesh_ms[1:])), float(np.median(plain_ms[1:]))
     out = {"arch": cfg.name, "layers": cfg.n_layers, "layers_published": full_depth,
+           "encoder_layers": cfg.n_encoder_layers, "frames": frames[0] if frames else 0,
            "parameters": n_params, "dtype": cfg.dtype, "remat": cfg.remat, "steps": MESH_STEPS,
            "batch": TRAIN_BATCH, "seq_len": seq, "lr": LR,
            "mesh_step": {"losses": mesh_losses, "metrics": metrics, "step_ms": mesh_ms,
-                         "ms_per_step": med, "collectives_per_step": counts, "memory": mem},
+                         "ms_per_step": med, "collectives_per_step": counts, "memory": mem,
+                         "device_profile": prof},
            "plain_step": {"losses": plain_losses, "step_ms": plain_ms, "ms_per_step": pmed,
-                          "memory": pmem},
+                          "memory": pmem, "device_profile": pprof},
            "mesh_over_plain": med / pmed,
            "parity": {"losses_bit_equal": loss_bits, "param_entries": total,
                       "param_entries_differing": differ, "param_max_abs_diff": worst,
@@ -3620,31 +3660,42 @@ def mesh_train(dev, card: str, mesh, label: str, tag: str, name: str, layers: in
     moe = (f"; the last step's dropped_frac {metrics[-1]['dropped_frac']:.4f} and load_balance "
            f"{metrics[-1]['load_balance']:.4f} (sums over the layers, as the loss takes them)"
            if cfg.n_experts else "")
-    log(f"[{tag}] {label} {cfg.name} ({cfg.n_layers} of {full_depth} layers, {cfg.dtype}, remat, "
+    enc = f" + {cfg.n_encoder_layers} encoder layers" if cfg.n_encoder_layers else ""
+    after = f" after {frames[0]:,} frames" if frames else ""
+    log(f"[{tag}] {label} {cfg.name} ({cfg.n_layers} of {full_depth} layers{enc}, {cfg.dtype}, remat, "
         f"{n_params:,} parameters) on the {dict(mesh.shape)} mesh ({dist.get_backend()}, one rank), "
-        f"{MESH_STEPS} steps of {TRAIN_BATCH} x {seq} tokens: {med:.1f} ms a step against the plain "
+        f"{MESH_STEPS} steps of {TRAIN_BATCH} x {seq} tokens{after}: {med:.1f} ms a step against the plain "
         f"{pmed:.1f} ({med / pmed:.4f}; medians after the first); losses "
         + ", ".join(f"{x:.6f}" for x in mesh_losses) + " (plain "
         + ", ".join(f"{x:.6f}" for x in plain_losses) + ("; bit-equal" if loss_bits else "; within rtol 1e-5")
         + f"){moe}; collectives a step "
         + ", ".join(f"{k} {v:.0f}" for k, v in sorted(counts.items()))
         + f"; bf16 parameters after step {MESH_STEPS}: {differ} of {total:,} entries differ (max "
-        f"{worst:.3g}); peak device memory {(mem or {}).get('peak_bytes', 0) / 1e9:.2f} GB against "
+        f"{worst:.3g})"
+        + ("" if prof is None or pprof is None else
+           f"; one profiled step each: busy {prof['busy_ms']:.1f} ms in {prof['device_events']} device "
+           f"events (copies {prof['copy_events']}, {prof['copy_ms']:.2f} ms) against {pprof['busy_ms']:.1f} "
+           f"in {pprof['device_events']} ({pprof['copy_events']}, {pprof['copy_ms']:.2f} ms)")
+        + f"; peak device memory {(mem or {}).get('peak_bytes', 0) / 1e9:.2f} GB against "
         f"{(pmem or {}).get('peak_bytes', 0) / 1e9:.2f} [{card}]")
     return out
 
 
 def caches_on_host(caches) -> list:
     """Every tensor of a decode state, field by field, copied to the host."""
-    if hasattr(caches, "_fields"):
-        return [t.cpu() for t in caches]
+    import torch
+
+    if isinstance(caches, torch.Tensor):
+        return [caches.cpu()]
     return [t for c in caches for t in caches_on_host(c)]
 
 
 def mesh_serve(dev, card: str, mesh, label: str, tag: str, name: str, *, seed: int, steps: int,
-               layers: int | None = None, bang_steps: int = 0, profile: bool = False) -> dict:
-    """11b, 11c, 12b, 12c: `name` at full width in bf16 (cut to `layers`
-    layers when given), its parameters and LM_REQUESTS x LM_PROMPT tokens
+               layers: int | None = None, bang_steps: int = 0, profile: bool = False,
+               prompt: int | None = None) -> dict:
+    """11b, 11c, 12b, 12c, 13b, 13c: `name` at full width in bf16 (cut to
+    `layers` layers when given), its parameters and LM_REQUESTS x `prompt`
+    tokens (LM_PROMPT when None; whisper's after `frontend_len` frames)
     drawn on the card from `seed`; each path, the plain `LM` and then
     `step_and_specs`'s prefill and decode steps on the same parameter
     tensors, prefills and decodes `steps` greedy exact-KV steps, then
@@ -3665,7 +3716,7 @@ def mesh_serve(dev, card: str, mesh, label: str, tag: str, name: str, *, seed: i
     from repro_torch.launch.specs import step_and_specs
     from repro_torch.models import LM
     from repro_torch.models import retrieval_attention as bkv
-    from repro_torch.models.transformer import clone_caches
+    from repro_torch.models.transformer import attention_caches, clone_caches, with_attention_caches
 
     full_depth = lm_config(name).n_layers
     cfg = lm_config(name) if layers is None else lm_config(name, n_layers=layers)
@@ -3676,8 +3727,10 @@ def mesh_serve(dev, card: str, mesh, label: str, tag: str, name: str, *, seed: i
     g = torch.Generator(dev).manual_seed(seed)
     full = LM(cfg, device=dev, generator=g).params
     n_params = sum(p.numel() for p in full.parameters())
-    B, S, V = LM_REQUESTS, LM_PROMPT, cfg.vocab_size
-    tokens = torch.randint(0, V, (B, S), generator=g, device=dev)
+    B, S, V = LM_REQUESTS, LM_PROMPT if prompt is None else prompt, cfg.vocab_size
+    batch = {"tokens": torch.randint(0, V, (B, S), generator=g, device=dev)}
+    if cfg.frontend == "audio_stub":
+        batch["frontend"] = torch.randn((B, cfg.frontend_len, cfg.d_model), generator=g, device=dev)
     fill = S + steps
     s_max = fill + bang_steps + 1   # the steps and one profiled step
     prefill, _, (p_place, b_place) = step_and_specs(cfg, ShapeSpec("prefill_7a", "prefill", S, B), mesh)
@@ -3697,11 +3750,10 @@ def mesh_serve(dev, card: str, mesh, label: str, tag: str, name: str, *, seed: i
             sync(dev)
             t0 = time.perf_counter()
             if path == "plain":
-                logits, caches = lm.prefill({"tokens": tokens}, s_max=s_max)
+                logits, caches = lm.prefill(batch, s_max=s_max)
                 step = lambda c, t: lm.decode_step(c, t)   # noqa: E731
             else:
-                logits, caches = prefill(params, shard_tree({"tokens": tokens}, b_place, mesh),
-                                         s_max=s_max)
+                logits, caches = prefill(params, shard_tree(batch, b_place, mesh), s_max=s_max)
                 step = lambda c, t: serve(params, c, t)   # noqa: E731
             sync(dev)
             prefill_ms = (time.perf_counter() - t0) * 1e3
@@ -3723,14 +3775,15 @@ def mesh_serve(dev, card: str, mesh, label: str, tag: str, name: str, *, seed: i
             host.append(drops.cpu())
         host += caches_on_host(caches)
         if bang_steps:
-            ssm_c, kv = clone_caches(caches)
+            state = clone_caches(caches)
+            kv = attention_caches(cfg, state)
             if codebooks is None:   # fitted once, on the plain path's keys
                 codebooks, _ = bkv.fit_bangkv_caches(kv, fill, cfg.bangkv_m, iters=LM_FIT_ITERS)
                 lm.set_codebooks(codebooks)   # the tensor the mesh step reads too
             codes = torch.zeros((*kv.k.shape[:4], cfg.bangkv_m), dtype=torch.uint8, device=dev)
             for i in range(kv.k.shape[0]):
                 codes[i, :, :fill] = bkv.encode_keys(codebooks[i], kv.k[i, :, :fill])
-            state = (ssm_c, bkv.BangKVCache(codes, kv.k, kv.v, kv.index))
+            state = with_attention_caches(cfg, state, bkv.BangKVCache(codes, kv.k, kv.v, kv.index))
             step = (lambda c, t: lm.decode_step(c, t, bangkv=True)) if path == "plain" else (
                 lambda c, t: bang(params, c, t))
             first = dl[-1].argmax(dim=-1, keepdim=True).to(torch.int32)
@@ -3750,9 +3803,10 @@ def mesh_serve(dev, card: str, mesh, label: str, tag: str, name: str, *, seed: i
         same(f"{label} tensor {i} (logits, tokens{', dropped fractions' if moe else ''}, the caches"
              f"{', BANG-KV' if bang_steps else ''})", a, b)
     out = runs
-    out.update(arch=cfg.name, layers=cfg.n_layers, layers_published=full_depth, parameters=n_params,
-               dtype=cfg.dtype, requests=B, prompt=S, steps=steps, bangkv_steps=bang_steps,
-               tensors_compared=len(mesh_host))
+    out.update(arch=cfg.name, layers=cfg.n_layers, layers_published=full_depth,
+               encoder_layers=cfg.n_encoder_layers, frames=cfg.frontend_len if "frontend" in batch else 0,
+               parameters=n_params, dtype=cfg.dtype, requests=B, prompt=S, steps=steps,
+               bangkv_steps=bang_steps, tensors_compared=len(mesh_host))
     out["mesh"]["prefill_collectives"] = dict(prefill.mesh_context.counts)
     out["mesh"]["collectives_per_step"] = {k: v / steps for k, v in serve.mesh_context.counts.items()}
     out["mesh_over_plain"] = out["mesh"]["ms_per_step"] / out["plain"]["ms_per_step"]
@@ -3778,11 +3832,13 @@ def mesh_serve(dev, card: str, mesh, label: str, tag: str, name: str, *, seed: i
                               lambda: serve(params, caches, tok), out["mesh"]["ms_per_step"],
                               cpu_ops=False)
     out["mesh"]["device_profile"] = prof
-    del caches, fed, lm, params
+    del caches, fed, lm, params, batch
     free_device(dev)
-    log(f"[{tag}] {label} {cfg.name} ({cfg.n_layers} of {full_depth} layers, {cfg.dtype}, "
+    enc = f" + {cfg.n_encoder_layers} encoder layers" if cfg.n_encoder_layers else ""
+    after = f" after {out['frames']:,} frames" if out["frames"] else ""
+    log(f"[{tag}] {label} {cfg.name} ({cfg.n_layers} of {full_depth} layers{enc}, {cfg.dtype}, "
         f"{n_params:,} parameters) on the {dict(mesh.shape)} mesh ({dist.get_backend()}, one rank), "
-        f"{B} x {S} tokens: prefill {out['mesh']['prefill_ms']:.1f} ms against the plain "
+        f"{B} x {S} tokens{after}: prefill {out['mesh']['prefill_ms']:.1f} ms against the plain "
         f"{out['plain']['prefill_ms']:.1f} ({out['prefill_mesh_over_plain']:.4f}); exact-KV decode "
         f"{out['mesh']['ms_per_step']:.2f} ms a step against {out['plain']['ms_per_step']:.2f} "
         f"({out['mesh_over_plain']:.4f}; medians of steps 2-{steps}); collectives: prefill "
@@ -3891,6 +3947,57 @@ def mesh_ssm_phase(dev, card: str) -> dict:
     return out
 
 
+# ------------------------------------------------------------ phase 13
+ENCDEC_MESH_SEED = SEED + 5     # 13b, 13c: 7g's draw
+ENCDEC_BANG_PROMPT = 448        # 13c: whisper's decoder context, past BANG-KV's window of 256
+ENCDEC_BANG_EXACT = 4           # 13c: exact-KV steps before the BANG-KV ones
+
+
+def mesh_encdec_phase(dev, card: str) -> dict:
+    """Phase 13: the encdec family's mesh steps on the (1, 1) mesh (a
+    one-rank NCCL group on the card, gloo on the CPU), whisper-medium at
+    full width and depth, its encoder, self- and cross-attention and FFN
+    on the one `model` rank: 13a training (`mesh_train`, 8b's shape at
+    full depth), 13b 7g's requests served exact-KV and 13c LM_LONG_DECODE
+    BANG-KV steps with the hierarchical top-L from ENCDEC_BANG_PROMPT-token
+    prompts (`mesh_serve`). The launch counts, set to 0 before 13a, must
+    all be 0 after 13c."""
+    import torch.distributed as dist
+
+    from repro_torch.distributed import make_mesh
+
+    t_phase = time.perf_counter()
+    reset_launches()
+    made = not dist.is_initialized()
+    mesh = make_mesh((1, 1), ("data", "model"), dev)
+    out = {"mesh": dict(mesh.shape), "backend": dist.get_backend()}
+    try:
+        t0 = time.perf_counter()
+        out["train"] = mesh_train(dev, card, mesh, "13a", "mesh-encdec", ENCDEC_ARCH, None,
+                                  seq=ENCDEC_TRAIN_TOKENS, profile=True)
+        out["train"]["phase_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        out["serve"] = mesh_serve(dev, card, mesh, "13b", "mesh-encdec", ENCDEC_ARCH,
+                                  seed=ENCDEC_MESH_SEED, steps=LM_DECODE, prompt=ENCDEC_PROMPT,
+                                  profile=True)
+        out["serve"]["phase_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        out["bangkv"] = mesh_serve(dev, card, mesh, "13c", "mesh-encdec", ENCDEC_ARCH,
+                                   seed=ENCDEC_MESH_SEED, steps=ENCDEC_BANG_EXACT,
+                                   prompt=ENCDEC_BANG_PROMPT, bang_steps=LM_LONG_DECODE)
+        out["bangkv"]["phase_s"] = time.perf_counter() - t0
+    finally:
+        if made and dist.is_initialized():
+            dist.destroy_process_group()
+    launches = read_launches()
+    if any(launches.values()):
+        raise AssertionError(f"the encdec mesh path launched port kernels: {launches}")
+    free_device(dev)
+    out["kernel_launches"] = launches
+    out["phase_s"] = time.perf_counter() - t_phase
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -3979,6 +4086,9 @@ def main() -> int:
     mesh_ssm = mesh_ssm_phase(dev, card)
     log(f"[mesh-ssm] phase: {mesh_ssm['phase_s']:.1f} s")
 
+    mesh_encdec = mesh_encdec_phase(dev, card)
+    log(f"[mesh-encdec] phase: {mesh_encdec['phase_s']:.1f} s")
+
     keys = ("recall_at_10", "qps", "n_batches", "mean_n_iters", "mean_hops", "batch_wall_ms",
             "device_busy_ms_per_batch", "link_bytes_per_hop", "rerank_bytes_per_batch",
             "host_gather_ms_per_batch", "host_gather_share", "collective_ms_per_batch",
@@ -3998,7 +4108,7 @@ def main() -> int:
                       "autotune": {k: at[k] for k in ("winner", "sweep", "sweep_s", "device_kind")},
                       "small_recall_at_10": small, "lm": lm, "train": train, "mesh": mesh,
                       "mesh_serve": mesh_serve, "mesh_moe": mesh_moe, "mesh_ssm": mesh_ssm,
-                      "card": card}))
+                      "mesh_encdec": mesh_encdec, "card": card}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

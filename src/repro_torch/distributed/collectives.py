@@ -55,28 +55,29 @@ import torch.distributed as dist
 
 from .partitioning import dim_axes, spec_for
 
-# The families each kind of mesh step covers: training (ROADMAP A8e-1) and
-# serving, prefill and decode (moe: A8e-2a; ssm and hybrid: A8e-2b); encdec
-# waits for ROADMAP A8e-2.
-MESH_FAMILIES = ("dense", "vlm", "moe", "ssm", "hybrid")
-MESH_SERVE_FAMILIES = ("dense", "vlm", "moe", "ssm", "hybrid")
+# The families the mesh steps cover, training and serving (prefill and
+# decode) alike: dense and vlm (ROADMAP A8e-1, A8e-2), moe (A8e-2a), ssm
+# and hybrid (A8e-2b), audio, whisper's encoder-decoder (A8e-2c). Every
+# family of `configs.ARCHS`.
+MESH_FAMILIES = ("dense", "vlm", "moe", "ssm", "hybrid", "audio")
+MESH_ARCH_KINDS = ("decoder", "encdec")
 STEP_KINDS = ("train", "prefill", "decode")
 
 
 def check_mesh_family(cfg, mesh, kind: str = "train") -> None:
-    """Raise for a family the mesh step of `kind` ("train", "prefill" or
-    "decode") does not cover, on a mesh of more than one rank (on one rank
-    its plain code is the mesh step)."""
+    """Raise for a step kind other than "train", "prefill" and "decode",
+    and, on a mesh of more than one rank, for a family or architecture kind
+    outside `MESH_FAMILIES` and `MESH_ARCH_KINDS` (no config of
+    `configs.ARCHS`)."""
     if kind not in STEP_KINDS:
         raise ValueError(f"step kind {kind!r} is not one of {STEP_KINDS}")
-    families = MESH_FAMILIES if kind == "train" else MESH_SERVE_FAMILIES
     n = 1
     for s in mesh.shape.values():
         n *= s
-    if n > 1 and (cfg.family not in families or cfg.arch_kind != "decoder"):
+    if n > 1 and (cfg.family not in MESH_FAMILIES or cfg.arch_kind not in MESH_ARCH_KINDS):
         raise NotImplementedError(
             f"{cfg.name}: the {cfg.family} family ({cfg.arch_kind}) has no mesh {kind} step on "
-            f"{dict(mesh.shape)} yet (ROADMAP A8e-2)")
+            f"{dict(mesh.shape)}")
 
 
 def _all_reduce(x: torch.Tensor, mc: "MeshContext", axis: str, op=dist.ReduceOp.SUM) -> torch.Tensor:
@@ -151,7 +152,9 @@ class MeshContext:
     "ssm/in_proj" (D, 2 di + 2 G N + H), "ssm/out_proj" (di, D),
     "ssm/conv_w" (K, di + 2 G N), "ssm/conv_b", "ssm/A_log", "ssm/D" (the
     skip, (H,)), "ssm/dt_bias" and "ssm/norm_w" (di,); zamba2's shared
-    attention block's are the dense ones."""
+    attention block's are the dense ones, and so are whisper's: its
+    encoder's, its cross block's ("wq" ... "wo" of the dense shapes) and
+    their FFNs'; its norms' are whole."""
 
     def __init__(self, mesh, cfg, global_batch: int | None = None):
         self.mesh = mesh

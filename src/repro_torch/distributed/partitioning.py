@@ -288,7 +288,8 @@ def shard_caches(caches: Any, mesh, *, batch_divisible: bool) -> Any:
 
 def gather_caches(blocks: Any, mesh, *, s_max: int, batch_divisible: bool, cfg=None) -> Any:
     """The full caches of `s_max` positions from every rank's blocks
-    (`shard_caches`' inverse; a collective). The specs are those of the full
+    (`shard_caches`' inverse; a collective; whisper's cross K and V keep
+    their frames). The specs are those of the full
     shapes: a block's length does not say whether the sequence was cut, nor
     an SSM cache's block whether its channels (`conv`) or heads (`state`)
     were: those take the config `cfg`."""
@@ -307,9 +308,9 @@ def gather_caches(blocks: Any, mesh, *, s_max: int, batch_divisible: bool, cfg=N
                 shape[3] = di + 2 * cfg.ssm_groups * cfg.ssm_state
             else:
                 shape[2] = di // cfg.ssm_head_dim
-        elif t.dim() == 5:
+        elif name in ("k", "v", "codes"):
             shape[2] = s_max
-        else:
+        elif t.dim() != 5:                          # unnamed (L, B, M, Hkv, hd): cross K/V
             return t
         shape[1] *= dp if batch_divisible else 1
         return torch.empty(shape, dtype=t.dtype, device="meta")

@@ -6,10 +6,10 @@ The port of the reference package's `launch/specs.py`. `batch_specs`,
 shapes and dtypes, no storage -- the counterpart of the reference's
 `ShapeDtypeStruct`s. `step_and_specs` binds the step of a cell and its
 placements on a mesh: the training step (ROADMAP A8e-1) and the prefill
-and decode steps, for the dense, vlm, moe, ssm and hybrid families (moe:
-its experts over `model`, `_MOE_RULES`, ROADMAP A8e-2a; ssm and hybrid:
-the Mamba2 block's widths over `model`, A8e-2b); encdec waits for ROADMAP
-A8e-2c on a mesh of more than one rank.
+and decode steps, for every family (moe: its experts over `model`,
+`_MOE_RULES`, ROADMAP A8e-2a; ssm and hybrid: the Mamba2 block's widths
+over `model`, A8e-2b; encdec: whisper's encoder and cross-attention over
+`model`, A8e-2c).
 
 The training step holds this rank's blocks of the parameters and of
 AdamW's master copies and moments, and this rank's slice of the batch, and
@@ -56,7 +56,10 @@ asks for it (`opt_hier_topk`). An MoE layer's capacity and slots are the
 global batch's: each step's `MeshContext` knows from the shape's global
 batch whether the batch is cut over `data` (long_500k's one request is
 replicated over the data ranks). An SSM layer's caches are this rank's
-channels of the conv window and heads of the state.
+channels of the conv window and heads of the state. Whisper's prefill
+batch carries its frames (`frontend`, over `data` with the tokens), and
+its decode caches the cross K and V of `frontend_len` frames, cut over
+the batch only: every `model` rank holds every frame and KV head.
 """
 from __future__ import annotations
 
@@ -215,9 +218,8 @@ def step_and_specs(cfg: ModelConfig, shape: ShapeSpec, mesh) -> tuple[Callable, 
     (params, caches filled to seq_len - 1, tokens (B, 1)), and their specs
     (`cache_pspecs`; the tokens over the data axes where the batch divides
     them). The rules run on a shape-only `AbstractMesh` too; the step runs
-    on a runnable `Mesh` only. The dense, vlm, moe, ssm and hybrid families
-    run on any mesh; encdec on a mesh of more than one rank raises (ROADMAP
-    A8e-2c)."""
+    on a runnable `Mesh` only. Every family of `configs.ARCHS` runs on any
+    mesh."""
     check_mesh_family(cfg, mesh, shape.kind)
     p_specs = param_specs(cfg)
     p_place = param_pspecs(p_specs, mesh)

@@ -49,6 +49,14 @@ global max (an all-reduce MAX over `model`), exp(s - max), the global sum
 the (B, H, hd) partial outputs; then the row-parallel `wo` of its heads. On
 a one-rank mesh these are the plain path's operations, and each collective
 a copy.
+
+Whisper on a mesh takes the same plan. Its encoder's bidirectional
+attention computes this rank's query heads against the KV heads they read,
+RoPE at positions 0..M-1, over every frame (`full_attention`), then the
+row-parallel `wo`. Its decoder's cross-attention (`cross_attention_block`)
+computes this rank's query heads of `cross/wq` and reads their KV heads
+out of the cross K and V, which are whole on every `model` rank
+(`HeadPlan.kv_heads`), then the row-parallel `cross/wo`.
 """
 from __future__ import annotations
 
@@ -84,10 +92,11 @@ class HeadPlan:
     `model` rank computes the whole block with whole weights. Query heads
     [q0, q0 + n_q): this rank's block of `wq` when it holds whole heads, else
     every head (`wq` gathered whole) and `o_cols` picks the columns of the
-    output that meet this rank's rows of `wo`. `kv`: the KV heads those
-    query heads read, out of the whole projections (a slice, or one index a
-    query head where they do not group evenly), or None for this rank's
-    block of `wk` and `wv`."""
+    output that meet this rank's rows of `wo`. `kv_heads`: the KV heads
+    those query heads read, out of every KV head (a slice, or one index a
+    query head where they do not group evenly): whisper's cross K and V are
+    whole on every `model` rank. `kv`: the same, out of the whole
+    projections, or None for this rank's block of `wk` and `wv`."""
 
     def __init__(self, mesh, n_heads: int, n_kv_heads: int, head_dim: int):
         M, m = mesh.n_model, mesh.model_index
@@ -103,13 +112,12 @@ class HeadPlan:
         if self.split and not q_local:
             cols = n_heads * head_dim // M
             self.o_cols = slice(m * cols, (m + 1) * cols)
-        self.kv = None
-        if not kv_local:
-            G = n_heads // n_kv_heads
-            ids = [(self.q0 + i) // G for i in range(self.n_q)]
-            n = ids[-1] - ids[0] + 1
-            even = self.n_q % n == 0 and ids == [ids[0] + i // (self.n_q // n) for i in range(self.n_q)]
-            self.kv = slice(ids[0], ids[0] + n) if even else ids
+        G = n_heads // n_kv_heads
+        ids = [(self.q0 + i) // G for i in range(self.n_q)]
+        n = ids[-1] - ids[0] + 1
+        even = self.n_q % n == 0 and ids == [ids[0] + i // (self.n_q // n) for i in range(self.n_q)]
+        self.kv_heads = slice(ids[0], ids[0] + n) if even else ids
+        self.kv = None if kv_local else self.kv_heads
 
     def qkv(self, p, x: torch.Tensor):
         """q of this rank's heads and k, v of the KV heads its projections
@@ -125,6 +133,16 @@ class HeadPlan:
         k = (x @ mc.weight(p["wk"], "wk", self.kv_use)).reshape(B, S, -1, hd)
         v = (x @ mc.weight(p["wv"], "wv", self.kv_use)).reshape(B, S, -1, hd)
         return q, k, v
+
+    def query(self, p, x: torch.Tensor) -> torch.Tensor:
+        """q of this rank's heads from x (B, S, D), replicated over `model`
+        (its gradient summed there when the block is split): whisper's
+        cross-attention, whose K and V come from the encoder memory."""
+        mc = self.mesh
+        B, S, _ = x.shape
+        if self.split:
+            x = mc.to_model(x)
+        return (x @ mc.weight(p["wq"], "wq", self.q_use)).reshape(B, S, self.n_q, self.head_dim)
 
     def select_kv(self, t: torch.Tensor) -> torch.Tensor:
         """The KV heads of `qkv`'s k or v that this rank's query heads read."""
@@ -290,6 +308,23 @@ def cross_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.
     return full_attention(q, k, v)
 
 
+def cross_attention_block(p, x: torch.Tensor, memory_kv: tuple, *, n_heads: int, n_kv_heads: int,
+                          head_dim: int, mesh=None) -> torch.Tensor:
+    """Whisper's cross sublayer after its norm: the query of x (B, S, D)
+    against the encoder memory's K and V (B, M, Hkv, hd), then `wo`. With
+    `mesh` this rank computes its query heads (`HeadPlan`), reads the KV
+    heads they take from the K and V, which every `model` rank holds whole,
+    and multiplies by its rows of `wo`: one all-reduce over `model`."""
+    ck, cv = memory_kv
+    if mesh is None:
+        B, S, _ = x.shape
+        q = (x @ p["wq"]).reshape(B, S, n_heads, head_dim)
+        return cross_attention(q, ck, cv).reshape(B, S, -1) @ p["wo"]
+    plan = HeadPlan(mesh, n_heads, n_kv_heads, head_dim)
+    out = cross_attention(plan.query(p, x), ck[:, :, plan.kv_heads], cv[:, :, plan.kv_heads])
+    return plan.out(p, out)
+
+
 def write_at_index(buf: torch.Tensor, val: torch.Tensor, index: torch.Tensor, seq=None) -> None:
     """buf[:, index] = val in place, at a device index (no host sync): the
     counterpart of the reference's `dynamic_update_slice_in_dim(..., axis=1)`.
@@ -331,16 +366,16 @@ def attention_block(
     cache (training drops them); decode writes the new key and value into `cache` in place and
     returns it with `index + 1`. With a static int `window`, `window_skip`
     activates the banded local-attention path. With `mesh` (a
-    `MeshContext`, causal) this rank computes its heads (`HeadPlan`):
-    without a cache it returns (y, None), or with `return_kv` the roped K
-    and V of every KV head (prefill); a decode step takes its cache's block
-    of the sequence from `seq` (a `SeqBlock`).
+    `MeshContext`) this rank computes its heads (`HeadPlan`): without a
+    cache (causal, or whisper's encoder) it returns (y, None), or with
+    `return_kv` the roped K and V of every KV head (prefill); a decode step
+    takes its cache's block of the sequence from `seq` (a `SeqBlock`).
     """
     B, S, _ = x.shape
     plan = None
     if mesh is not None:
-        if not causal or (cache is not None) != (seq is not None):
-            raise ValueError("attention on a mesh is causal; a decode there takes its SeqBlock")
+        if (cache is not None) != (seq is not None) or (cache is not None and not causal):
+            raise ValueError("a decode on a mesh is causal and takes its SeqBlock")
         plan = HeadPlan(mesh, n_heads, n_kv_heads, head_dim)
     q, k, v = _qkv(p, x, n_heads, n_kv_heads, head_dim) if plan is None else plan.qkv(p, x)
 
@@ -357,7 +392,7 @@ def attention_block(
             out = chunked_causal_attention(q, kq, vq, chunk=c, window=window,
                                            bf16_scores=bf16_scores, band=band)
         else:   # encoder: full bidirectional (no mask)
-            out = full_attention(q, k, v)
+            out = full_attention(q, kq, vq)
         new_cache = (k, v)   # roped k -- prefill assembles the decode cache
         if plan is not None:
             new_cache = (plan.all_kv(k), plan.all_kv(v)) if return_kv else None

@@ -33,25 +33,30 @@ cross-entropy gather their weights at their use and run Megatron TP over
 load_balance, router_z and dropped_frac are the global batch's; a Mamba2
 layer cuts its projection's columns, conv channels, heads and di over
 `model` (`ssm.SSMLayout`); zamba2's shared attention block gathers its
-weights at each of its calls. Under remat the gathers run inside the
-rematerialised layer body, so a gathered weight is gathered again in
-backward and never held across layers. encdec raises on a mesh of more
-than one rank (ROADMAP A8e-2c).
+weights at each of its calls. Whisper's encoder runs its layers the same
+way over this rank's frames, and its memory comes out whole over `model`;
+`cross_kv` gathers `cross/wk` and `cross/wv` whole over `model` and
+projects every KV head on every `model` rank, so each decoder layer's
+cross-attention reads its heads' K and V (`attention.cross_attention_block`),
+and the memory's gradient, a part on each `model` rank, is summed there by
+one `to_model`. Under remat the gathers run inside the rematerialised
+layer body, so a gathered weight is gathered again in backward and never
+held across layers.
 
 Serving on a mesh (`LM.prefill`, `LM.decode_step` and
 `LM.init_decode_caches` with `mesh=`, the prefill and decode steps of
-`launch.specs`; every family but encdec) takes the same blocks of the
-parameters and this rank's slice of the batch. The decode caches are this
-rank's blocks in the `cache_pspecs` layout: the batch over `data` where it
-divides, the sequence over `model` where `s_max` divides
-(`collectives.SeqBlock`), an SSM layer's conv window over its channels and
-its state over its heads.
+`launch.specs`; every family) takes the same blocks of the parameters and
+this rank's slice of the batch. The decode caches are this rank's blocks
+in the `cache_pspecs` layout: the batch over `data` where it divides, the
+sequence over `model` where `s_max` divides (`collectives.SeqBlock`), an
+SSM layer's conv window over its channels and its state over its heads,
+whisper's cross K and V whole over `model`.
 Prefill runs the training stack's forward and writes this rank's block of
 the sequence of every KV head; a decode step attends over the sequence
 cut across `model` (`attention.decode_attention`,
 `retrieval_attention.bangkv_decode_attention` with the hierarchical
 top-L); the logits are vocabulary-parallel (`layers.logits_head`). A
-vlm's prefill carries its patches.
+vlm's prefill carries its patches, whisper's its frames.
 
 Caches keep the reference's stacked layout -- K and V (L, B, S, Hkv, hd),
 BANG-KV codes (L, B, S, Hkv, m) uint8, `index` (L,) int32, the SSM's conv
@@ -71,10 +76,10 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ModelConfig
-from ..distributed.collectives import MESH_FAMILIES, MESH_SERVE_FAMILIES, check_mesh_family
+from ..distributed.collectives import check_mesh_family
 from ..kernels.common import resolve_device
 from . import retrieval_attention as bkv
-from .attention import KVCache, attention_block, attn_params, cross_attention
+from .attention import KVCache, attention_block, attn_params, cross_attention_block
 from .ffn import ffn_params, swiglu
 from .layers import (ParamTree, embed, logits_head, norm, norm_params, truncated_normal_init,
                      unembed_chunked)
@@ -235,8 +240,8 @@ def _dense_layer(cfg: ModelConfig, p, h, window, theta, cache, mode: str, codebo
                  cross_mem=None, mesh=None, seq=None):
     """One dense/moe decoder layer (whisper's with its cross-attention into
     `cross_mem` = (k, v) (B, M, Hkv, hd)). Returns (h, new_cache, aux).
-    `mesh`: a dense or moe layer on a mesh (`seq`: its decode cache's block
-    of the sequence)."""
+    `mesh`: the layer on a mesh (`seq`: its decode cache's block of the
+    sequence)."""
     aux = _zero_aux(h.device)
     x = norm(h, p["attn_norm"], cfg.norm_kind, cfg.norm_eps)
     if mode == "decode_bangkv":
@@ -261,10 +266,8 @@ def _dense_layer(cfg: ModelConfig, p, h, window, theta, cache, mode: str, codebo
 
     if cross_mem is not None:   # whisper's decoder: no RoPE on the cross query
         x = norm(h, p["cross_norm"], cfg.norm_kind, cfg.norm_eps)
-        B, S, _ = x.shape
-        q = (x @ p["cross"]["wq"]).reshape(B, S, cfg.n_heads, cfg.head_dim)
-        y = cross_attention(q, *cross_mem)
-        h = h + y.reshape(B, S, -1) @ p["cross"]["wo"]
+        h = h + cross_attention_block(p["cross"], x, cross_mem, n_heads=cfg.n_heads,
+                                      n_kv_heads=cfg.n_kv_heads, head_dim=cfg.head_dim, mesh=mesh)
 
     x = norm(h, p["ffn_norm"], cfg.norm_kind, cfg.norm_eps)
     if cfg.n_experts:
@@ -425,9 +428,9 @@ def decoder_stack(cfg: ModelConfig, params, h: torch.Tensor, *, mode: str, cache
     conv window and final state. "decode" / "decode_bangkv": `caches` are
     updated in place. Whisper's decoder takes `cross_mem` = (cross_k,
     cross_v) (L, B, M, Hkv, hd). `mesh` (a `MeshContext`): this rank's part
-    of a stack on a mesh (every family but encdec); in decode, `s_max` is
-    then the attention caches' full length (their block's times the
-    `model` ranks when None)."""
+    of a stack on a mesh (every family; whisper's cross K and V whole over
+    `model`); in decode, `s_max` is then the attention caches' full length
+    (their block's times the `model` ranks when None)."""
     check_family(cfg)
     if mode not in MODES:
         raise ValueError(f"mode {mode!r} is not one of {MODES}")
@@ -435,7 +438,8 @@ def decoder_stack(cfg: ModelConfig, params, h: torch.Tensor, *, mode: str, cache
         return _train_stack(cfg, params, h, cross_mem, _mesh_for(cfg, mesh))
     mesh = _mesh_for(cfg, mesh, "prefill" if mode == "prefill" else "decode")
     if mesh is not None:
-        return _mesh_serve_stack(cfg, params, h, mode=mode, caches=caches, s_max=s_max, mesh=mesh)
+        return _mesh_serve_stack(cfg, params, h, mode=mode, caches=caches, s_max=s_max,
+                                 cross_mem=cross_mem, mesh=mesh)
     if cfg.family == "ssm":
         return _ssm_stack(cfg, params, h, mode, caches)
     if cfg.family == "hybrid":
@@ -450,10 +454,9 @@ def decoder_stack(cfg: ModelConfig, params, h: torch.Tensor, *, mode: str, cache
         k_all, v_all = _kv_buffers(cfg.n_layers, B, S if s_max is None else s_max, S, cfg, h)
     for i in range(cfg.n_layers):
         cb_i = params["bangkv_codebooks"][i] if mode == "decode_bangkv" else None
-        cm_i = (cross_mem[0][i], cross_mem[1][i]) if cross_mem is not None else None
         h, c_i, aux_i = _dense_layer(cfg, params["layers"][i], h, wins[i], thetas[i],
                                      _layer(caches, i) if decode else None, mode,
-                                     codebooks=cb_i, cross_mem=cm_i)
+                                     codebooks=cb_i, cross_mem=_cross_layer(cross_mem, i))
         aux = _add_aux(aux, aux_i)
         if not decode:
             k_all[i, :, :S], v_all[i, :, :S] = c_i
@@ -463,29 +466,34 @@ def decoder_stack(cfg: ModelConfig, params, h: torch.Tensor, *, mode: str, cache
     return h, aux, KVCache(k_all, v_all, index)
 
 
+def _cross_layer(cross_mem, i: int):
+    """Layer i's (cross_k, cross_v) of whisper's stacks; None elsewhere."""
+    return None if cross_mem is None else (cross_mem[0][i], cross_mem[1][i])
+
+
 def _mesh_for(cfg: ModelConfig, mesh, kind: str = "train"):
-    """`mesh` where the family runs on it; None for a family the mesh step
-    of `kind` does not cover on a one-rank mesh (its plain code is the same
-    step); raises for such a family on more ranks."""
-    if mesh is None:
-        return None
-    check_mesh_family(cfg, mesh.mesh, kind)
-    return mesh if cfg.family in (MESH_FAMILIES if kind == "train" else MESH_SERVE_FAMILIES) else None
+    """`mesh` (a `MeshContext` or None), after `check_mesh_family` for the
+    step of `kind`."""
+    if mesh is not None:
+        check_mesh_family(cfg, mesh.mesh, kind)
+    return mesh
 
 
 def _mesh_serve_stack(cfg: ModelConfig, params, h: torch.Tensor, *, mode: str, caches, s_max,
-                      mesh):
+                      cross_mem, mesh):
     """decoder_stack's prefill and decode on a mesh: h is this rank's slice
     of the batch. Prefill makes this rank's blocks of the caches, `s_max`
     positions in all (the prompt's length when None): its block of the
     sequence of every KV head, its channels of an SSM layer's conv window
-    and its heads of the state. Decode updates them in place."""
+    and its heads of the state. Decode updates them in place. Whisper's
+    `caches` are its self-attention caches, and `cross_mem` its cross K
+    and V of this rank's requests."""
     if cfg.family == "ssm":
         return _ssm_stack(cfg, params, h, mode, caches, mesh)
     B, S, _ = h.shape
     L = cfg.n_layers
     decode = mode != "prefill"
-    kv = attention_caches(cfg, caches) if decode else None
+    kv = (caches[1] if cfg.family == "hybrid" else caches) if decode else None   # the attention caches
     if decode:
         s_max = kv.k.shape[2] * mesh.n_model if s_max is None else s_max
     elif s_max is None:
@@ -505,7 +513,8 @@ def _mesh_serve_stack(cfg: ModelConfig, params, h: torch.Tensor, *, mode: str, c
         for i in range(L):
             cb_i = params["bangkv_codebooks"][i] if mode == "decode_bangkv" else None
             h, _, aux_i = _dense_layer(cfg, params["layers"][i], h, wins[i], thetas[i],
-                                       _layer(caches, i), mode, codebooks=cb_i, mesh=mesh, seq=seq)
+                                       _layer(caches, i), mode, codebooks=cb_i,
+                                       cross_mem=_cross_layer(cross_mem, i), mesh=mesh, seq=seq)
             aux = _add_aux(aux, aux_i)
         return h, aux, caches._replace(index=caches.index + 1)
     shape = (L, B, seq.length, cfg.n_kv_heads, cfg.head_dim)
@@ -514,7 +523,7 @@ def _mesh_serve_stack(cfg: ModelConfig, params, h: torch.Tensor, *, mode: str, c
     n = min(seq.lo + seq.length, S) - seq.lo   # prompt positions in this block
     for i in range(L):
         h, (k, v), aux_i = _dense_layer(cfg, params["layers"][i], h, wins[i], thetas[i], None,
-                                        mode, mesh=mesh)
+                                        mode, cross_mem=_cross_layer(cross_mem, i), mesh=mesh)
         aux = _add_aux(aux, aux_i)
         if n > 0:
             k_all[i, :, :n], v_all[i, :, :n] = k[:, seq.lo:seq.lo + n], v[:, seq.lo:seq.lo + n]
@@ -533,9 +542,7 @@ def _train_stack(cfg: ModelConfig, params, h: torch.Tensor, cross_mem, mesh=None
     remat = _remat(cfg, "train", cfg.scan_layers)
     aux = _zero_aux(h.device)
     for i in range(cfg.n_layers):
-        cm_i = (cross_mem[0][i], cross_mem[1][i]) if cross_mem is not None else None
-
-        def body(h, p=params["layers"][i], w=wins[i], th=thetas[i], cm=cm_i):
+        def body(h, p=params["layers"][i], w=wins[i], th=thetas[i], cm=_cross_layer(cross_mem, i)):
             h, _, aux_i = _dense_layer(cfg, p, h, w, th, None, "train", cross_mem=cm, mesh=mesh)
             return h, aux_i
 
@@ -544,10 +551,13 @@ def _train_stack(cfg: ModelConfig, params, h: torch.Tensor, cross_mem, mesh=None
     return h, aux, None
 
 
-def encoder_stack(cfg: ModelConfig, params, mem: torch.Tensor) -> torch.Tensor:
+def encoder_stack(cfg: ModelConfig, params, mem: torch.Tensor, mesh=None) -> torch.Tensor:
     """Whisper's encoder: bidirectional attention over the frame embeddings
     (RoPE on q and k at positions 0..M-1), a SwiGLU FFN, the final norm.
-    Never rematerialised (the reference scans it in mode "encode")."""
+    Never rematerialised (the reference scans it in mode "encode"). With
+    `mesh`, `mem` is this rank's requests' frames and each layer runs its
+    heads and its block of d_ff over `model`; the memory comes out whole
+    over `model`."""
     enc = params["encoder"]
     S = mem.shape[1]
     h = mem
@@ -557,21 +567,40 @@ def encoder_stack(cfg: ModelConfig, params, mem: torch.Tensor) -> torch.Tensor:
             p["attn"], z,
             n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads, head_dim=cfg.head_dim,
             rope_theta=cfg.rope_theta, attn_chunk=_pick_chunk(S, cfg.attn_chunk),
-            window=S + 1, causal=False,
+            window=S + 1, causal=False, mesh=mesh, return_kv=False,
         )
         h = h + y
         z = norm(h, p["ffn_norm"], cfg.norm_kind, cfg.norm_eps)
-        h = h + swiglu(p["ffn"], z)
+        h = h + swiglu(p["ffn"], z, mesh)
     return norm(h, enc["final_norm"], cfg.norm_kind, cfg.norm_eps)
 
 
-def cross_kv(cfg: ModelConfig, params, memory: torch.Tensor):
+def cross_kv(cfg: ModelConfig, params, memory: torch.Tensor, mesh=None):
     """Each decoder layer's cross-attention K and V of the encoder memory:
-    two (L, B, M, Hkv, hd) stacks."""
+    two (L, B, M, Hkv, hd) stacks.
+
+    With `mesh`, `memory` is this rank's requests' and whole over `model`,
+    and so are the K and V: `cross/wk` and `cross/wv` are gathered whole
+    over `model` at their use and every `model` rank projects every KV
+    head. That moves the weight, D x Hkv hd, where projecting this rank's
+    columns and gathering the result would move B x M x Hkv hd (whisper's
+    1,500 frames exceed its d_model of 1,024, so at any batch), and gives
+    the plain path's K and V; the projection's FLOPs (whisper-medium's:
+    about a tenth of the encoder's) repeat on each `model` rank. Where the
+    decoder's heads are split, each rank's gradient of K and V is a part
+    (its query heads'), so the weights' gradients are summed over `model`
+    by their gathers and the memory's by one `to_model`."""
     B, M, _ = memory.shape
     shape = (B, M, cfg.n_kv_heads, cfg.head_dim)
-    ks = torch.stack([(memory @ p["cross"]["wk"]).reshape(shape) for p in params["layers"]])
-    vs = torch.stack([(memory @ p["cross"]["wv"]).reshape(shape) for p in params["layers"]])
+    weight = lambda w, name: w   # noqa: E731
+    if mesh is not None:
+        use = "partial" if mesh.model_sharded("wo", 0) else "replicated"
+        if use == "partial":
+            memory = mesh.to_model(memory)
+        weight = lambda w, name: mesh.weight(w, name, use)   # noqa: E731
+    layers = [p["cross"] for p in params["layers"]]
+    ks = torch.stack([(memory @ weight(p["wk"], "wk")).reshape(shape) for p in layers])
+    vs = torch.stack([(memory @ weight(p["wv"], "wv")).reshape(shape) for p in layers])
     return ks, vs
 
 
@@ -642,14 +671,12 @@ def lm_loss(cfg: ModelConfig, params, batch: dict, mesh=None) -> tuple[torch.Ten
     mesh = _mesh_for(cfg, mesh)
     tokens, labels = batch["tokens"], batch["labels"]
     frontend = batch.get("frontend")
+    cm = None
     if cfg.arch_kind == "encdec":
-        memory = encoder_stack(cfg, params, frontend.to(getattr(torch, cfg.dtype)))
-        cm = cross_kv(cfg, params, memory)
-        h = embed(tokens.long(), params["embed"])
-        h, aux, _ = decoder_stack(cfg, params, h, mode="train", cross_mem=cm)
-    else:
-        h = embed_inputs(cfg, params, tokens, frontend, mesh)
-        h, aux, _ = decoder_stack(cfg, params, h, mode="train", mesh=mesh)
+        memory = encoder_stack(cfg, params, frontend.to(getattr(torch, cfg.dtype)), mesh)
+        cm = cross_kv(cfg, params, memory, mesh)
+    h = embed_inputs(cfg, params, tokens, frontend, mesh)
+    h, aux, _ = decoder_stack(cfg, params, h, mode="train", cross_mem=cm, mesh=mesh)
     h = norm(h, params["final_norm"], cfg.norm_kind, cfg.norm_eps)
     if cfg.frontend == "vision_stub" and frontend is not None:
         h = h[:, frontend.shape[1]:]
@@ -710,11 +737,14 @@ class LM(nn.Module):
         return logits_head(h, self.params[name], name, mesh)
 
     @torch.no_grad()
-    def encode(self, frontend: torch.Tensor):
+    def encode(self, frontend: torch.Tensor, mesh=None):
         """Whisper: the encoder over (B, M, D) frame embeddings, then every
-        decoder layer's cross K and V (L, B, M, Hkv, hd)."""
-        memory = encoder_stack(self.cfg, self.params, frontend.to(self.dtype))
-        return cross_kv(self.cfg, self.params, memory)
+        decoder layer's cross K and V (L, B, M, Hkv, hd). With `mesh` (a
+        `MeshContext`): this rank's requests, the K and V whole over
+        `model`."""
+        mesh = _mesh_for(self.cfg, mesh, "prefill")
+        memory = encoder_stack(self.cfg, self.params, frontend.to(self.dtype), mesh)
+        return cross_kv(self.cfg, self.params, memory, mesh)
 
     # ----------------------------------------------------------------- train
     def loss(self, batch: dict) -> tuple[torch.Tensor, dict]:
@@ -731,19 +761,16 @@ class LM(nn.Module):
         reference's). Whisper encodes `batch["frontend"]` first and returns
         `(self caches, (cross_k, cross_v))`. With `mesh` (a `MeshContext`;
         the parameters this rank's blocks, `batch` its slice): this rank's
-        requests' logits and its blocks of the caches."""
+        requests' logits and its blocks of the caches (whisper's cross K and
+        V whole over `model`)."""
         cfg = self.cfg
         mesh = _mesh_for(cfg, mesh, "prefill")
-        if cfg.arch_kind == "encdec":
-            cm = self.encode(batch["frontend"])
-            h = embed(batch["tokens"].long(), self.params["embed"])
-            h, _, self_caches = decoder_stack(cfg, self.params, h, mode="prefill", s_max=s_max,
-                                              cross_mem=cm)
-            caches = (self_caches, cm)
-        else:
-            h = embed_inputs(cfg, self.params, batch["tokens"], batch.get("frontend"), mesh)
-            h, _, caches = decoder_stack(cfg, self.params, h, mode="prefill", s_max=s_max,
-                                         mesh=mesh)
+        cm = self.encode(batch["frontend"], mesh) if cfg.arch_kind == "encdec" else None
+        h = embed_inputs(cfg, self.params, batch["tokens"], batch.get("frontend"), mesh)
+        h, _, caches = decoder_stack(cfg, self.params, h, mode="prefill", s_max=s_max,
+                                     cross_mem=cm, mesh=mesh)
+        if cm is not None:
+            caches = (caches, cm)
         h = norm(h, self.params["final_norm"], cfg.norm_kind, cfg.norm_eps)
         return self._logits_head(h[:, -1:], mesh), caches
 
@@ -761,14 +788,12 @@ class LM(nn.Module):
         mode = "decode_bangkv" if bangkv else "decode"
         mesh = _mesh_for(cfg, mesh, "decode")
         h = embed(tokens.long(), self.params["embed"], mesh)
-        if cfg.arch_kind == "encdec":
-            self_caches, cross = caches
-            h, _, new_self = decoder_stack(cfg, self.params, h, mode=mode, caches=self_caches,
-                                           cross_mem=cross)
-            new_caches = (new_self, cross)
-        else:
-            h, _, new_caches = decoder_stack(cfg, self.params, h, mode=mode, caches=caches,
-                                             s_max=s_max, mesh=mesh)
+        encdec = cfg.arch_kind == "encdec"
+        own, cross = caches if encdec else (caches, None)
+        h, _, new_caches = decoder_stack(cfg, self.params, h, mode=mode, caches=own, s_max=s_max,
+                                         cross_mem=cross, mesh=mesh)
+        if encdec:
+            new_caches = (new_caches, cross)
         h = norm(h, self.params["final_norm"], cfg.norm_kind, cfg.norm_eps)
         return self._logits_head(h, mesh), new_caches
 
@@ -779,7 +804,8 @@ class LM(nn.Module):
         layout `prefill` returns (whisper's cross K and V `memory_len` long,
         the config's `frontend_len` when 0). With `mesh` (a `MeshContext`):
         this rank's blocks of the caches of `batch` requests and `s_max`
-        positions (`cache_pspecs`)."""
+        positions (`cache_pspecs`; whisper's cross K and V cut over the
+        batch only)."""
         cfg, dev = self.cfg, self.device
         L = cfg.n_layers
         mesh = _mesh_for(cfg, mesh, "decode")

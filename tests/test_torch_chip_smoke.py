@@ -577,6 +577,52 @@ def test_chip_smoke_mesh_ssm_phase_on_cpu(smoke, monkeypatch):
     assert out["phase_s"] > 0
 
 
+def test_chip_smoke_mesh_encdec_phase_on_cpu(smoke, monkeypatch):
+    """Phase 13 at reduced whisper on a one-rank gloo mesh in this process
+    (made and destroyed by the phase): 13a's mesh and plain training steps
+    with frames, losses and parameters bit-equal; 13b's mesh prefill and
+    exact-KV steps and 13c's exact-KV then BANG-KV steps with the
+    hierarchical top-L bit-equal to the plain path's (logits, tokens, the
+    self caches, the cross K and V, top-L ids), the collectives counted, no
+    port kernel launched."""
+    import torch.distributed as dist
+
+    import repro_torch.configs as configs
+
+    monkeypatch.setattr(smoke, "lm_config", lambda name, **kw: configs.get(name).reduced(**kw))
+    for name, value in (("ENCDEC_TRAIN_TOKENS", 32), ("ENCDEC_PROMPT", 16), ("ENCDEC_BANG_PROMPT", 24),
+                        ("LM_DECODE", 4), ("LM_LONG_DECODE", 3), ("LM_FIT_ITERS", 2)):
+        monkeypatch.setattr(smoke, name, value)
+    out = smoke.mesh_encdec_phase(torch.device("cpu"), "cpu")
+    assert not dist.is_initialized()
+    assert out["mesh"] == {"data": 1, "model": 1} and out["backend"] == "gloo"
+    train = out["train"]
+    assert train["arch"] == "whisper-medium-reduced" and train["seq_len"] == 32
+    assert train["layers"] == train["layers_published"] and train["encoder_layers"] == 2
+    assert train["frames"] == 4
+    assert train["mesh_step"]["losses"] == train["plain_step"]["losses"]
+    assert len(train["mesh_step"]["losses"]) == smoke.MESH_STEPS
+    assert train["parity"]["bit_equal"] and train["parity"]["param_entries"] > 0
+    counts = train["mesh_step"]["collectives_per_step"]
+    assert counts["all_gather"] > 0 and counts["all_reduce"] > 0
+    for key, prompt, steps, bang in (("serve", 16, 4, 0), ("bangkv", 24, smoke.ENCDEC_BANG_EXACT, 3)):
+        run = out[key]
+        assert run["arch"] == "whisper-medium-reduced" and run["frames"] == 4
+        assert run["prompt"] == prompt and run["steps"] == steps and run["bangkv_steps"] == bang
+        for path in (run["plain"], run["mesh"]):
+            assert len(path["step_ms"]) == steps and path["prefill_ms"] > 0 and path["memory"] is None
+            assert ("bangkv" in path) == bool(bang)
+        # logits, tokens, the self caches (k, v, index) and the cross K and
+        # V; with BANG-KV its logits, top-L ids and caches (codes too)
+        assert run["tensors_compared"] == (3 + 5 if not bang else 3 + 5 + 2 + 6)
+        for counts in (run["mesh"]["collectives_per_step"], run["mesh"]["prefill_collectives"]):
+            assert counts["all_gather"] > 0 and counts["all_reduce"] > 0
+        assert run["mesh"]["device_profile"] is None and run["mesh_over_plain"] > 0
+    assert out["bangkv"]["mesh"]["bangkv"]["collectives_per_step"]["all_gather"] > 0
+    assert out["kernel_launches"] == dict.fromkeys(smoke.kernel_counters(), 0)
+    assert out["phase_s"] > 0
+
+
 def test_code_gaps_reports_each_differing_code(smoke):
     """Phase 5b's C10 check: one line for each (row, subspace) whose codes
     differ, with both centroids' float64 squared distances and the gap in

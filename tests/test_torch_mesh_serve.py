@@ -511,8 +511,7 @@ SPEC_MESHES = {
     "2x16x16": (("pod", 2), ("data", 16), ("model", 16)),
     "2x2": (("data", 2), ("model", 2)),
 }
-SERVE_ARCHS = sorted(n for n, c in configs.ARCHS.items()
-                     if c.family in ("dense", "vlm", "moe", "ssm", "hybrid"))
+SERVE_ARCHS = sorted(configs.ARCHS)
 
 
 def _spec_leaves(tree) -> list:
@@ -522,7 +521,8 @@ def _spec_leaves(tree) -> list:
 
 def _per_layer(ref_specs, cfg) -> list:
     """The reference's parameter specs in the port's order, a stacked
-    layer's leading None dropped (the port keeps one tensor a layer)."""
+    layer's leading None dropped (the port keeps one tensor a layer; the
+    decoder's and whisper's encoder's stacks)."""
     from repro.distributed import partitioning as rpart
 
     flat, _ = jax.tree_util.tree_flatten_with_path(
@@ -530,11 +530,13 @@ def _per_layer(ref_specs, cfg) -> list:
     ref = {"/".join(rpart._key_str(p) for p in path): tuple(s) for path, s in flat}
     out = {}
     for key, spec in ref.items():
-        if key.startswith("layers/"):
-            for i in range(cfg.n_layers):
-                out[key.replace("layers/", f"layers/{i}/", 1)] = spec[1:]
-        else:
+        stack = next((s for s in ("layers/", "encoder/layers/") if key.startswith(s)), None)
+        if stack is None:
             out[key] = spec
+            continue
+        n = cfg.n_layers if stack == "layers/" else cfg.n_encoder_layers
+        for i in range(n):
+            out[key.replace(stack, f"{stack}{i}/", 1)] = spec[1:]
     return out
 
 
@@ -569,12 +571,35 @@ def test_serve_placements_match_reference(name, mesh_name):
 
 @pytest.mark.parametrize("name", ["whisper-medium"])
 def test_other_families_refuse_to_serve_on_a_mesh(name):
-    """encdec has no mesh prefill or decode step on (1, 2): it raises,
-    naming the roadmap item (moe serves on a mesh:
-    tests/test_torch_mesh_moe.py; ssm and hybrid:
-    tests/test_torch_mesh_ssm.py)."""
-    cfg = configs.get(name).reduced(dtype="float32")
-    mesh = AbstractMesh({"data": 1, "model": 2})
-    for kind in ("prefill", "decode"):
-        with pytest.raises(NotImplementedError, match=f"no mesh {kind} step.*A8e-2"):
-            step_and_specs(cfg, ShapeSpec("t", kind, 64, 8), mesh)
+    """The encdec family's prefill and decode placements on a shape-only
+    (2, 2) mesh, for prefill_32k, decode_32k and long_500k: `cross/wq` FSDP
+    over `data` and Megatron TP over `model`, the table of 51,865 rows
+    whole over `model`; the prefill's frames over `data`; the self caches'
+    sequence over `model`, the cross K and V (L, B, 1,500, Hkv, hd) over
+    the batch on `data` only (whole where long_500k's one request does not
+    divide it); the steps refuse to run on that mesh. Its steps on
+    runnable meshes: tests/test_torch_mesh_encdec.py."""
+    cfg = configs.get(name)
+    mesh = AbstractMesh({"data": 2, "model": 2})
+    for shape_name in ("prefill_32k", "decode_32k", "long_500k"):
+        _whisper_placements(cfg, shape_name, mesh)
+
+
+def _whisper_placements(cfg, shape_name: str, mesh) -> None:
+    shape = LM_SHAPES[shape_name]
+    step, specs, place = step_and_specs(cfg, shape, mesh)
+    assert place[0]["layers"][0]["cross"]["wq"] == ("data", "model")
+    assert place[0]["embed"] == (None, "data")
+    if shape.kind == "prefill":
+        assert place[1]["frontend"] == ("data", None, None)
+        assert tuple(specs[1]["frontend"].shape) == (shape.global_batch, cfg.frontend_len, cfg.d_model)
+    else:
+        own, cross = place[1]
+        bspec = "data" if shape.global_batch % 2 == 0 else None
+        assert own.k == own.v == (None, bspec, "model", None, None)
+        assert list(cross) == [(None, bspec, None, None, None)] * 2
+        assert tuple(specs[1][1][0].shape) == (cfg.n_layers, shape.global_batch, cfg.frontend_len,
+                                               cfg.n_kv_heads, cfg.head_dim)
+        assert step.bangkv == (shape_name == "long_500k")
+    with pytest.raises(TypeError, match="runnable"):
+        step(None, None, None)

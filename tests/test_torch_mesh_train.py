@@ -19,10 +19,11 @@ internvl2-1b (vlm) on (2, 2), two head layouts of other routes on (1, 4)
 the sharded global norm on (2, 2), `compressed_psum` on 4 gloo ranks
 against the reference's under `shard_map` on 4 host devices (bit-equal), a
 checkpoint of the (2, 2) state restored onto (2, 1) that continues as the
-run that never stopped, the encdec family refused, and the (1, 1) step
-bit-equal to the plain one. The moe family's mesh steps:
+run that never stopped, whisper's placements on a shape-only mesh, and
+the (1, 1) step bit-equal to the plain one. The moe family's mesh steps:
 tests/test_torch_mesh_moe.py; the ssm and hybrid families':
-tests/test_torch_mesh_ssm.py.
+tests/test_torch_mesh_ssm.py; the encdec family's:
+tests/test_torch_mesh_encdec.py.
 
 Bounds (ROADMAP C15, C18: the row-parallel all-reduces, the vocabulary-
 parallel logsumexp and the sharded global norm sum in other orders): the
@@ -505,13 +506,26 @@ def test_compressed_psum_matches_reference_bit_for_bit(runs, tmp_path):
 
 @pytest.mark.parametrize("name", ["whisper-medium"])
 def test_other_families_refuse_a_mesh(name):
-    """encdec has no mesh step on (1, 2): it raises, naming the roadmap
-    item, and never runs replicated (moe trains on a mesh:
-    tests/test_torch_mesh_moe.py; ssm and hybrid:
-    tests/test_torch_mesh_ssm.py)."""
-    cfg = configs.get(name).reduced(dtype="float32")
-    with pytest.raises(NotImplementedError, match="A8e-2"):
-        step_and_specs(cfg, ShapeSpec("t", "train", SEQ, 8), AbstractMesh({"data": 1, "model": 2}))
+    """The encdec family's training placements on a shape-only (2, 2) mesh
+    are the rules': the cross block's and the encoder's weights FSDP over
+    `data` and Megatron TP over `model`, the table of 51,865 rows (odd)
+    whole over `model` and cut over `data` on d_model, the frames' batch
+    over `data`; the step refuses to run on that mesh. Its steps on
+    runnable meshes: tests/test_torch_mesh_encdec.py (moe:
+    tests/test_torch_mesh_moe.py; ssm and hybrid: tests/test_torch_mesh_ssm.py)."""
+    cfg = configs.get(name)
+    mesh = AbstractMesh({"data": 2, "model": 2})
+    step, specs, place = step_and_specs(cfg, ShapeSpec("t", "train", SEQ, 8), mesh)
+    params = place[0]
+    assert params["layers"][0]["cross"]["wq"] == ("data", "model")
+    assert params["layers"][3]["cross"]["wo"] == ("model", "data")
+    assert params["encoder"]["layers"][0]["attn"]["wk"] == ("data", "model")
+    assert params["encoder"]["layers"][0]["ffn"]["w_down"] == ("model", "data")
+    assert params["embed"] == (None, "data") and "lm_head" not in params
+    assert place[2]["frontend"] == ("data", None, None)
+    assert tuple(specs[2]["frontend"].shape) == (8, cfg.frontend_len, cfg.d_model)
+    with pytest.raises(TypeError, match="runnable"):
+        step(None, None, None)
 
 
 def test_train_step_on_a_shape_only_mesh():
