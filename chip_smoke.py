@@ -74,7 +74,7 @@ Phases, each timed; any failure exits non-zero:
      before it: recall@10 against brute force, mean hops, n_iters, QPS and
      the idle share. Checks: fused ids equal kernel_mode="reference" ids on
      every variant, base ids and distances equal inmem's; and one batch of
-     host-I/O base (four workers, 1,500 hot rows, prefetch), ids and
+     host-I/O base (four workers, 600 hot rows, prefetch), ids and
      distances equal base's, with the hot cache's hit rate on this graph;
   5b. streaming mutability on the Vamana cell's index (`MutableBangIndex`):
      MUT_INSERTS further points of the draw inserted and MUT_DELETES random
@@ -227,6 +227,22 @@ Phases, each timed; any failure exits non-zero:
      a step, peak memory. No port kernel lies on this path: the launch
      counts stay 0. Its numbers go into the summary line under
      "mesh_encdec".
+  14. the launch slice (`launch_phase`), after phase 13: 14a the ANN serve
+     CLI (`repro_torch.launch.serve.main`, its defaults: n = 4,000, d =
+     64, 3 batches of 128, t = 64) on the card, each batch's QPS and
+     recall@10, the recall no lower than the reference package's CLI
+     gives on the CPU for the same arguments; it runs the ANN main path,
+     so K1-K3 launch there and their counts are printed beside it; 14b
+     granite-3-2b cut to 4 layers at 9a's shape on the (1, 1, 1) ("pod",
+     "data", "model") mesh, a one-rank NCCL group: 2 training steps, a
+     prefill and 4 greedy exact-KV steps, each bit-equal to the plain path
+     on the same parameters, launch counts 0; 14c, after them,
+     `launch.dryrun` in processes of its own (host work only, one a cell,
+     side by side), the step of one cell a family (decode_32k) shape-only at full width and
+     depth on a fake 2 x 16 x 16 process group and the sharded search at
+     the reference's `--dryrun-sharded` shapes: each cell's wall, peak
+     bytes a rank and dominant roofline term, estimates from shapes. Its
+     numbers go into the summary line under "launch".
 
 Kernel times are taken cold: the timed calls cycle through copies of the
 inputs that together exceed twice the H100's 50 MB L2. Bounds count the bytes the function needs for this run's
@@ -265,15 +281,16 @@ TRAVERSE_SWEEP_T = (16, 64, 152, 448, 500)   # K6 and K5 timed at these t (R = 6
 TABLE_SWEEP_QUERIES = (8, 16, 32, 64, 128)   # K8 timed at these queries a tile
 SORT_SWEEP_N = (64, 512, 513, 1000)          # K4 timed at these n: both sides of its regimes
 INTRINSIC_DIM = 16             # per-cluster subspace of the synthetic corpus
-# The Vamana cell (phase 5): the largest n whose host build keeps the whole
-# script within about five minutes (3.6 ms a point and pass at n = 10**4,
-# R = 64, L = 128 on the H100 machine's host).
-VAMANA_N, VAMANA_QUERIES = 15_000, 1_000
+# The Vamana cell (phase 5): its host build (3.6-5.7 ms a point and pass
+# at R = 64, L = 128 on the H100 machines' hosts) cut from 15,000 points to
+# 6,000 so that the whole script, phase 14 in it, stays within its earlier
+# time on a slow host.
+VAMANA_N, VAMANA_QUERIES = 6_000, 1_000
 VAMANA_R, VAMANA_L, VAMANA_ALPHA = 64, 128, 1.2
 # Phase 5b: mutations of the Vamana cell's index, 1% of its n each: inserts
 # of further points of the same draw (two rounds: before the fold, and
 # before the background fold), deletes of random non-medoid base ids.
-MUT_INSERTS, MUT_DELETES = 150, 150
+MUT_INSERTS, MUT_DELETES = 60, 60
 MUT_BATCHES = 3                # timed batches of each phase-5b path
 COPIES = 4                     # input copies cycled by timed calls, at least
 L2_BYTES = 50 * 2**20          # H100 L2; the copies together exceed twice this
@@ -1312,7 +1329,7 @@ HOSTIO_CONFIGS = (("base-hostio-w1", dict(workers=1)),
                   ("base-hostio-w4-p", dict(workers=4, prefetch=True)),
                   ("base-hostio-w4-c64k-p", dict(workers=4, hot_cache_rows=65_536, prefetch=True)))
 HOSTIO_FULL = dict(workers=4, hot_cache_rows=65_536, prefetch=True)
-VAMANA_HOSTIO = dict(workers=4, hot_cache_rows=1_500, prefetch=True)
+VAMANA_HOSTIO = dict(workers=4, hot_cache_rows=600, prefetch=True)
 
 
 def hop_split(wait_s: float, gather_s: float, send_s: float, hops: int) -> dict:
@@ -3998,6 +4015,246 @@ def mesh_encdec_phase(dev, card: str) -> dict:
     return out
 
 
+# ------------------------------------------------------------ phase 14
+# 14a: the serve CLI's defaults (n = 4,000, d = 64, 3 batches of 128, t =
+# 64). Its recall@10 floor a batch: the reference package's CLI
+# (`python -m repro.launch.serve`, the same arguments) on a CPU, JAX's
+# recall unrounded (it prints 0.777, 0.760, 0.703).
+SERVE_ARGS = ()                 # 14a: the CLI's own defaults
+SERVE_REFERENCE_RECALL = (0.7765625, 0.76015625, 0.703125)
+LAUNCH_LAYERS = 4               # 14b: granite-3-2b cut to 4 of 40 layers
+LAUNCH_TRAIN_STEPS = 2          # 14b: training steps each way
+LAUNCH_DECODE = 4               # 14b: greedy exact-KV steps each way
+# 14c: one cell a family, shape-only on the 2 x 16 x 16 fake group, at
+# full width and depth, and the sharded search at its reference shapes.
+DRYRUN_CELLS = (("granite-3-2b", "decode_32k"), ("internvl2-1b", "decode_32k"),
+                ("phi3.5-moe-42b-a6.6b", "decode_32k"), ("mamba2-2.7b", "decode_32k"),
+                ("zamba2-2.7b", "decode_32k"), ("whisper-medium", "decode_32k"))
+DRYRUN_MESH = (2, 16, 16)
+DRYRUN = r"""
+import json, sys
+import torch
+import repro_torch.configs as configs
+from repro_torch.configs.base import LM_SHAPES, ShapeSpec
+from repro_torch.launch import dryrun
+
+cell, mesh, reduced, out = json.loads(sys.argv[1])
+if cell is None:
+    rec = dryrun.sharded_search_dryrun(mesh_shape=tuple(mesh))
+else:
+    arch, shape = cell
+    cfg = configs.get(arch)
+    sh = LM_SHAPES[shape]
+    if reduced:   # the CPU rehearsal: reduced widths, a short sequence
+        cfg = cfg.reduced(dtype="float32", n_layers=4 if cfg.family == "hybrid" else 2)
+        sh = ShapeSpec(shape, sh.kind, 64, 8)
+    rec = dryrun.run_cell(arch, shape, True, out, force=True, cfg=cfg, shape=sh, mesh_shape=tuple(mesh))
+print(json.dumps(dict(rec, torch=torch.__version__)))
+"""
+
+
+def launch_phase(dev, card: str) -> dict:
+    """Phase 14: the launch slice. 14a: the ANN serve CLI
+    (`launch.serve.main`, its defaults, on the card): each batch's QPS and
+    recall@10, the recall no lower than the reference CLI's on the CPU for
+    the same arguments (`SERVE_REFERENCE_RECALL`). It runs the ANN main
+    path, so it launches K1-K3: its counts are reported beside it. 14b: a
+    (1, 1, 1) ("pod", "data", "model") mesh (a one-rank NCCL group on the
+    card, gloo on the CPU): granite-3-2b at 9a's shape cut to LAUNCH_LAYERS
+    layers, LAUNCH_TRAIN_STEPS training steps, then a prefill and
+    LAUNCH_DECODE greedy exact-KV steps, each bit-equal to the plain path
+    on the same parameters; the launch counts, set to 0 first, must be 0
+    after. 14c, after them: in subprocesses (a fake process group cannot
+    share a process with NCCL), one a cell and one for the search, all
+    started together, `launch.dryrun` shape-only on the 2 x 16 x 16 fake
+    group: one cell a family (`DRYRUN_CELLS`) and the sharded search at
+    the reference's `--dryrun-sharded` shapes; each cell's wall, peak
+    bytes a rank and dominant term. Its numbers are estimates from
+    shapes."""
+    import os
+
+    import torch
+
+    t_phase = time.perf_counter()
+    out = {}
+    _launch_card(dev, card, out)
+    t0 = time.perf_counter()
+    # One process a cell and one for the search, started together.
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", DRYRUN, json.dumps([cell, list(DRYRUN_MESH), torch.device(dev).type == "cpu",
+                                                   str(ROOT / "build" / "dryrun_torch")])],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+        env=dict(os.environ, PYTHONPATH=str(ROOT / "src"))) for cell in [*DRYRUN_CELLS, None]]
+    try:
+        runs = [p.communicate(timeout=600) for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    for p, (_, stderr) in zip(procs, runs):
+        if p.returncode != 0:
+            raise AssertionError(f"14c: the dry run failed:\n{stderr[-4000:]}")
+    *recs, sh = [json.loads(stdout.strip().splitlines()[-1]) for stdout, _ in runs]
+    for rec in [*recs, sh]:
+        if rec["status"] != "ok":
+            raise AssertionError(f"14c: {rec.get('arch', 'sharded')} failed:\n{rec.get('traceback')}")
+    cells = [{"arch": r["arch"], "shape": r["shape"], "mesh": r["mesh"], "wall_s": r["wall_s"],
+              "peak_bytes": r["memory"]["peak_bytes"], "argument_bytes": r["memory"]["argument_size_in_bytes"],
+              "fits": r["memory"]["fits"], "dominant": r["roofline"]["dominant"],
+              "collectives": {k: v["count"] for k, v in r["collectives"].items() if k != "total_bytes"},
+              "collective_bytes": r["collectives"]["total_bytes"]} for r in recs]
+    out["dryrun"] = {"torch": sh["torch"], "cells": cells, "process_s": time.perf_counter() - t0,
+                     "sharded": {k: sh[k] for k in ("mesh", "n", "B", "n_loc", "queries_a_rank",
+                                                     "max_iters", "bytes_a_rank", "collectives",
+                                                     "search_bound", "wall_s")},
+                     "s": sum(c["wall_s"] for c in cells) + sh["wall_s"]}
+    for c in cells:
+        log(f"[launch] 14c {c['arch']} {c['shape']} on {c['mesh']} (fake group, torch {sh['torch']}): "
+            f"wall {c['wall_s']:.2f} s, peak {c['peak_bytes'] / 1e9:.3f} GB a rank (arguments "
+            f"{c['argument_bytes'] / 1e9:.3f}), {c['dominant']}-bound; collectives {c['collectives']} "
+            "(shape estimates)")
+    log(f"[launch] 14c sharded search (n {sh['n']:,}, B {sh['B']:,}) on {sh['mesh']}: "
+        f"{sh['bytes_a_rank']['total'] / 1e6:.1f} MB a rank, a hop's all-reduces "
+        f"{sh['collectives']['hop']['all-reduce']}, bound over {sh['max_iters']} hops "
+        f"{sh['search_bound']['total_bytes'] / 1e6:.1f} MB; wall {sh['wall_s']:.2f} s; cells and search "
+        f"{out['dryrun']['s']:.1f} s in {len(procs)} processes side by side, {out['dryrun']['process_s']:.1f} s")
+    out["phase_s"] = time.perf_counter() - t_phase
+    return out
+
+
+def _launch_card(dev, card: str, out: dict) -> None:
+    """Phase 14a and 14b, on the card (see `launch_phase`)."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.data import TokenStream
+    from repro_torch.distributed import POD_AXES, make_mesh, shard_tree
+    from repro_torch.launch import serve
+    from repro_torch.launch.specs import LR, step_and_specs
+    from repro_torch.models import LM, init_params
+    from repro_torch.optim import adamw_init, adamw_update
+    from repro_torch.tree import flat_dict
+
+    # 14a: the serve CLI.
+    free_device(dev)
+    reset_launches()
+    t0 = time.perf_counter()
+    rows = serve.main([*SERVE_ARGS, "--device", torch.device(dev).type])
+    out["serve"] = {"batches": rows, "reference_recall_at_10": list(SERVE_REFERENCE_RECALL),
+                    "kernel_launches": read_launches(), "s": time.perf_counter() - t0}
+    for r, floor in zip(rows, SERVE_REFERENCE_RECALL):
+        if not r["recall_at_10"] >= floor:
+            raise AssertionError(f"14a batch {r['batch']}: recall@10 {r['recall_at_10']} below the "
+                                 f"reference CLI's {floor}")
+    log(f"[launch] 14a serve CLI {' '.join(SERVE_ARGS) or '(n 4,000, d 64, 3 x 128 queries, t 64)'}: "
+        + "; ".join(
+        f"batch {r['batch']} {r['qps']:.1f} QPS recall@10 {r['recall_at_10']:.3f}" for r in rows)
+        + f"; the reference CLI's recall on the CPU {SERVE_REFERENCE_RECALL}; launches "
+        + ", ".join(f"{k} {v}" for k, v in out["serve"]["kernel_launches"].items() if v) + f" [{card}]")
+
+    # 14b: the (1, 1, 1) pod mesh against the plain path.
+    t0 = time.perf_counter()
+    free_device(dev)
+    reset_launches()
+    cfg = lm_config(TRAIN_ARCH, n_layers=LAUNCH_LAYERS)
+    seq, B = TRAIN_SEQ, TRAIN_BATCH
+    made = not dist.is_initialized()
+    mesh = make_mesh((1, 1, 1), POD_AXES, dev)
+    res = {"arch": cfg.name, "layers": LAUNCH_LAYERS, "mesh": dict(mesh.shape),
+           "backend": dist.get_backend(), "batch": B, "seq_len": seq}
+    try:
+        stream = TokenStream(cfg.vocab_size, seq, B, seed=SEED)
+        batches = [{k: torch.from_numpy(v).to(dev) for k, v in stream.batch_at(s).items()}
+                   for s in range(LAUNCH_TRAIN_STEPS)]
+        full = init_params(cfg, torch.Generator(dev).manual_seed(SEED + 14), dev)
+        step, _, place = step_and_specs(cfg, ShapeSpec("train_4k", "train", seq, B), mesh)
+        mparams, plain = shard_tree(full, place[0], mesh), shard_tree(full, place[0], mesh)
+        opt, popt = adamw_init(mparams), adamw_init(plain)
+        lm = LM(cfg, plain)
+        plain.requires_grad_(True)
+        ms = {"mesh": [], "plain": []}
+        for s in range(LAUNCH_TRAIN_STEPS):
+            sync(dev)
+            t1 = time.perf_counter()
+            mparams, opt, loss = step(mparams, opt, shard_tree(batches[s], place[2], mesh))
+            sync(dev)
+            ms["mesh"].append((time.perf_counter() - t1) * 1e3)
+            t1 = time.perf_counter()
+            for p in plain.parameters():
+                p.grad = None
+            ploss, _ = lm.loss(batches[s])
+            ploss.backward()
+            _, popt, _ = adamw_update({k: p.grad for k, p in flat_dict(plain).items()}, popt, plain, LR)
+            sync(dev)
+            ms["plain"].append((time.perf_counter() - t1) * 1e3)
+            same(f"14b training loss {s}", loss.detach(), ploss.detach())
+        a, b = flat_dict(mparams), flat_dict(plain)
+        for k in a:
+            same(f"14b parameter {k}", a[k].detach(), b[k].detach())
+        res["train"] = {"step_ms": ms, "collectives_per_step": {
+            k: v / LAUNCH_TRAIN_STEPS for k, v in step.mesh_context.counts.items()},
+            "bytes_per_step": {k: v / LAUNCH_TRAIN_STEPS for k, v in step.mesh_context.bytes.items()},
+            "param_entries": sum(x.numel() for x in a.values()), "bit_equal": True}
+        del opt, popt, lm, plain, a, b, batches
+        free_device(dev)
+
+        # Prefill and decode from the initial parameters.
+        tokens = torch.from_numpy(stream.batch_at(LAUNCH_TRAIN_STEPS)["tokens"]).to(dev)
+        s_max = seq + LAUNCH_DECODE
+        prefill, _, (p_place, b_place) = step_and_specs(cfg, ShapeSpec("p", "prefill", seq, B), mesh)
+        serve_step, _, _ = step_and_specs(cfg, ShapeSpec("d", "decode", s_max, B), mesh)
+        params = shard_tree(full, p_place, mesh)
+        lm = LM(cfg, full)
+        sync(dev)
+        t1 = time.perf_counter()
+        logits, caches = prefill(params, shard_tree({"tokens": tokens}, b_place, mesh), s_max=s_max)
+        sync(dev)
+        mesh_prefill = (time.perf_counter() - t1) * 1e3
+        t1 = time.perf_counter()
+        plogits, pcaches = lm.prefill({"tokens": tokens}, s_max=s_max)
+        sync(dev)
+        plain_prefill = (time.perf_counter() - t1) * 1e3
+        finite("14b prefill logits", logits, (B, 1, cfg.vocab_size))
+        same("14b prefill logits", logits, plogits)
+        tok = logits[:, 0].argmax(dim=-1, keepdim=True).to(torch.int32)
+        dl, fed, mms, caches = greedy_run(lambda c, t: serve_step(params, c, t), caches, tok,
+                                          LAUNCH_DECODE, dev)
+        pdl, pfed, pms, pcaches = greedy_run(lambda c, t: lm.decode_step(c, t), pcaches, tok,
+                                             LAUNCH_DECODE, dev)
+        for what, x, y in (("decode logits", dl, pdl), ("tokens", fed, pfed),
+                           *((f"cache {i}", c1, c2) for i, (c1, c2) in enumerate(zip(caches, pcaches)))):
+            same(f"14b {what}", x, y)
+        res["serve"] = {"prefill_ms": {"mesh": mesh_prefill, "plain": plain_prefill},
+                        "decode_ms": {"mesh": mms, "plain": pms},
+                        "prefill_collectives": dict(prefill.mesh_context.counts),
+                        "collectives_per_step": {k: v / LAUNCH_DECODE
+                                                 for k, v in serve_step.mesh_context.counts.items()},
+                        "bit_equal": True}
+        del full, params, lm, caches, pcaches, logits, plogits, dl, pdl
+    finally:
+        if made and dist.is_initialized():
+            dist.destroy_process_group()
+    free_device(dev)
+    res["kernel_launches"] = read_launches()
+    if any(res["kernel_launches"].values()):
+        raise AssertionError(f"14b launched port kernels: {res['kernel_launches']}")
+    res["s"] = time.perf_counter() - t0
+    out["pod_mesh"] = res
+    tr, sv = res["train"], res["serve"]
+    log(f"[launch] 14b {cfg.name} ({LAUNCH_LAYERS} layers) on the {res['mesh']} mesh ({res['backend']}, "
+        f"one rank): {LAUNCH_TRAIN_STEPS} training steps of {B} x {seq} tokens, mesh / plain ms "
+        + ", ".join(f"{x:.1f} / {y:.1f}" for x, y in zip(tr["step_ms"]["mesh"], tr["step_ms"]["plain"]))
+        + f"; prefill {sv['prefill_ms']['mesh']:.1f} / {sv['prefill_ms']['plain']:.1f} ms; "
+        f"{LAUNCH_DECODE} decode steps, median after the first "
+        f"{float(np.median(sv['decode_ms']['mesh'][1:])):.2f} / "
+        f"{float(np.median(sv['decode_ms']['plain'][1:])):.2f} ms; losses, {tr['param_entries']:,} "
+        "parameter entries, logits, tokens and caches bit-equal; collectives a training step "
+        + ", ".join(f"{k} {v:.0f}" for k, v in sorted(tr["collectives_per_step"].items()))
+        + f"; launches 0; {res['s']:.1f} s [{card}]")
+
+
 def main() -> int:
     import torch
 
@@ -4089,6 +4346,9 @@ def main() -> int:
     mesh_encdec = mesh_encdec_phase(dev, card)
     log(f"[mesh-encdec] phase: {mesh_encdec['phase_s']:.1f} s")
 
+    launch = launch_phase(dev, card)
+    log(f"[launch] phase: {launch['phase_s']:.1f} s")
+
     keys = ("recall_at_10", "qps", "n_batches", "mean_n_iters", "mean_hops", "batch_wall_ms",
             "device_busy_ms_per_batch", "link_bytes_per_hop", "rerank_bytes_per_batch",
             "host_gather_ms_per_batch", "host_gather_share", "collective_ms_per_batch",
@@ -4108,7 +4368,8 @@ def main() -> int:
                       "autotune": {k: at[k] for k in ("winner", "sweep", "sweep_s", "device_kind")},
                       "small_recall_at_10": small, "lm": lm, "train": train, "mesh": mesh,
                       "mesh_serve": mesh_serve, "mesh_moe": mesh_moe, "mesh_ssm": mesh_ssm,
-                      "mesh_encdec": mesh_encdec, "card": card}))
+                      "mesh_encdec": mesh_encdec, "launch": launch,
+                      "card": card}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

@@ -284,13 +284,19 @@ def sharded_bang_search_block(
     return ids, dists, res.n_hops, res.n_iters
 
 
-def make_sharded_search(mesh, medoid: int, k: int, cfg: SearchConfig) -> Callable:
+def make_sharded_search(mesh, medoid: int, k: int, cfg: SearchConfig, *,
+                        neighbor_fn: Callable | None = None) -> Callable:
     """The mesh search as a function of this rank's state:
     fn(queries (B, d), codebooks, codes_local, adjacency_local, data_local)
-    -> (ids (B, k), dists (B, k)), the whole batch on every rank. B must be
-    a multiple of the data-axis size; each data rank searches its slice of
-    the batch, and the slices are all-gathered over the data group."""
-    model, data = mesh.group("model"), mesh.group("data")
+    -> (ids (B, k), dists (B, k)), the whole batch on every rank. The
+    queries are cut over the mesh's batch group, as the reference's
+    `data_axes=("pod", "data")` cuts them: pod x data on a (P, D, S) mesh,
+    the data group on a (D, S) one. B must be a multiple of its size; each
+    of its ranks searches its slice of the batch, and the slices are
+    all-gathered over it. `neighbor_fn` stands in for
+    `sharded_neighbor_fn(adjacency_local)` (the shape-only dry run's source,
+    which serves a set number of hops)."""
+    model, batch = mesh.group("model"), mesh.group("batch")
 
     def fn(queries, codebooks, codes_local, adjacency_local, data_local):
         cfg_r = dataclasses.replace(cfg, kernel_mode=cfg.resolved_kernel_mode(queries.device))
@@ -298,19 +304,21 @@ def make_sharded_search(mesh, medoid: int, k: int, cfg: SearchConfig) -> Callabl
         table = pqlib.build_dist_table(pqlib.PQCodec(codebooks), q)
         ids, dists, _, _ = sharded_bang_search_block(
             q, table, codes_local, adjacency_local, data_local, medoid, k, cfg_r, model,
+            neighbor_fn=neighbor_fn,
         )
-        return all_gather_rows(ids, data), all_gather_rows(dists, data)
+        return all_gather_rows(ids, batch), all_gather_rows(dists, batch)
 
     return fn
 
 
 def data_slice(x: torch.Tensor, mesh) -> torch.Tensor:
-    """This rank's rows of a batch split evenly over the data axis."""
-    D = mesh.shape["data"]
+    """This rank's rows of a batch split evenly over the mesh's batch group
+    (pod x data, pod-major; the data axis on a (D, S) mesh)."""
+    D = mesh.shape["data"] * mesh.shape.get("pod", 1)
     if x.shape[0] % D:
         raise ValueError(f"batch {x.shape[0]} does not split over {D} data ranks")
     b = x.shape[0] // D
-    i = mesh.index("data")
+    i = mesh.index("batch")
     return x[i * b : (i + 1) * b]
 
 

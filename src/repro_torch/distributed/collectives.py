@@ -21,12 +21,14 @@ a mesh's `data` and `model` groups:
   * `from_model` -- forward: all-reduce over `model`; backward: identity.
     The partial sums of a row-parallel projection (and of an MoE block's
     experts, each `model` rank holding E/M of them).
-  * `sum_data` -- forward and backward: all-reduce over `data`. The sums
-    behind an MoE block's auxiliary means over the global batch (router
-    probabilities and z): each data rank's loss holds the global term once
-    (divided by the data ranks), so the sum of every rank's gradient is
-    the gradient of its share. `gather_data` all-gathers the per-expert
-    assignment counts (no gradient), from which each rank's slots start.
+  * `sum_data` -- forward and backward: all-reduce over the batch's axes
+    (`data`, and `pod` where the mesh has it). The sums behind an MoE
+    block's auxiliary means over the global batch (router probabilities
+    and z): each batch rank's loss holds the global term once (divided by
+    the batch ranks), so the sum of every rank's gradient is the gradient
+    of its share. `gather_data` all-gathers the per-expert assignment
+    counts over the same ranks (no gradient), from which each rank's slots
+    start.
   * `vocab_parallel_embed` and `vocab_parallel_cross_entropy`: the embedding
     lookup and the sequence-chunked cross-entropy with the vocabulary split
     over `model` (the reference's logits are `model`-sharded,
@@ -40,10 +42,20 @@ logits (`layers.logits_head`); `reduce_model` all-reduces (MAX or SUM) the
 softmax's max and sum and the partial attention outputs of a decode over
 a cache cut over the sequence (`SeqBlock`: this rank's block of it).
 
+The `pod` axis of a (P, D, S) mesh is pure data parallelism, as the
+reference's rules make it: the weights are whole over it, the FSDP gathers
+stay over `data`, and every batch-wide sum (the loss, the gradients, the
+MoE's counts and auxiliary sums) runs over the pod x data group
+(`Mesh.group("batch")`, which is the data group on a (D, S) mesh).
+
 Every collective is called whatever the group's size: a one-rank group
 still launches it. `MeshContext` holds a mesh, the config's full widths (a
 block's shape does not say whether its dim was cut) and the count of the
-collectives it issued, by kind.
+collectives it issued by kind, with their payload's bytes a rank (an
+all-gather's result, an all-reduce's tensor: the reference's dry run reads
+the same from the collectives' result shapes). The counts hold on a fake
+process group (`backend="fake"`) under fake tensors, where the steps run
+shape-only at the production mesh's size (`launch.dryrun`).
 """
 from __future__ import annotations
 
@@ -80,8 +92,12 @@ def check_mesh_family(cfg, mesh, kind: str = "train") -> None:
             f"{dict(mesh.shape)}")
 
 
+def _nbytes(x: torch.Tensor) -> int:
+    return x.numel() * x.element_size()
+
+
 def _all_reduce(x: torch.Tensor, mc: "MeshContext", axis: str, op=dist.ReduceOp.SUM) -> torch.Tensor:
-    mc.count("all_reduce")
+    mc.count("all_reduce", _nbytes(x))
     dist.all_reduce(x, op=op, group=mc.group(axis))
     return x
 
@@ -92,7 +108,7 @@ class _Gather(torch.autograd.Function):
         group = mc.group(axis)
         n = dist.get_world_size(group)
         parts = [torch.empty_like(x) for _ in range(n)]
-        mc.count("all_gather")
+        mc.count("all_gather", n * _nbytes(x))
         dist.all_gather(parts, x.contiguous(), group=group)
         ctx.dim, ctx.mc, ctx.axis, ctx.partial = dim, mc, axis, partial
         ctx.n, ctx.r = n, dist.get_rank(group)
@@ -130,19 +146,20 @@ class _SumData(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, mc: "MeshContext"):
         ctx.mc = mc
-        return _all_reduce(x.contiguous().clone(), mc, "data")
+        return _all_reduce(x.contiguous().clone(), mc, "batch")
 
     @staticmethod
     def backward(ctx, g):
-        return _all_reduce(g.contiguous().clone(), ctx.mc, "data"), None
+        return _all_reduce(g.contiguous().clone(), ctx.mc, "batch"), None
 
 
 class MeshContext:
-    """The mesh step's view of a (data, model) `Mesh` for one config: its
-    groups, this rank's coordinates, the full shape of every weight the
-    step gathers, whether the batch is cut over `data` (`global_batch`
-    divides the data ranks; otherwise each holds all of it; None: cut),
-    and a count of the collectives issued.
+    """The mesh step's view of a (data, model) or (pod, data, model) `Mesh`
+    for one config: its groups, this rank's coordinates, the full shape of
+    every weight the step gathers, whether the batch is cut over its axes
+    (`global_batch` divides the batch ranks, pod x data; otherwise each
+    holds all of it; None: cut), and the count and bytes of the
+    collectives issued, by kind.
 
     A weight is keyed by its leaf name, an MoE block's by its path within
     the block: "moe/w_gate", "moe/w_up" (E, D, F), "moe/w_down" (E, F, D)
@@ -159,12 +176,14 @@ class MeshContext:
     def __init__(self, mesh, cfg, global_batch: int | None = None):
         self.mesh = mesh
         self.cfg = cfg
-        self.n_data = mesh.shape["data"]
+        self.n_batch = mesh.shape["data"] * mesh.shape.get("pod", 1)   # the batch's ranks
         self.n_model = mesh.shape["model"]
-        self.data_index = mesh.index("data")
+        self.batch_index = mesh.index("batch")
         self.model_index = mesh.index("model")
-        self.batch_cut = global_batch is None or global_batch % self.n_data == 0
+        self.has_pod = "pod" in mesh.shape
+        self.batch_cut = global_batch is None or global_batch % self.n_batch == 0
         self.counts: collections.Counter = collections.Counter()
+        self.bytes: collections.Counter = collections.Counter()
         H, Hkv, hd, D, F, V = (cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, cfg.d_model, cfg.d_ff,
                                cfg.vocab_size)
         shapes = {"wq": (D, H * hd), "wk": (D, Hkv * hd), "wv": (D, Hkv * hd), "wo": (H * hd, D),
@@ -193,8 +212,10 @@ class MeshContext:
     def group(self, axis: str):
         return self.mesh.group(axis)
 
-    def count(self, kind: str) -> None:
+    def count(self, kind: str, nbytes: int = 0) -> None:
+        """One collective of `kind` issued, its payload `nbytes` a rank."""
         self.counts[kind] += 1
+        self.bytes[kind] += nbytes
 
     def model_sharded(self, name: str, dim: int) -> bool:
         return "model" in self._axes[name][dim]
@@ -231,18 +252,26 @@ class MeshContext:
         return _FromModel.apply(x, self)
 
     def sum_over_data(self, x: torch.Tensor) -> torch.Tensor:
-        """All-reduce (SUM) of `x` over `data`, in place."""
-        return _all_reduce(x, self, "data")
+        """All-reduce (SUM) of `x` over the batch's ranks (pod x data), in
+        place."""
+        return _all_reduce(x, self, "batch")
+
+    def sum_over_pod(self, x: torch.Tensor) -> torch.Tensor:
+        """All-reduce (SUM) of `x` over `pod`, in place (a mesh with a pod
+        axis only)."""
+        return _all_reduce(x, self, "pod")
 
     def sum_data(self, x: torch.Tensor) -> torch.Tensor:
-        """`x` summed over `data`, its gradient summed over `data` too."""
+        """`x` summed over the batch's ranks, its gradient summed there too."""
         return _SumData.apply(x, self)
 
     def gather_data(self, x: torch.Tensor) -> torch.Tensor:
-        """Every data rank's `x` stacked in rank order (no gradient)."""
-        group = self.group("data")
-        parts = [torch.empty_like(x) for _ in range(dist.get_world_size(group))]
-        self.count("all_gather")
+        """Every batch rank's `x` stacked in rank order (pod-major; no
+        gradient)."""
+        group = self.group("batch")
+        n = dist.get_world_size(group)
+        parts = [torch.empty_like(x) for _ in range(n)]
+        self.count("all_gather", n * _nbytes(x))
         dist.all_gather(parts, x.contiguous(), group=group)
         return torch.stack(parts)
 
@@ -250,8 +279,9 @@ class MeshContext:
     def gather_model(self, x: torch.Tensor, dim: int) -> torch.Tensor:
         """Every `model` rank's `x` concatenated along `dim`, in rank order."""
         group = self.group("model")
-        parts = [torch.empty_like(x) for _ in range(dist.get_world_size(group))]
-        self.count("all_gather")
+        n = dist.get_world_size(group)
+        parts = [torch.empty_like(x) for _ in range(n)]
+        self.count("all_gather", n * _nbytes(x))
         dist.all_gather(parts, x.contiguous(), group=group)
         return torch.cat(parts, dim)
 

@@ -2,15 +2,19 @@
 
 The port of the reference package's `launch/mesh.py`. The production mesh
 is 16 x 16 ("data", "model") for one pod of 256 chips, or 2 x 16 x 16
-("pod", "data", "model") for two. One H100 host holds no 256 ranks, so
-`make_production_mesh` returns the shape-only `AbstractMesh`: the sharding
-rules (`distributed.partitioning`) run on it and nothing is launched.
-`make_test_mesh` is the runnable mesh of `distributed.make_mesh`, over the
-default process group (gloo ranks on the CPU in the tests, NCCL on cards).
+("pod", "data", "model") for two, `pod` pure data parallelism (the weights
+whole over it, the batch cut over pod x data). One H100 host holds no 256
+ranks, so `make_production_mesh` returns the shape-only `AbstractMesh`:
+the sharding rules (`distributed.partitioning`) run on it and nothing is
+launched. `launch.dryrun` runs the steps shape-only on it instead, as rank
+0 of a fake process group of its ranks (`dryrun.fake_mesh`).
+`make_test_mesh` is the runnable mesh of `distributed.make_mesh`, (D, S)
+or (P, D, S), over the default process group (gloo ranks on the CPU in the
+tests, NCCL on cards).
 """
 from __future__ import annotations
 
-from ..distributed.mesh import AXES, AbstractMesh, make_mesh
+from ..distributed.mesh import AXES, POD_AXES, AbstractMesh, make_mesh
 
 
 def make_production_mesh(*, multi_pod: bool = False) -> AbstractMesh:
@@ -21,9 +25,10 @@ def make_production_mesh(*, multi_pod: bool = False) -> AbstractMesh:
     return AbstractMesh({"data": 16, "model": 16})
 
 
-def make_test_mesh(shape=(2, 2), axes=AXES, device="cuda"):
-    """A runnable ("data", "model") mesh over the default process group."""
-    return make_mesh(shape, axes, device)
+def make_test_mesh(shape=(2, 2), axes=None, device="cuda"):
+    """A runnable (D, S) ("data", "model") or (P, D, S) ("pod", "data",
+    "model") mesh over the default process group."""
+    return make_mesh(shape, axes or (POD_AXES if len(shape) == 3 else AXES), device)
 
 
 # One NVIDIA H100 SXM 80 GB (roofline denominators; NVIDIA's data sheet):

@@ -22,25 +22,29 @@ updates the blocks in place::
     batch = shard_tree(full_batch, b_place, mesh)
     params, opt_state, loss = step(params, opt_state, batch)
 
-The loss is the mean over the global batch on every rank. Each rank's loss
-is the mean over its slice, so the gradients are averaged over `data`: the
-backward runs on loss / (data ranks), the gradient of a weight the rules
-shard over `data` is summed over `data` by its gather's backward, and every
-other gradient by one all-reduce over `data` after the backward. Where the
-batch does not divide the data ranks it is replicated over them (as the
-reference's `_batch_pspec_tree`), each rank's loss is the global one, and
-the same average holds. An MoE layer's load-balance and router-z terms are
-the global batch's on every data rank: their sums are all-reduced over
-`data` forward and backward (`MeshContext.sum_data`), so under the same
-average each rank's tokens take their gradient once. The step keeps the
-last step's metrics (`train_step.metrics`: ce averaged over `data` with
-the loss, load_balance, router_z and dropped_frac the global batch's).
-AdamW runs at lr 1e-4, as the reference's.
+The mesh is (D, S) over ("data", "model") or (P, D, S) over ("pod",
+"data", "model"); `pod` is pure data parallelism, as the reference's rules
+make it: the weights are whole over it, and the batch's ranks are pod x
+data. The loss is the mean over the global batch on every rank. Each
+rank's loss is the mean over its slice, so the gradients are averaged over
+the batch's ranks: the backward runs on loss / (batch ranks), the gradient
+of a weight the rules shard over `data` is summed over `data` by its
+gather's backward and then over `pod` by one all-reduce, and every other
+gradient by one all-reduce over pod x data after the backward. Where the
+batch does not divide the batch's ranks it is replicated over them (as
+the reference's `_batch_pspec_tree`), each rank's loss is the global one,
+and the same average holds. An MoE layer's load-balance and router-z terms
+are the global batch's on every batch rank: their sums are all-reduced
+over pod x data forward and backward (`MeshContext.sum_data`), so under
+the same average each rank's tokens take their gradient once. The step
+keeps the last step's metrics (`train_step.metrics`: ce averaged over the
+batch's ranks with the loss, load_balance, router_z and dropped_frac the
+global batch's). AdamW runs at lr 1e-4, as the reference's.
 
 The prefill and decode steps hold the same blocks of the parameters, this
 rank's slice of the batch (or of the decode tokens) and this rank's blocks
 of the decode caches (`cache_pspecs`: the sequence over `model`, the batch
-over `data` where it divides)::
+over pod x data where it divides)::
 
     prefill, _, (p_place, b_place) = step_and_specs(cfg, prefill_shape, mesh)
     logits, caches = prefill(params, shard_tree(full_batch, b_place, mesh), s_max=S + n)
@@ -54,12 +58,17 @@ where `uses_bangkv` (long_500k: zamba2's shared-block caches too, not
 mamba2, which has none) -- with the hierarchical top-L when the config
 asks for it (`opt_hier_topk`). An MoE layer's capacity and slots are the
 global batch's: each step's `MeshContext` knows from the shape's global
-batch whether the batch is cut over `data` (long_500k's one request is
-replicated over the data ranks). An SSM layer's caches are this rank's
+batch whether the batch is cut over pod x data (long_500k's one request
+is replicated over the batch's ranks). An SSM layer's caches are this rank's
 channels of the conv window and heads of the state. Whisper's prefill
-batch carries its frames (`frontend`, over `data` with the tokens), and
+batch carries its frames (`frontend`, over pod x data with the tokens), and
 its decode caches the cross K and V of `frontend_len` frames, cut over
 the batch only: every `model` rank holds every frame and KV head.
+
+The steps run on a runnable `Mesh` only. On a fake process group
+(`backend="fake"`) under `FakeTensorMode` a `Mesh` of the production
+shape runs them shape-only, every layer at the cell's global shapes, as
+rank 0 (`launch.dryrun`): its collectives are counted and move nothing.
 """
 from __future__ import annotations
 
@@ -141,7 +150,8 @@ def _batch_pspec_tree(specs: dict, mesh) -> dict:
 def _train_step(cfg: ModelConfig, shape: ShapeSpec, mesh, p_place) -> Callable:
     specs = flat_dict(p_place)
     # The parameters the rules leave whole over `data`: their gradients
-    # are summed over `data` after the backward.
+    # are summed over the batch's ranks (pod x data) after the backward;
+    # the others over `pod` only.
     whole = {k for k, sp in specs.items() if not any("data" in a for a in dim_axes(sp, len(sp), mesh))}
     n_data = _data_ranks(mesh)
     mc = _context(cfg, shape, mesh)
@@ -157,7 +167,9 @@ def _train_step(cfg: ModelConfig, shape: ShapeSpec, mesh, p_place) -> Callable:
         grads = {}
         for k, p in flat.items():
             if p.grad is not None and k in whole:
-                mc.sum_over_data(p.grad)   # each data rank holds a part of the sum
+                mc.sum_over_data(p.grad)   # each batch rank holds a part of the sum
+            elif p.grad is not None and mc.has_pod:
+                mc.sum_over_pod(p.grad)    # summed over `data` by its gather's backward
             grads[k] = p.grad
         params, opt_state, _ = adamw_update(grads, opt_state, params, LR, mesh=mesh, specs=specs)
         total = mc.sum_over_data(torch.stack([loss.detach(), metrics["ce"]])) / n_data

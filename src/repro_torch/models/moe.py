@@ -15,16 +15,17 @@ With a mesh (`distributed.collectives.MeshContext`: the mesh steps of
 `launch.specs`) the reference's `constrain` sites become collectives and
 the block keeps the one-device semantics of the global batch:
 
-  * over `data` (each rank a contiguous block of the batch's rows, so of
-    the token-major order): C is the capacity of the global T; each
-    expert's slots continue from the assignments routed to it on the data
-    ranks before this one (an all-gather of the per-expert counts, every
-    routed assignment counted), so `keep` is the one-device keep; the
-    sums of P and router z are all-reduced (their backward all-reduces
-    too: with the loss divided by the data ranks, each rank's tokens get
-    the whole gradient of the global terms once). Where the batch is
-    replicated over `data` (it does not divide the ranks) the rank holds
-    every token and nothing is exchanged.
+  * over the batch's ranks, `data` (and `pod`, pod-major, where the mesh
+    has it; each rank a contiguous block of the batch's rows, so of the
+    token-major order): C is the capacity of the global T; each expert's
+    slots continue from the assignments routed to it on the batch ranks
+    before this one (an all-gather of the per-expert counts, every routed
+    assignment counted), so `keep` is the one-device keep; the sums of P
+    and router z are all-reduced (their backward all-reduces too: with
+    the loss divided by the batch ranks, each rank's tokens get the whole
+    gradient of the global terms once). Where the batch is replicated
+    over them (it does not divide the ranks) the rank holds every token
+    and nothing is exchanged.
   * over `model` (expert parallelism, `_MOE_RULES`): a rank holds E/M
     experts, gathered over `data` at their use; it scatters the tokens
     routed to them into an (E/M, C, D) buffer, runs their products and
@@ -101,7 +102,7 @@ class Routing(NamedTuple):
 def route(router: torch.Tensor, xt: torch.Tensor, top_k: int, C: int, mesh=None) -> Routing:
     """Top-k routing of (T, D) tokens, each (token, slot) ranked within its
     expert by a cumsum over the flattened one-hot, token-major. With `mesh`
-    (its batch cut over `data`) `xt` is this data rank's block of the
+    (its batch cut over pod x data) `xt` is this batch rank's block of the
     global tokens: its slots start after the assignments of the ranks
     before it, and `counts` are the global counts."""
     T = xt.shape[0]
@@ -115,8 +116,8 @@ def route(router: torch.Tensor, xt: torch.Tensor, top_k: int, C: int, mesh=None)
     counts = flat.sum(dim=0, dtype=torch.int32)                         # (E,)
     pos_in_expert = torch.cumsum(flat, dim=0, dtype=torch.int32) - flat
     if mesh is not None and mesh.batch_cut:
-        ranks = mesh.gather_data(counts)                                # (data ranks, E)
-        pos_in_expert = pos_in_expert + ranks[:mesh.data_index].sum(dim=0, dtype=torch.int32)
+        ranks = mesh.gather_data(counts)                                # (batch ranks, E)
+        pos_in_expert = pos_in_expert + ranks[:mesh.batch_index].sum(dim=0, dtype=torch.int32)
         counts = ranks.sum(dim=0, dtype=torch.int32)
     pos = (pos_in_expert * flat).sum(dim=-1).reshape(T, top_k)          # (T, k)
     return Routing(logits, probs, gate_vals, expert_idx, onehot, pos, pos < C, counts)
@@ -139,7 +140,7 @@ def moe_block(
     T = B * S
     xt = x.reshape(T, D)
     E = n_experts
-    n_tok = T * mesh.n_data if mesh is not None and mesh.batch_cut else T   # the global T
+    n_tok = T * mesh.n_batch if mesh is not None and mesh.batch_cut else T   # the global T
     C = capacity(n_tok, top_k, capacity_factor, E)
     router, wg, wu, wd = p["router"], p["w_gate"], p["w_up"], p["w_down"]
     split, e0 = False, 0

@@ -52,7 +52,7 @@ from typing import NamedTuple
 import torch
 
 from ..core.kmeans import kmeans_per_subspace
-from ..distributed.partitioning import P, gather_tensor
+from ..distributed.partitioning import P, batch_pspec, gather_tensor
 from ..kernels.common import resolve_device
 from .attention import HeadPlan, KVCache, softmax_parts, write_at_index
 from .layers import apply_rope, truncated_normal_init
@@ -132,7 +132,7 @@ def fit_bangkv_caches(caches: KVCache, fill: int, m: int, iters: int = 12, *, se
     `caches.v`: clone them first where the exact cache decodes too.
 
     On a mesh, `caches` are this rank's blocks (`seq`: its block of the
-    sequence; `batch_cut`: the batch cut over `data`): each layer's keys
+    sequence; `batch_cut`: the batch cut over pod x data): each layer's keys
     are gathered from every rank (a collective), so every rank fits the
     codebooks a single device would, and encodes its own block."""
     L, B, S = caches.k.shape[:3]
@@ -142,7 +142,7 @@ def fit_bangkv_caches(caches: KVCache, fill: int, m: int, iters: int = 12, *, se
     held = min(max(fill - lo, 0), S)   # this block's positions below `fill`
     spec = None
     if seq is not None:
-        spec = P("data" if batch_cut else None, "model" if seq.cut else None)
+        spec = P(batch_pspec(seq.mesh.mesh)[0] if batch_cut else None, "model" if seq.cut else None)
     cbs = []
     codes = torch.zeros((L, B, S, Hkv, m), dtype=torch.uint8, device=dev)
     for layer in range(L):

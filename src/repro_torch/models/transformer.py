@@ -810,7 +810,7 @@ class LM(nn.Module):
         L = cfg.n_layers
         mesh = _mesh_for(cfg, mesh, "decode")
         if mesh is not None:
-            batch = batch // mesh.n_data if batch % mesh.n_data == 0 else batch
+            batch = batch // mesh.n_batch if batch % mesh.n_batch == 0 else batch
             s_max = mesh.seq_block(s_max).length
 
         def attn(n: int):

@@ -20,7 +20,7 @@ this rank's blocks and the update is elementwise on them; only the global
 norm reads across the mesh: each rank sums the squares of its own blocks,
 counting a block only on the first rank of every mesh axis its partition
 spec leaves it whole on (each parameter once, not once a replica), and the
-sums are all-reduced over `model` and then over `data`.
+sums are all-reduced over `model`, then over `data`, then over `pod`.
 """
 from __future__ import annotations
 
@@ -71,8 +71,8 @@ def global_norm(tensors, *, mesh=None, specs=None) -> torch.Tensor:
     With `mesh` (a runnable `Mesh`), `tensors` are this rank's blocks and
     `specs` their partition specs, in the same order: a block enters this
     rank's sum only where the rank is first on every axis the spec does not
-    name, and the sums are all-reduced over `model`, then over `data`
-    (every rank calls it)."""
+    name, and the sums are all-reduced over `model`, then over `data`,
+    then over `pod` where the mesh has it (every rank calls it)."""
     tensors = list(tensors)
     dev = next((x.device for x in tensors if x is not None), None)
     if dev is None:
@@ -89,8 +89,9 @@ def global_norm(tensors, *, mesh=None, specs=None) -> torch.Tensor:
     if mesh is not None:
         if total is None:   # this rank holds no block it counts
             total = torch.zeros((), dtype=torch.float32, device=dev)
-        for axis in ("model", "data"):
-            dist.all_reduce(total, group=mesh.group(axis))
+        for axis in ("model", "data", "pod"):
+            if axis in mesh.shape:
+                dist.all_reduce(total, group=mesh.group(axis))
     return torch.sqrt(total)
 
 

@@ -21,6 +21,8 @@ from repro_torch.core import SearchConfig
 from repro_torch.kernels import autotune as at
 from repro_torch.runtime import SearchExecutor, bucket_size
 
+torch.set_num_threads(1)   # one intra-op thread: the suite runs a pytest-xdist worker a core
+
 R, M = 16, 8          # small_ann_index build parameters (R=16, m=8)
 
 

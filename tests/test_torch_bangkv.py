@@ -17,6 +17,8 @@ from repro.models.attention import decode_attention as r_decode_attention
 from repro_torch.models import retrieval_attention as bkv
 from repro_torch.models.attention import KVCache, decode_attention
 
+torch.set_num_threads(1)   # one intra-op thread: the suite runs a pytest-xdist worker a core
+
 RTOL, ATOL = 1e-5, 1e-6
 
 

@@ -19,6 +19,8 @@ from repro_torch.core.worklist import INVALID_ID, Worklist
 from repro_torch.kernels.bitonic import ops
 from repro_torch.kernels.common import next_pow2
 
+torch.set_num_threads(1)   # one intra-op thread: the suite runs a pytest-xdist worker a core
+
 SORT_SHAPES = [(1, 2), (5, 16), (9, 23), (3, 64), (2, 100)]     # tests/test_kernels.py:52
 MERGE_SHAPES = [(1, 4, 4), (6, 16, 12), (3, 64, 64), (2, 33, 7)]  # tests/test_kernels.py:66
 # Row lengths of K4 around a warp (32), the main path's R (64) and the warp

@@ -22,6 +22,8 @@ from repro_torch.models.layers import ParamTree
 from repro_torch.optim import adamw_init, adamw_update
 from repro_torch.tree import flat_dict, leaves
 
+torch.set_num_threads(1)   # one intra-op thread: the suite runs a pytest-xdist worker a core
+
 
 @pytest.mark.parametrize("kw", [dict(vocab_size=1000, seq_len=32, global_batch=4, seed=5),
                                 dict(vocab_size=49_155, seq_len=64, global_batch=8, seed=1,

@@ -21,6 +21,8 @@ from repro_torch.models import attention, transformer
 from _lm_parity import (BF16_TOL, MODEL_ATOL, MODEL_RTOL, bang_from_kv, close, close_caches,
                         pad_kv, pair, prompt, randn, t)
 
+torch.set_num_threads(1)   # one intra-op thread: the suite runs a pytest-xdist worker a core
+
 ARCH = "whisper-medium"
 
 

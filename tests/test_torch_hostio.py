@@ -35,6 +35,8 @@ import numpy as np
 import pytest
 import torch
 
+torch.set_num_threads(1)   # one intra-op thread: the suite runs a pytest-xdist worker a core
+
 try:
     from hypothesis import given, settings, strategies as st
 except ImportError:  # pragma: no cover - fallback shim keeps suite collectable

@@ -17,6 +17,8 @@ from repro_torch.data import gaussian_mixture, uniform_queries
 from repro_torch.runtime.hostio import HostIOConfig
 from repro_torch.runtime.hostio import prefetch as prefetch_mod
 
+torch.set_num_threads(1)   # one intra-op thread: the suite runs a pytest-xdist worker a core
+
 K = 5
 MODES = ("reference", "staged", "fused")
 

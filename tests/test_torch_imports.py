@@ -8,6 +8,8 @@ from pathlib import Path
 import pytest
 import torch
 
+torch.set_num_threads(1)   # one intra-op thread: the suite runs a pytest-xdist worker a core
+
 SRC = Path(__file__).resolve().parents[1] / "src"
 
 BLOCKED_IMPORT = r'''
@@ -92,6 +94,9 @@ FOURTEENTH_SLICE = {
     "repro_torch.launch.mesh", "repro_torch.launch.specs",
 }
 
+# Modules of the nineteenth slice: the launch slice's serve CLI and dry run.
+NINETEENTH_SLICE = {"repro_torch.launch.serve", "repro_torch.launch.dryrun"}
+
 
 def test_every_module_imports_without_jax_or_reference():
     env = dict(os.environ, PYTHONPATH=str(SRC))
@@ -102,7 +107,7 @@ def test_every_module_imports_without_jax_or_reference():
     assert res.returncode == 0, res.stderr
     names = set(res.stdout.split())
     slices = (SECOND_SLICE | THIRD_SLICE | EIGHTH_SLICE | NINTH_SLICE | TENTH_SLICE | ELEVENTH_SLICE
-              | TWELFTH_SLICE | THIRTEENTH_SLICE | FOURTEENTH_SLICE)
+              | TWELFTH_SLICE | THIRTEENTH_SLICE | FOURTEENTH_SLICE | NINETEENTH_SLICE)
     assert len(names) >= 80 and slices <= names   # every module was walked
 
 
@@ -227,6 +232,18 @@ def test_mesh_step_defaults_to_cuda():
 
     if torch.cuda.is_available():
         pytest.skip("a card is present: the default device is usable")
-    with pytest.raises(RuntimeError, match="CUDA"):
-        make_test_mesh((1, 1))
+    for shape in ((1, 1), (1, 1, 1)):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            make_test_mesh(shape)
     assert not dist.is_initialized()
+
+
+def test_serve_cli_defaults_to_cuda():
+    """The ANN serve CLI builds its index on the card unless asked for the
+    CPU: with no card it raises and never falls back to the CPU."""
+    from repro_torch.launch import serve
+
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default device is usable")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        serve.main(["--n", "64", "--batches", "1", "--batch-size", "8"])

@@ -23,6 +23,8 @@ from repro_torch.kernels.pq_table import ops as table_ops
 from repro_torch.kernels.rerank_l2 import ops as rr_ops
 from repro_torch.kernels.search_step import ops as step_ops
 
+torch.set_num_threads(1)   # one intra-op thread: the suite runs a pytest-xdist worker a core
+
 RTOL, ATOL = 1e-6, 1e-5
 STEP_SHAPES = [
     (1, 1, 4, 1, 16),          # degenerate single-candidate step

@@ -43,6 +43,8 @@ from _lm_parity import prompt as _prompt
 from _lm_parity import randn as _randn
 from _lm_parity import t as _t
 
+torch.set_num_threads(1)   # one intra-op thread: the suite runs a pytest-xdist worker a core
+
 DECODER_ARCHS = ["gemma3-27b", "phi3-medium-14b", "granite-3-2b", "glm4-9b",
                  "phi3.5-moe-42b-a6.6b", "llama4-scout-17b-a16e", "internvl2-1b"]
 ALL_ARCHS = sorted(configs.ARCHS)

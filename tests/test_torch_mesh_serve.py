@@ -63,6 +63,8 @@ from repro_torch.tree import flat_dict, flatten_with_path, path_key
 
 from _lm_parity import bang_from_kv, pad_kv
 
+torch.set_num_threads(1)   # one intra-op thread: the suite runs a pytest-xdist worker a core
+
 SRC = Path(__file__).resolve().parents[1] / "src"
 KEY = jax.random.PRNGKey(0)
 RTOL, ATOL = 1e-5, 1e-6

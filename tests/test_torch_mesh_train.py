@@ -60,6 +60,8 @@ from repro_torch.optim import adamw_init, adamw_update
 from repro_torch.optim.compression import stacked_key
 from repro_torch.tree import flat_dict
 
+torch.set_num_threads(1)   # one intra-op thread: the suite runs a pytest-xdist worker a core
+
 SRC = Path(__file__).resolve().parents[1] / "src"
 KEY = jax.random.PRNGKey(0)
 SEQ, LR = 64, 1e-4

@@ -42,6 +42,8 @@ from repro_torch.distributed import make_mesh
 from repro_torch.runtime import MutableBangIndex, ServePipeline, Telemetry
 from repro_torch.runtime.hostio import HostIOConfig
 
+torch.set_num_threads(1)   # one intra-op thread: the suite runs a pytest-xdist worker a core
+
 K = 5
 T = 32
 CFG = SearchConfig(t=T, bloom_z=4096)

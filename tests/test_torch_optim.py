@@ -28,6 +28,8 @@ from repro_torch.tree import flat_dict
 
 from _lm_parity import KEY
 
+torch.set_num_threads(1)   # one intra-op thread: the suite runs a pytest-xdist worker a core
+
 ADAM_RTOL, ADAM_ATOL = 1e-6, 1e-8
 
 

@@ -40,6 +40,8 @@ from repro_torch.optim import adamw_init
 from repro_torch.optim.compression import stacked_key
 from repro_torch.tree import flatten_with_path, path_key
 
+torch.set_num_threads(1)   # one intra-op thread: the suite runs a pytest-xdist worker a core
+
 SRC = Path(__file__).resolve().parents[1] / "src"
 ARCHS = sorted(configs.ARCHS)
 MESHES = {

@@ -7,6 +7,8 @@ import torch
 from repro.core import pq as jpq
 from repro_torch.core import pq as tpq
 
+torch.set_num_threads(1)   # one intra-op thread: the suite runs a pytest-xdist worker a core
+
 RTOL, ATOL = 1e-6, 1e-5
 
 

@@ -9,11 +9,14 @@ import sys
 import threading
 
 import pytest
+import torch
 
 from repro.runtime import resilience as jres
 from repro.runtime.telemetry import FlightRecorder as JFlightRecorder
 from repro_torch.runtime import resilience as tres
 from repro_torch.runtime.telemetry import FlightRecorder
+
+torch.set_num_threads(1)   # one intra-op thread: the suite runs a pytest-xdist worker a core
 
 SPECS = (
     ("transient_error", dict(shard=0, start=2, count=3)),

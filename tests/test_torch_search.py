@@ -21,6 +21,8 @@ from repro_torch.convert import index_from_reference
 from repro_torch.core import SearchConfig, brute_force_knn, recall_at_k
 from repro_torch.runtime import SearchExecutor
 
+torch.set_num_threads(1)   # one intra-op thread: the suite runs a pytest-xdist worker a core
+
 K = 5
 # tests/test_recall_regression.py RECALL_FLOORS
 RECALL_FLOORS = {"inmem": 0.92, "base": 0.92, "exact": 0.95}

@@ -17,6 +17,9 @@ import time
 
 import numpy as np
 import pytest
+import torch
+
+torch.set_num_threads(1)   # one intra-op thread: the suite runs a pytest-xdist worker a core
 
 try:
     from hypothesis import given, settings, strategies as st

@@ -48,6 +48,8 @@ from repro_torch.kernels.search_step import ops as step_ops
 from repro_torch.runtime import SHARDED_VARIANTS, ServePipeline, ShardedSearchExecutor
 from repro_torch.runtime.hostio import HostIOConfig
 
+torch.set_num_threads(1)   # one intra-op thread: the suite runs a pytest-xdist worker a core
+
 SRC = Path(__file__).resolve().parents[1] / "src"
 K = 5
 RTOL, ATOL = 1e-6, 1e-5

@@ -23,6 +23,8 @@ from repro_torch.models.transformer import _pick_chunk
 from _lm_parity import (ATOL, BF16_TOL, MODEL_ATOL, MODEL_RTOL, RTOL, bang_from_kv, close,
                         close_caches, pad_kv, pair, prompt, randn, t)
 
+torch.set_num_threads(1)   # one intra-op thread: the suite runs a pytest-xdist worker a core
+
 
 def _ssd_inputs(seed, B, S, H, P, G, N, *, bc_scale=1.0, init=False):
     rng = np.random.default_rng(seed)

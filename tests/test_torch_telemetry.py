@@ -23,6 +23,8 @@ from repro_torch.kernels.search_step import ops as step_ops
 from repro_torch.runtime import telemetry as ttel
 from repro_torch.runtime.executor import SearchExecutor
 
+torch.set_num_threads(1)   # one intra-op thread: the suite runs a pytest-xdist worker a core
+
 K = 5
 CFG = SearchConfig(t=16)
 

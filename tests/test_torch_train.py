@@ -36,6 +36,8 @@ from _lm_parity import close as _close
 from _lm_parity import randn as _randn
 from _lm_parity import t as _t
 
+torch.set_num_threads(1)   # one intra-op thread: the suite runs a pytest-xdist worker a core
+
 ALL_ARCHS = sorted(configs.ARCHS)
 # One config of each family for the gradients; the MoE with its reduced
 # config's dropping (capacity factor 1.25) and without it (16).

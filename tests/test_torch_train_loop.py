@@ -42,6 +42,8 @@ from repro_torch.tree import flat_dict
 
 from _lm_parity import KEY
 
+torch.set_num_threads(1)   # one intra-op thread: the suite runs a pytest-xdist worker a core
+
 ROOT = Path(__file__).resolve().parents[1]
 LOOP = dict(steps=8, seq_len=16, global_batch=2, warmup=2, peak_lr=3e-4, log_every=0)
 FLIP_SHARE = 1e-3

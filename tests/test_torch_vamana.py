@@ -25,6 +25,8 @@ from repro_torch.core import pq as tpq
 from repro_torch.core import vamana as tv
 from repro_torch.core import worklist as twl
 
+torch.set_num_threads(1)   # one intra-op thread: the suite runs a pytest-xdist worker a core
+
 K = 10
 # tests/test_recall_regression.py's floors for the single-device variants.
 RECALL_FLOORS = {"inmem": 0.92, "base": 0.92, "exact": 0.95}

@@ -15,6 +15,8 @@ from repro.core import worklist as jwl
 from repro_torch.core import bloom as tbloom
 from repro_torch.core import worklist as twl
 
+torch.set_num_threads(1)   # one intra-op thread: the suite runs a pytest-xdist worker a core
+
 
 def _normal_f32(rng, shape, scale=100.0):
     """Finite float32 draws with no subnormals (and some repeated values,
